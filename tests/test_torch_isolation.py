@@ -1,0 +1,68 @@
+"""The port imports neither JAX nor the JAX package, and chip_smoke.py neither."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "unet_medical_image_contour_segmentation_torch"
+FORBIDDEN = ("jax", "jaxlib", "unet_medical_image_contour_segmentation_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_importing_everything_loads_no_jax():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(REPO)!r})
+import unet_medical_image_contour_segmentation_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ISOLATED", len([n for n in sys.modules if n.startswith(port.__name__)]))
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "ISOLATED" in r.stdout
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """With no card, chip_smoke exits nonzero and prints no result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke would run")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Copied without the rest of the repo, chip_smoke.py cannot run."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                       timeout=120, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,94 @@
+"""Checkpoints in the JAX package's ``.npz`` format, plus reference ``.pth``.
+
+The ``.npz`` layout is that of the JAX package's ``engine/checkpoint.py``:
+one array per leaf of the ``params`` / ``bn_state`` / ``opt_state`` pytrees,
+keyed by its path joined with ``//``, and a JSON ``__meta__`` entry (step,
+mask_values, extra).  A checkpoint written by either package loads in the
+other unchanged.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.torch_compat import load_pth, params_from_state_dict, state_dict_from_jax
+
+__all__ = ["save_checkpoint", "load_checkpoint", "load_weights"]
+
+_SEP = "//"
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
+    tree: dict = {}
+    for key, val in flat.items():
+        parts = key.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def save_checkpoint(path: str, model: nn.Module, step: int = 0,
+                    mask_values=None, extra: Optional[dict] = None) -> None:
+    """Write the model's weights as ``.npz``, or as a reference ``.pth``
+    state_dict (with its ``mask_values`` entry) when the path says so."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if str(path).endswith(".pth"):
+        if mask_values is not None:
+            sd["mask_values"] = mask_values
+        torch.save(sd, path)
+        return
+    params, bn_state, _ = params_from_state_dict(sd)
+    blobs: Dict[str, np.ndarray] = {}
+    blobs.update({f"params{_SEP}{k}": v for k, v in _flatten(params).items()})
+    blobs.update({f"bn_state{_SEP}{k}": v for k, v in _flatten(bn_state).items()})
+    meta = {"step": int(step), "mask_values": mask_values, "extra": extra or {},
+            "format": "umics-tpu-v1"}
+    blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    np.savez(path, **blobs)
+
+
+def load_checkpoint(path: str) -> dict:
+    """An ``.npz`` checkpoint -> dict(params, bn_state, opt_state, step,
+    mask_values, extra), the pytrees as numpy arrays in the JAX layout."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(flat.pop("__meta__")).decode())
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in flat.items():
+        group, rest = key.split(_SEP, 1)
+        groups.setdefault(group, {})[rest] = val
+    return {
+        "params": _unflatten(groups.get("params", {})),
+        "bn_state": _unflatten(groups.get("bn_state", {})),
+        "opt_state": _unflatten(groups["opt_state"]) if "opt_state" in groups else None,
+        "step": meta["step"],
+        "mask_values": meta["mask_values"],
+        "extra": meta.get("extra", {}),
+    }
+
+
+def load_weights(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:
+    """``.pth``/``.pt`` or ``.npz`` -> (the port's state_dict, mask_values)."""
+    if str(path).endswith((".pth", ".pt")):
+        return load_pth(path)
+    ck = load_checkpoint(path)
+    return state_dict_from_jax(ck["params"], ck["bn_state"]), ck["mask_values"]

@@ -1,0 +1,147 @@
+"""3x3 stride-1 SAME convolution, NHWC, as a hand-written Hopper kernel.
+
+Replaces the TPU kernel ``ops/pallas_conv.py:conv_s2d_b4_im2col`` of the JAX
+package (``pallas_call`` at :133).  That kernel takes a space-to-depth-4
+tensor only to get around the TPU's (8, 128) memory tiling at C < 128; a
+Hopper kernel reads NHWC with C = 8..32 directly, so the kernel here computes
+the same function, a 3x3 SAME conv with f32 accumulation, on NHWC tensors,
+and :func:`conv_s2d_b4_im2col` keeps the TPU kernel's s2d contract as a thin
+``s2d . conv . d2s`` wrapper.
+
+Bound: memory.  The function reads x and writes y once; at the unet_s shapes
+its 9*Cin*Cout MACs per pixel are far below the card's operations-per-byte
+balance.  The design (``csrc/conv3x3.cu``) is the simple first version: one
+block per (image, 16x32 output tile, 16 output channels) stages the halo tile
+and its weight chunk in shared memory, and each thread sums 4 pixels x 16
+channels in f32 registers on the CUDA cores.
+
+:func:`conv3x3_nhwc` runs the kernel for a CUDA tensor and the plain
+version :func:`conv3x3_nhwc_reference` for a CPU tensor; nothing else picks
+between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.s2d import d2s, s2d
+
+__all__ = [
+    "conv3x3_nhwc",
+    "conv3x3_nhwc_reference",
+    "conv_s2d_b4_im2col",
+    "pack_weight",
+    "supported",
+]
+
+CIN_MIN, CIN_MAX = 8, 32
+_TILE_H, _CO_CHUNK = 16, 16   # csrc/conv3x3.cu: TH, CO
+_GRID_MAX = 65535
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def supported(w_shape, stride: int = 1, padding: int = 0) -> bool:
+    """The dispatch rule: a 3x3, stride-1, pad-1 conv with 8 <= Cin <= 32
+    (the JAX rule of ``ops/s2d.py:179-181``, minus its layout and env terms)."""
+    kh, kw, cin, _ = w_shape
+    return (kh, kw, stride, padding) == (3, 3, 1, 1) and CIN_MIN <= cin <= CIN_MAX
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> the kernel's (9*Cin, Cout) matrix, row
+    (u*3 + v)*Cin + ci.  A view when ``w`` is contiguous, so a weight stored
+    contiguous in the compute dtype is packed once, where it is stored."""
+    return w.reshape(9 * w.shape[2], w.shape[3]).contiguous()
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"want x (B, H, W, Cin) and w (3, 3, Cin, Cout); "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    cin, cout = w.shape[2], w.shape[3]
+    if x.shape[3] != cin:
+        raise ValueError(f"x has {x.shape[3]} channels, w expects {cin}")
+    if not CIN_MIN <= cin <= CIN_MAX or cout < 1:
+        raise ValueError(f"conv3x3_nhwc takes {CIN_MIN} <= Cin <= {CIN_MAX} and "
+                         f"Cout >= 1; got Cin={cin}, Cout={cout}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must share one dtype of {_DTYPES}; "
+                        f"got {x.dtype} and {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous NHWC")
+
+
+def conv3x3_nhwc_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version: pad by 1, concatenate the 9 shifted slices into a
+    (B, H, W, 9*Cin) patch, one product with the packed weight in f32, cast."""
+    _check(x, w)
+    _, h, wd, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    patch = torch.cat([xp[:, u:u + h, v:v + wd, :] for u in range(3) for v in range(3)],
+                      dim=-1)
+    y = patch.float() @ pack_weight(w).float()
+    return y.to(x.dtype)
+
+
+def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[b,h,w,co] = sum_{u,v,ci} x[b,h+u-1,w+v-1,ci] * w[u,v,ci,co], zero padded.
+
+    x: contiguous (B, H, W, Cin), bf16 or f32; w: HWIO (3, 3, Cin, Cout) in
+    x's dtype -> (B, H, W, Cout) in x's dtype, summed in f32.  A CUDA tensor
+    goes to the kernel (and adds one to ``conv3x3_nhwc.launches``), a CPU
+    tensor to the plain version.  Forward only: a CUDA input that requires
+    grad raises until the backward kernel exists.
+    """
+    _check(x, w)
+    if x.device.type == "cpu":
+        return conv3x3_nhwc_reference(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_nhwc runs on cuda or cpu, not {x.device}")
+    if x.requires_grad or w.requires_grad:
+        raise RuntimeError("conv3x3_nhwc has no backward yet: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if -(-h // _TILE_H) > _GRID_MAX or b * -(-cout // _CO_CHUNK) > _GRID_MAX:
+        raise ValueError(f"shape {tuple(x.shape)} -> {cout} exceeds the launch grid")
+    wp = pack_weight(w)
+    y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    lib = _library()
+    fn = lib.conv3x3_nhwc_bf16 if x.dtype == torch.bfloat16 else lib.conv3x3_nhwc_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, wd, cin, cout, stream)
+    if err:
+        raise RuntimeError(f"conv3x3_nhwc launch failed: "
+                           f"{lib.conv3x3_error_string(err).decode()} ({err})")
+    conv3x3_nhwc.launches += 1
+    return y
+
+
+conv3x3_nhwc.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("conv3x3")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.conv3x3_nhwc_bf16, lib.conv3x3_nhwc_f32):
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+    lib.conv3x3_error_string.argtypes = [i32]
+    lib.conv3x3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def conv_s2d_b4_im2col(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's contract: (B, Gh, Gw, 16*Cin) s2d-4 x, HWIO w ->
+    (B, Gh, Gw, 16*Cout), computed as ``s2d(conv3x3_nhwc(d2s(x, 4), w), 4)``."""
+    return s2d(conv3x3_nhwc(d2s(x, 4).contiguous(), w), 4)

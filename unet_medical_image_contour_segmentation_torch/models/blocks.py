@@ -1,0 +1,109 @@
+"""UNet building blocks as ``nn.Module``s over NHWC activations.
+
+The blocks of the JAX package's ``models/blocks.py``: DoubleConv ((3x3 conv
+without bias -> BN -> ReLU) x 2), Down (2x2 max pool then DoubleConv), Up
+(ConvTranspose k2 s2, asymmetric pad to the skip's size, concat
+``[skip, up]``, DoubleConv) and OutConv (1x1 conv with bias).
+
+Parameters sit in ``nn.Conv2d`` / ``nn.BatchNorm2d`` / ``nn.ConvTranspose2d``
+holders named like the reference model, so its state_dict keys
+(``inc.double_conv.{0,1,3,4}``, ``down{i}.maxpool_conv.1.double_conv``,
+``up{i}.up``, ``up{i}.conv.double_conv``, ``outc.conv``) load with a plain
+``load_state_dict``; their torch default initialisers are the JAX package's.
+The forward passes go through ``ops.nn`` on NHWC tensors, never through the
+holders' own NCHW ``forward``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.nn import batch_norm, conv2d, conv_transpose2d, max_pool2d
+
+__all__ = ["DoubleConv", "Down", "Up", "OutConv"]
+
+
+def _conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+
+
+def _bn_apply(bn: nn.BatchNorm2d, y: torch.Tensor, train: bool) -> torch.Tensor:
+    y, (mean, var) = batch_norm(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                train=train, momentum=bn.momentum, eps=bn.eps)
+    if train:
+        with torch.no_grad():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+            bn.num_batches_tracked += 1
+    return y
+
+
+class DoubleConv(nn.Module):
+    def __init__(self, cin: int, cout: int, cmid: Optional[int] = None):
+        super().__init__()
+        cmid = cmid or cout
+        self.double_conv = nn.Sequential(
+            nn.Conv2d(cin, cmid, 3, padding=1, bias=False),
+            nn.BatchNorm2d(cmid),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(cmid, cout, 3, padding=1, bias=False),
+            nn.BatchNorm2d(cout),
+            nn.ReLU(inplace=True),
+        )
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+        for i in (0, 3):
+            conv, bn = self.double_conv[i], self.double_conv[i + 1]
+            y = conv2d(x, _conv_hwio(conv), padding=1, compute_dtype=compute_dtype)
+            x = torch.relu(_bn_apply(bn, y, self.training))
+        return x
+
+
+class Down(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+        return self.maxpool_conv[1](max_pool2d(x, 2), compute_dtype)
+
+
+def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Asymmetric zero pad of NHWC x1 to x2's spatial size."""
+    dh = x2.shape[1] - x1.shape[1]
+    dw = x2.shape[2] - x1.shape[2]
+    if dh == 0 and dw == 0:
+        return x1
+    return F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+
+
+class Up(nn.Module):
+    """x2 ConvTranspose upsample of x1, concat with the skip x2, DoubleConv."""
+
+    def __init__(self, cin: int, cout: int, bilinear: bool = False):
+        super().__init__()
+        if bilinear:
+            raise NotImplementedError("the bilinear Up block is not ported yet")
+        self.up = nn.ConvTranspose2d(cin, cin // 2, kernel_size=2, stride=2)
+        self.conv = DoubleConv(cin, cout)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None):
+        # (in, out, kh, kw) -> HWIO with I = in
+        x1 = conv_transpose2d(x1, self.up.weight.permute(2, 3, 0, 1), self.up.bias,
+                              stride=2, compute_dtype=compute_dtype)
+        x1 = _pad_to_match(x1, x2)
+        return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype)
+
+
+class OutConv(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size=1)
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+        return conv2d(x, _conv_hwio(self.conv), self.conv.bias, compute_dtype=compute_dtype)

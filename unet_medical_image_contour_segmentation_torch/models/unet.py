@@ -1,0 +1,82 @@
+"""The UNet family as one width-parameterised ``nn.Module``.
+
+The JAX package's ``models/unet.py`` with its presets ``unet`` (64..1024),
+``unet_t`` (8..128) and ``unet_s`` (16..256, the default).  Input is NHWC
+(B, H, W, C), or (B, H, W) read as C = 1; logits come back f32 NHWC.
+``compute_dtype`` (e.g. ``torch.bfloat16``) is the dtype every conv runs in.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .blocks import DoubleConv, Down, OutConv, Up
+
+__all__ = ["UNet", "unet", "unet_t", "unet_s", "MODEL_REGISTRY", "get_model"]
+
+
+class UNet(nn.Module):
+    """4-down / 4-up UNet with ConvTranspose upsampling."""
+
+    def __init__(self, n_channels: int = 1, n_classes: int = 3, bilinear: bool = False,
+                 widths: Tuple[int, int, int, int, int] = (16, 32, 64, 128, 256),
+                 compute_dtype: Optional[torch.dtype] = None, name: str = "unet_s"):
+        super().__init__()
+        if bilinear:
+            raise NotImplementedError("bilinear=True is not ported yet")
+        self.n_channels, self.n_classes, self.bilinear = n_channels, n_classes, bilinear
+        self.widths, self.compute_dtype, self.name = tuple(widths), compute_dtype, name
+        w = self.widths
+        self.inc = DoubleConv(n_channels, w[0])
+        self.down1, self.down2 = Down(w[0], w[1]), Down(w[1], w[2])
+        self.down3, self.down4 = Down(w[2], w[3]), Down(w[3], w[4])
+        self.up1, self.up2 = Up(w[4], w[3]), Up(w[3], w[2])
+        self.up3, self.up4 = Up(w[2], w[1]), Up(w[1], w[0])
+        self.outc = OutConv(w[0], n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
+        if x.dim() == 3:
+            x = x.unsqueeze(-1)
+        cd = self.compute_dtype
+        x1 = self.inc(x, cd)
+        x2 = self.down1(x1, cd)
+        x3 = self.down2(x2, cd)
+        x4 = self.down3(x3, cd)
+        x5 = self.down4(x4, cd)
+        y = self.up1(x5, x4, cd)
+        y = self.up2(y, x3, cd)
+        y = self.up3(y, x2, cd)
+        y = self.up4(y, x1, cd)
+        return self.outc(y, cd).float()
+
+
+def unet(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
+    """Standard UNet, widths 64..1024."""
+    return UNet(n_channels, n_classes, bilinear, widths=(64, 128, 256, 512, 1024),
+                name="unet", **kw)
+
+
+def unet_t(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
+    """Tiny UNet, widths 8..128."""
+    return UNet(n_channels, n_classes, bilinear, widths=(8, 16, 32, 64, 128),
+                name="unet_t", **kw)
+
+
+def unet_s(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
+    """Small UNet, widths 16..256: the default model."""
+    return UNet(n_channels, n_classes, bilinear, widths=(16, 32, 64, 128, 256),
+                name="unet_s", **kw)
+
+
+MODEL_REGISTRY = {"unet": unet, "unet_t": unet_t, "unet_s": unet_s}
+
+
+def get_model(name: str, **kw) -> UNet:
+    if name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown or not yet ported model {name!r}; "
+                         f"available: {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name](**kw)

@@ -1,0 +1,62 @@
+"""Bilinear resize with PyTorch's index rules, NHWC, as two matrix products.
+
+The same construction as the JAX package's ``ops/resize.py``: separable
+interpolation by a (out, in) row-stochastic matrix per axis, in f32.  Two
+modes are used: ``align_corners=True`` for the x2 decoder upsample of the
+bilinear UNet, and ``align_corners=False`` for the Predictor's back-resize of
+the logits to the original image size.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["bilinear_resize", "upsample_x2_align_corners"]
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_np(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """(out_size, in_size) bilinear interpolation matrix, with the source
+    index of ATen's ``area_pixel_compute_source_index``."""
+    if in_size == out_size:
+        return np.eye(out_size, dtype=np.float32)
+    dst = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        src = np.zeros_like(dst) if out_size == 1 else dst * (in_size - 1) / (out_size - 1)
+    else:
+        src = np.maximum(in_size / out_size * (dst + 0.5) - 0.5, 0.0)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    frac = (src - i0).astype(np.float32)
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    rows = np.arange(out_size)
+    # np.add.at accumulates both weights where i0 == i1 (the edge pixel)
+    np.add.at(mat, (rows, i0), 1.0 - frac)
+    np.add.at(mat, (rows, i1), frac)
+    return mat
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int, *,
+                    align_corners: bool) -> torch.Tensor:
+    """Resize NHWC ``x`` to (out_h, out_w); computed in f32, cast back.
+
+    ``align_corners=True`` matches ``nn.Upsample(..., align_corners=True)``,
+    ``False`` matches ``F.interpolate(..., mode='bilinear')``.
+    """
+    _, h, w, _ = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    mh = torch.from_numpy(_interp_matrix_np(h, out_h, align_corners)).to(x.device)
+    mw = torch.from_numpy(_interp_matrix_np(w, out_w, align_corners)).to(x.device)
+    y = torch.einsum("oh,nhwc->nowc", mh, x.float())
+    y = torch.einsum("pw,nowc->nopc", mw, y)
+    return y.to(x.dtype)
+
+
+def upsample_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsample with align_corners=True."""
+    _, h, w, _ = x.shape
+    return bilinear_resize(x, 2 * h, 2 * w, align_corners=True)
