@@ -74,8 +74,9 @@ def test_bf16_rounds_the_f32_sum():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("cin", [7, 33])
+@pytest.mark.parametrize("cin", [7, 65])
 def test_rejects_unsupported_cin(cin):
+    """The kernel takes 8 <= Cin <= 64 (64: the dx of a 32 -> 64 conv)."""
     x, w = _xw(34, (1, 8, 8), cin, 16)
     with pytest.raises(ValueError, match="Cin"):
         K.conv3x3_nhwc(torch.from_numpy(x), torch.from_numpy(w))

@@ -1,0 +1,282 @@
+"""The port's train step, trajectory, checkpoints and evaluate against the JAX
+package's, on the CPU in f32, on unet_t at (2, 64, 64) from seeded weights in
+the JAX layout.
+
+Tolerances and why:
+* BN batch statistics: JAX takes the variance one-pass, the port two-pass, so
+  train-mode logits differ by ~1e-6 relative per layer; gradients then agree
+  to ~7e-4 of the largest gradient (measured), held at 2e-3.
+* RMSprop's first step moves every parameter by ~10 * lr * sign(g) whatever
+  |g| (``square_avg`` starts at 0), so a near-zero gradient whose sign the
+  rounding flips moves a parameter by ~20 * lr the other way.  With momentum
+  0.999 the flipped term stays in the buffer and is applied again at every
+  later step, so after N steps the bound is 20 * lr * (1 + 2 + ... + N);
+  parameters are held to that, and their median difference to a tenth of
+  their median movement.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import random_unet_params, rect_batch
+from unet_medical_image_contour_segmentation_torch.engine import checkpoint as TC
+from unet_medical_image_contour_segmentation_torch.engine.evaluate import evaluate
+from unet_medical_image_contour_segmentation_torch.engine.optim import (
+    RMSpropConfig,
+    load_opt_state,
+    opt_state_to_jax,
+)
+from unet_medical_image_contour_segmentation_torch.engine.train import make_train_step
+from unet_medical_image_contour_segmentation_torch.losses.compound import LossConfig
+from unet_medical_image_contour_segmentation_torch.models.torch_compat import (
+    params_from_state_dict,
+    params_tree_from_tensors,
+    state_dict_from_jax,
+)
+from unet_medical_image_contour_segmentation_torch.models.unet import unet_t
+from unet_medical_image_contour_segmentation_tpu.engine import checkpoint as JC
+from unet_medical_image_contour_segmentation_tpu.engine import optim as JO
+from unet_medical_image_contour_segmentation_tpu.engine import train as JT
+from unet_medical_image_contour_segmentation_tpu.engine.evaluate import evaluate as jax_evaluate
+from unet_medical_image_contour_segmentation_tpu.losses import compound as JL
+from unet_medical_image_contour_segmentation_tpu.models.unet import unet_t as jax_unet_t
+
+WIDTHS_T = (8, 16, 32, 64, 128)
+LR = 1e-4
+GRAD_TOL = 2e-3   # of the largest gradient
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs test files in parallel worker processes; one torch
+    thread per test keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return random_unet_params(0, widths=WIDTHS_T)
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    return jax.jit(JT.make_train_step(jax_unet_t(1, 3, layout="nhwc"), JL.LossConfig(),
+                                      JO.RMSpropConfig(learning_rate=LR)))
+
+
+def _jax_state(params, bn_state, opt_state=None, step=0):
+    params = jax.tree.map(jnp.asarray, params)
+    return JT.TrainState(params, jax.tree.map(jnp.asarray, bn_state),
+                         jax.tree.map(jnp.asarray, opt_state) if opt_state is not None
+                         else JO.init_rmsprop(params), jnp.asarray(step, jnp.int32))
+
+
+def _port(params, bn_state, lr=LR):
+    model = unet_t()
+    model.load_state_dict(state_dict_from_jax(params, bn_state))
+    return model, make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=lr))
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _leaves(tree):
+    return [np.asarray(x, np.float64) for x in jax.tree.leaves(tree)]
+
+
+def _max_abs_diff(a, b):
+    return max(np.abs(x - y).max() for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def test_one_train_step_matches_jax(weights, jax_step):
+    """Loss, grad norm, the clipped gradients, new params and BN stats."""
+    params, bn_state = weights
+    batch = rect_batch(100, 2, 64, 64)
+    jm = jax_unet_t(1, 3, layout="nhwc")
+
+    def loss_fn(p):
+        logits, _ = jm.apply(p, jax.tree.map(jnp.asarray, bn_state), jnp.asarray(batch["image"]),
+                             train=True)
+        return JL.compute_loss(logits, jnp.asarray(batch["mask"]), JL.LossConfig())[0]
+
+    want_grads, _ = JO.clip_by_global_norm(
+        jax.jit(jax.grad(loss_fn))(jax.tree.map(jnp.asarray, params)), 1.0)
+    want_state, want = jax_step(_jax_state(params, bn_state), batch, LR)
+
+    model, step = _port(params, bn_state)
+    got = step(_torch_batch(batch), LR)
+    assert set(got) == {"ce", "dice", "loss", "grad_norm", "lr"} == set(want)
+    assert all(v.dim() == 0 and v.dtype == torch.float32 for v in got.values())
+    for k in ("ce", "dice", "loss", "grad_norm", "lr"):
+        assert got[k].item() == pytest.approx(float(want[k]), rel=1e-5), k
+    got_grads = params_tree_from_tensors(model, {n: p.grad for n, p in model.named_parameters()})
+    g_max = max(np.abs(g).max() for g in _leaves(want_grads))
+    assert _max_abs_diff(got_grads, want_grads) <= GRAD_TOL * g_max
+    got_params, got_bn, _ = params_from_state_dict(model.state_dict())
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
+                            zip(_leaves(got_params), _leaves(want_state.params))])
+    assert diffs.max() <= 20 * LR
+    assert (diffs > 1e-6).mean() < 0.01  # sign flips are rare
+    assert _max_abs_diff(got_bn, want_state.bn_state) <= 1e-5
+    assert step.step == 1
+
+
+def test_loss_value_matches_jax_fused_layout(weights):
+    """The JAX default (layout "auto") takes the class-major fused loss at
+    64x64; the port's compute_loss gives the same value (lr 0: no update)."""
+    params, bn_state = weights
+    model = jax_unet_t(1, 3)
+    assert model.supports_fused((2, 64, 64, 1))
+    step = jax.jit(JT.make_train_step(model, JL.LossConfig(), JO.RMSpropConfig()))
+    batch = rect_batch(101, 2, 64, 64)
+    _, want = step(_jax_state(params, bn_state), batch, 0.0)
+    _, port_step = _port(params, bn_state)
+    got = port_step(_torch_batch(batch), 0.0)
+    for k in ("ce", "dice", "loss"):
+        assert got[k].item() == pytest.approx(float(want[k]), rel=1e-4), k
+
+
+def test_five_step_trajectory_matches_jax(weights):
+    """Five steps on five batches at the reference's lr (1e-5; at 1e-4 the
+    sign flips above move the loss curves apart by up to 2e-3 in 5 steps):
+    the loss curve to 1e-3 (measured <= 1.1e-4 over three batch seeds), the
+    parameters within the bound 20 * lr * (1 + ... + 5), and their median
+    difference below a quarter of their median movement (measured 1-5%)."""
+    lr = 1e-5
+    jax_step = jax.jit(JT.make_train_step(jax_unet_t(1, 3, layout="nhwc"), JL.LossConfig(),
+                                          JO.RMSpropConfig(learning_rate=lr)))
+    params, bn_state = weights
+    state = _jax_state(params, bn_state)
+    model, step = _port(params, bn_state, lr=lr)
+    want_curve, got_curve = [], []
+    for i in range(5):
+        batch = rect_batch(110 + i, 2, 64, 64)
+        state, metrics = jax_step(state, batch, lr)
+        want_curve.append(float(metrics["loss"]))
+        got_curve.append(step(_torch_batch(batch), lr)["loss"].item())
+    np.testing.assert_allclose(got_curve, want_curve, rtol=1e-3)
+    assert want_curve[-1] < want_curve[0]
+    got_params, _, _ = params_from_state_dict(model.state_dict())
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
+                            zip(_leaves(got_params), _leaves(state.params))])
+    moved = np.concatenate([np.abs(a - b).ravel() for a, b in
+                            zip(_leaves(state.params), _leaves(params))])
+    assert diffs.max() <= 20 * lr * sum(range(1, 6))
+    assert np.median(diffs) < 0.25 * np.median(moved)
+
+
+def test_jax_checkpoint_resumes_in_port(weights, jax_step, tmp_path):
+    """A JAX checkpoint with opt_state after two JAX steps: the port loads
+    weights, BN stats, optimizer state and step, and its next step matches
+    JAX's next step."""
+    params, bn_state = weights
+    state = _jax_state(params, bn_state)
+    for i in range(2):
+        state, _ = jax_step(state, rect_batch(120 + i, 2, 64, 64), LR)
+    path = str(tmp_path / "jax.npz")
+    JC.save_checkpoint(path, state.params, state.bn_state, state.opt_state,
+                       step=int(state.step), mask_values=[0, 128, 255])
+
+    ck = TC.load_checkpoint(path)
+    assert ck["step"] == 2 and ck["opt_state"] is not None
+    model, step = _port(ck["params"], ck["bn_state"])
+    load_opt_state(model, step.optimizer, ck["opt_state"], ck["step"])
+    assert _max_abs_diff(opt_state_to_jax(model, step.optimizer), state.opt_state) == 0
+
+    batch = rect_batch(122, 2, 64, 64)
+    want_state, want = jax_step(state, batch, LR)
+    got = step(_torch_batch(batch), LR)
+    assert got["loss"].item() == pytest.approx(float(want["loss"]), rel=1e-5)
+    got_params, _, _ = params_from_state_dict(model.state_dict())
+    assert _max_abs_diff(got_params, want_state.params) <= 20 * LR
+    got_opt = opt_state_to_jax(model, step.optimizer)
+    sq_max = max(np.abs(x).max() for x in _leaves(want_state.opt_state["square_avg"]))
+    assert _max_abs_diff(got_opt["square_avg"], want_state.opt_state["square_avg"]) <= (
+        GRAD_TOL * sq_max)
+
+
+def test_port_checkpoint_loads_and_resumes_in_jax(weights, jax_step, tmp_path):
+    """The port's checkpoint after one step carries opt_state in the JAX
+    layout; JAX restores exactly those arrays, and its next step matches the
+    port's next step."""
+    params, bn_state = weights
+    model, step = _port(params, bn_state)
+    step(_torch_batch(rect_batch(130, 2, 64, 64)), LR)
+    path = str(tmp_path / "port.npz")
+    TC.save_checkpoint(path, model, step=step.step, mask_values=[0, 128, 255],
+                       optimizer=step.optimizer)
+
+    ck = JC.load_checkpoint(path)
+    assert ck["step"] == 1 and ck["mask_values"] == [0, 128, 255]
+    got_params, got_bn, _ = params_from_state_dict(model.state_dict())
+    assert _max_abs_diff(ck["params"], got_params) == 0
+    assert _max_abs_diff(ck["bn_state"], got_bn) == 0
+    assert _max_abs_diff(ck["opt_state"], opt_state_to_jax(model, step.optimizer)) == 0
+    state = _jax_state(ck["params"], ck["bn_state"], ck["opt_state"], ck["step"])
+    assert jax.tree.structure(state.opt_state) == jax.tree.structure(
+        JO.init_rmsprop(state.params))
+
+    batch = rect_batch(131, 2, 64, 64)
+    want_state, want = jax_step(state, batch, LR)
+    got = step(_torch_batch(batch), LR)
+    assert got["loss"].item() == pytest.approx(float(want["loss"]), rel=1e-5)
+    got_params, _, _ = params_from_state_dict(model.state_dict())
+    assert _max_abs_diff(got_params, want_state.params) <= 20 * LR
+
+
+def _val_batches(seed, n_batches=3):
+    return [rect_batch(seed + i, 2, 64, 64) for i in range(n_batches)]
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """unet_t after 12 port steps on rectangles at lr 1e-3, so that class 2
+    is predicted and the Dice triple is not trivially 0."""
+    params, bn_state = random_unet_params(1, widths=WIDTHS_T)
+    model, step = _port(params, bn_state, lr=1e-3)
+    for i in range(12):
+        step(_torch_batch(rect_batch(140 + i, 2, 64, 64)), 1e-3)
+    p, s, _ = params_from_state_dict(model.state_dict())
+    return model, p, s
+
+
+@pytest.mark.parametrize("postprocess", [False, True])
+def test_evaluate_triple_matches_jax(trained, postprocess):
+    """Same weights, same batches: the (dice, dice_postprocessed, min_dice)
+    triple (abs 1e-3: an argmax near a tie may flip a pixel)."""
+    model, params, bn_state = trained
+    batches = _val_batches(150)
+    want = jax_evaluate(jax_unet_t(1, 3), jax.tree.map(jnp.asarray, params),
+                        jax.tree.map(jnp.asarray, bn_state), iter(batches),
+                        postprocess=postprocess)
+    got = evaluate(model, batches, device="cpu", postprocess=postprocess)
+    assert got[0] > 0.05, got  # the trained net predicts class 2
+    for g, w in zip(got, want):
+        assert g == pytest.approx(w, abs=1e-3), (got, want)
+    assert model.training  # evaluate restores the mode it found
+
+
+def test_evaluate_writes_the_jax_prediction_dumps(trained, tmp_path):
+    model, params, bn_state = trained
+    batches = _val_batches(160, n_batches=2)
+    want_dir, got_dir = tmp_path / "jax", tmp_path / "port"
+    for d in (want_dir, got_dir):
+        d.mkdir()
+    jax_evaluate(jax_unet_t(1, 3), jax.tree.map(jnp.asarray, params),
+                 jax.tree.map(jnp.asarray, bn_state), iter(batches),
+                 epoch_pred_dir=str(want_dir), postprocess=True)
+    evaluate(model, batches, device="cpu", epoch_pred_dir=str(got_dir), postprocess=True)
+    names = sorted(p.relative_to(want_dir) for p in want_dir.rglob("*.png"))
+    assert names and names == sorted(p.relative_to(got_dir) for p in got_dir.rglob("*.png"))
+
+
+def test_evaluate_empty_loader_keeps_the_reference_start():
+    model = unet_t()
+    assert evaluate(model, [], device="cpu", postprocess=False) == (0.0, 0.0, 10.0)

@@ -1,0 +1,328 @@
+"""The port's train_model loop, train CLI, dataset, loader, metric logger and
+config, on the CPU at a tiny size (unet_t, the synthetic 64x64 PNG set of
+``tests/test_train_loop.py`` at scale 0.5), against the JAX package where it
+has the same component."""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from unet_medical_image_contour_segmentation_torch import config as TCFG
+from unet_medical_image_contour_segmentation_torch.cli import train as train_cli
+from unet_medical_image_contour_segmentation_torch.data.dataset import BasicDataset
+from unet_medical_image_contour_segmentation_torch.data.loader import (
+    DataLoader,
+    prefetch_to_device,
+)
+from unet_medical_image_contour_segmentation_torch.engine.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+)
+from unet_medical_image_contour_segmentation_torch.engine.train import train_model
+from unet_medical_image_contour_segmentation_torch.utils.metrics import MetricLogger
+from unet_medical_image_contour_segmentation_tpu import config as JCFG
+from unet_medical_image_contour_segmentation_tpu.data import dataset as JD
+from unet_medical_image_contour_segmentation_tpu.data import loader as JLD
+from unet_medical_image_contour_segmentation_tpu.engine import checkpoint as JC
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs test files in parallel worker processes; one torch
+    thread per test keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def data_root(tmp_path):
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        (tmp_path / "imgs" / split).mkdir(parents=True)
+        (tmp_path / "masks" / split).mkdir(parents=True)
+        for i in range(2):
+            img = rng.integers(0, 255, (64, 64), dtype=np.uint8)
+            mask = rng.choice([0, 128, 255], (64, 64)).astype(np.uint8)
+            Image.fromarray(img).save(tmp_path / "imgs" / split / f"case{i}.png")
+            Image.fromarray(mask).save(tmp_path / "masks" / split / f"case{i}_mask.png")
+    return tmp_path
+
+
+def _cfg(data_root, tmp_path, **kw):
+    defaults = dict(model="unet_t", data_root=str(data_root), scale=0.5, epochs=2,
+                    batch_size=2, learning_rate=1e-4, amp=False, num_workers=2,
+                    dir_checkpoint=str(tmp_path / "ckpts"),
+                    predictions_dir=str(tmp_path / "preds"), checkpoint_every=1,
+                    checkpoint_after_frac=0.4, log_every=0, progress=False)
+    defaults.update(kw)
+    return TCFG.TrainConfig(**defaults)
+
+
+class _Arrays:
+    """In-memory slices in the BasicDataset protocol."""
+
+    mask_values = [0, 128, 255]
+
+    def __init__(self, n, seed=3, hw=32):
+        rng = np.random.default_rng(seed)
+        self.images = rng.random((n, hw, hw, 1), dtype=np.float32)
+        self.masks = rng.integers(0, 3, (n, hw, hw)).astype(np.int32)
+
+    def __len__(self):
+        return len(self.masks)
+
+    def __getitem__(self, i):
+        return {"image": self.images[i], "mask": self.masks[i]}
+
+
+def test_train_model_end_to_end(data_root, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    result = train_model(_cfg(data_root, tmp_path), device="cpu")
+    assert result.step == 2 * ((2 * 4) // 2)  # 2 epochs x (2 images x 4 rotations / b2)
+    # checkpoint cadence: epoch > 2 * 0.4 and epoch % 1 == 0 -> epochs 1 and 2
+    assert os.path.exists(tmp_path / "ckpts" / "checkpoint_epoch1.npz")
+    assert os.path.exists(tmp_path / "ckpts" / "checkpoint_epoch2.npz")
+    assert os.path.exists(tmp_path / "model_epoch2.npz")
+    preds = os.listdir(tmp_path / "preds" / "epoch_1")
+    assert any(p.endswith(".png") for p in preds)
+    assert any(p.name.endswith(".png")
+               for p in (tmp_path / "preds" / "epoch_1" / "postprocessed").iterdir())
+    # the final checkpoint is a full JAX train state
+    ck = JC.load_checkpoint(str(tmp_path / "model_epoch2.npz"))
+    assert ck["step"] == 8 and ck["mask_values"] == [0, 128, 255, 0, 128, 255]
+    assert ck["opt_state"]["square_avg"]["outc"]["w"].shape == (1, 1, 8, 3)
+    assert latest_checkpoint(tmp_path / "ckpts").endswith("checkpoint_epoch2.npz")
+
+
+def test_train_model_resumes_from_a_checkpoint(data_root, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(data_root, tmp_path, epochs=1, save_val_predictions=False,
+               save_checkpoint=False)
+    train_model(cfg, device="cpu")
+    first = load_checkpoint(str(tmp_path / "model_epoch1.npz"))
+    result = train_model(cfg, state=first, device="cpu")
+    assert result.step == 8
+    second = load_checkpoint(str(tmp_path / "model_epoch1.npz"))
+    assert second["step"] == 8
+    moved = np.abs(second["params"]["outc"]["w"] - first["params"]["outc"]["w"]).max()
+    assert moved > 0
+
+
+def test_train_model_in_memory_sets_and_metric_log(tmp_path, monkeypatch):
+    """In-memory train/val sets, the JSONL metric log and a backend."""
+    monkeypatch.chdir(tmp_path)
+    seen = []
+    cfg = _cfg(tmp_path, tmp_path, epochs=1, save_val_predictions=False, val_postprocess=False,
+               save_checkpoint=False, metrics_path=str(tmp_path / "metrics.jsonl"))
+    result = train_model(cfg, train_set=_Arrays(6), val_set=_Arrays(4, seed=4), device="cpu",
+                         metric_backends=[lambda kind, rec: seen.append(kind)])
+    assert result.step == 3
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [r["kind"] for r in rows] == ["train_step"] * 3 + ["validation"]
+    assert set(rows[0]) >= {"step", "ce", "dice", "loss", "grad_norm", "lr"}
+    assert seen == [r["kind"] for r in rows]
+
+
+def test_train_model_batched_nan_check_matches_per_step(data_root, tmp_path, monkeypatch):
+    """nan_check_every > 1 fetches the metrics in windows but gives the same
+    trajectory and the same per-step log."""
+    monkeypatch.chdir(tmp_path)
+    params, logs = {}, {}
+    for k in (1, 3):
+        cfg = _cfg(data_root, tmp_path, nan_check_every=k, epochs=1, save_val_predictions=False,
+                   save_checkpoint=False, metrics_path=str(tmp_path / f"metrics_{k}.jsonl"))
+        torch.manual_seed(0)
+        params[k] = [p.detach().clone() for p in train_model(cfg, device="cpu").model.parameters()]
+        with open(tmp_path / f"metrics_{k}.jsonl") as f:
+            logs[k] = [(r["step"], r["loss"]) for r in map(json.loads, f)
+                       if r["kind"] == "train_step"]
+    for a, b in zip(params[1], params[3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert logs[1] == logs[3] and [s for s, _ in logs[1]] == [1, 2, 3, 4]
+
+
+def test_train_model_nan_aborts(tmp_path, monkeypatch):
+    """A NaN loss aborts the loop within nan_check_every + 1 steps (torch's
+    RMSprop refuses a NaN lr outright, so the NaN comes from an image)."""
+    monkeypatch.chdir(tmp_path)
+    train_set = _Arrays(8)
+    train_set.images[:] = np.nan
+    seen = []
+    cfg = _cfg(tmp_path, tmp_path, epochs=1, nan_check_every=2, batch_size=1,
+               save_val_predictions=False, save_checkpoint=False)
+    with pytest.raises(RuntimeError, match="NaN"):
+        train_model(cfg, train_set=train_set, val_set=_Arrays(2), device="cpu",
+                    metric_backends=[lambda kind, rec: seen.append(kind)])
+    assert seen == []  # the first fetched step already fails
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(num_devices=2), "data parallelism"),
+    (dict(spatial_shards=2), "spatial parallelism"),
+    (dict(cc_loss=True), "connected-component"),
+    (dict(classes=1), "binary"),
+    (dict(remat=True), "checkpointing"),
+    (dict(bilinear=True), "bilinear"),
+])
+def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, kw, what):
+    with pytest.raises(NotImplementedError, match=what):
+        train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(sample_cache_bytes=1000),
+                                dict(disk_cache_dir="cache")])
+def test_train_model_refuses_sample_caches(data_root, tmp_path, kw):
+    with pytest.raises(NotImplementedError, match="cache"):
+        train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
+
+
+def test_train_model_defaults_to_the_card(data_root, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_model(_cfg(data_root, tmp_path))
+
+
+def test_cli_trains_and_resumes(data_root, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = ["--data-root", str(data_root), "--epochs", "1", "--batch-size", "2", "--model",
+            "unet_t", "--scale", "0.5", "--no-amp", "--no-save-val-predictions",
+            "--no-val-postprocess", "--device", "cpu"]
+    assert train_cli.main(args) == 0
+    assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 4
+    assert train_cli.main(args + ["--load", str(tmp_path / "model_epoch1.npz")]) == 0
+    assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 8
+
+
+def test_cli_loads_reference_pth_weights(data_root, tmp_path, monkeypatch):
+    from unet_medical_image_contour_segmentation_torch.models.unet import unet_t
+
+    monkeypatch.chdir(tmp_path)
+    torch.manual_seed(0)
+    sd = unet_t().state_dict()
+    sd["mask_values"] = [0, 128, 255]
+    torch.save(sd, tmp_path / "ref.pth")
+    assert train_cli.main(["--data-root", str(data_root), "--epochs", "1", "-b", "2",
+                           "--model", "unet_t", "--scale", "0.5", "--no-amp",
+                           "--no-save-val-predictions", "--no-val-postprocess",
+                           "--device", "cpu", "--load", str(tmp_path / "ref.pth")]) == 0
+    assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 4
+
+
+@pytest.mark.parametrize("flag", ["--bilinear", "--num-devices=2", "--spatial-shards=2",
+                                  "--remat", "--sample-cache-gb=1", "--disk-cache-dir=c",
+                                  "--cc-loss", "--distributed", "--classes=1"])
+def test_cli_refuses_flags_not_ported(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        train_cli.get_args(["--data-root", "d", flag])
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_defaults_match_jax_cli():
+    args = train_cli.get_args([])
+    assert (args.epochs, args.batch_size, args.lr, args.scale, args.classes, args.amp,
+            args.model, args.device) == (5, 1, 1e-5, 0.5, 3, True, "unet_s", "cuda")
+
+
+def test_dataset_matches_jax(data_root):
+    """Every sample (4 rotations of each image) and the mask values."""
+    kw = dict(scale=0.5)
+    ours = BasicDataset(data_root / "imgs/train", data_root / "masks/train", **kw)
+    theirs = JD.BasicDataset(data_root / "imgs/train", data_root / "masks/train", **kw)
+    assert len(ours) == len(theirs) == 8 and ours.mask_values == theirs.mask_values
+    assert sorted(ours.ids) == sorted(theirs.ids)
+    for i in range(len(ours)):
+        a, b = ours[i], theirs[ours.ids.index(theirs.ids[i // 4]) * 4 + i % 4]
+        assert a["image"].shape == (32, 32, 1) and a["image"].dtype == np.float32
+        assert a["mask"].dtype == np.int32
+        np.testing.assert_array_equal(a["image"], b["image"])
+        np.testing.assert_array_equal(a["mask"], b["mask"])
+
+
+@pytest.mark.parametrize("kw", [dict(cache_bytes=10), dict(disk_cache_dir="x")])
+def test_dataset_refuses_caches(data_root, kw):
+    with pytest.raises(NotImplementedError):
+        BasicDataset(data_root / "imgs/train", data_root / "masks/train", **kw)
+
+
+@pytest.mark.parametrize("shuffle,drop_last", [(True, False), (False, True), (True, True)])
+def test_loader_batches_match_jax(shuffle, drop_last):
+    """The same seeded order and batch composition as the JAX DataLoader."""
+    rng = np.random.default_rng(5)
+    data = [{"image": rng.random((4, 4, 1), dtype=np.float32), "mask": np.full((4, 4), i)}
+            for i in range(7)]
+    ours = DataLoader(data, 3, shuffle=shuffle, drop_last=drop_last, num_workers=2, seed=9)
+    theirs = JLD.DataLoader(data, 3, shuffle=shuffle, drop_last=drop_last, num_workers=2,
+                            seed=9)
+    assert len(ours) == len(theirs) == (2 if drop_last else 3)
+    for _ in range(2):  # two epochs: the shuffle advances alike
+        for a, b in zip(ours, theirs, strict=True):
+            for k in ("image", "mask"):
+                np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_prefetch_yields_every_batch_in_order():
+    batches = [{"image": np.full((2, 3, 3, 1), i, np.float32), "mask": np.full((2, 3, 3), i)}
+               for i in range(5)]
+    out = list(prefetch_to_device(iter(batches), "cpu"))
+    assert [int(b["mask"][0, 0, 0]) for b in out] == list(range(5))
+    assert all(isinstance(b["image"], torch.Tensor) and b["image"].device.type == "cpu"
+               for b in out)
+
+
+def test_prefetch_passes_producer_errors_on():
+    def broken():
+        yield {"image": np.zeros((1, 2, 2, 1), np.float32)}
+        raise OSError("bad slice")
+
+    with pytest.raises(OSError, match="bad slice"):
+        list(prefetch_to_device(broken(), "cpu"))
+
+
+def test_prefetch_stops_its_thread_when_abandoned():
+    import threading
+
+    before = threading.active_count()
+    batches = ({"mask": np.zeros((1, 2), np.int32)} for _ in range(100))
+    it = prefetch_to_device(batches, "cpu", size=1)
+    next(it)
+    it.close()
+    assert threading.active_count() == before
+
+
+def test_metric_logger_writes_jsonl_and_survives_a_failing_backend(tmp_path):
+    seen = []
+
+    def broken(kind, rec):
+        raise ValueError("tracker down")
+
+    backends = [broken, lambda kind, rec: seen.append((kind, rec["loss"]))]
+    with MetricLogger(str(tmp_path / "m.jsonl"), backends=backends) as mlog:
+        mlog.log("train_step", step=1, loss=torch.tensor(0.5), note="x")
+    rows = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    assert rows[0]["loss"] == 0.5 and rows[0]["note"] == "x" and rows[0]["kind"] == "train_step"
+    assert seen == [("train_step", 0.5)]
+
+
+def test_train_config_matches_jax():
+    ours = [(f.name, f.default) for f in dataclasses.fields(TCFG.TrainConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JCFG.TrainConfig)]
+    assert ours == theirs
+
+
+def test_config_argparse_helpers():
+    import argparse
+
+    parser = TCFG.add_dataclass_args(argparse.ArgumentParser(), TCFG.TrainConfig)
+    args = parser.parse_args(["--epochs", "3", "--amp", "false", "--load", "x.npz",
+                              "--learning-rate", "0.01"])
+    cfg = TCFG.dataclass_from_args(TCFG.TrainConfig, args)
+    assert (cfg.epochs, cfg.amp, cfg.load, cfg.learning_rate) == (3, False, "x.npz", 0.01)

@@ -1,0 +1,118 @@
+#!/usr/bin/env python
+"""Train a UNet for contour segmentation with the PyTorch port.
+
+    python -m unet_medical_image_contour_segmentation_torch.cli.train \\
+        --data-root data/ --epochs 5 --batch-size 8 --model unet_s
+
+The flags of the JAX package's ``cli/train.py`` that the port serves, with
+its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
+compute): the imgs/{train,val} + masks/{train,val} layout under
+``--data-root``, ``--load`` of a ``.npz`` checkpoint of either package (a
+full resume: weights, BN statistics, optimizer state, step), of ``latest``
+in ``./checkpoints``, or of a reference ``.pth`` (weights and BN statistics
+only).  The other flags (parallelism, multi-host, rematerialisation and the
+out-of-memory retry that uses it, the bilinear and other models, the binary
+and connected-component losses, the sample caches) are rejected with an
+error until they are ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+# flags of the JAX CLI that the port does not serve yet
+_NOT_PORTED = {
+    "--bilinear": "bilinear UNets", "--num-devices": "data parallelism",
+    "--spatial-shards": "spatial parallelism", "--remat": "rematerialisation",
+    "--sample-cache-gb": "the decoded-sample RAM cache",
+    "--disk-cache-dir": "the decoded-sample disk cache",
+    "--cc-loss": "the connected-component penalty", "--distributed": "multi-host training",
+    "--coordinator-address": "multi-host training", "--num-processes": "multi-host training",
+    "--process-id": "multi-host training",
+}
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train the UNet on images and target masks")
+    parser.add_argument("--epochs", "-e", metavar="E", type=int, default=5)
+    parser.add_argument("--batch-size", "-b", dest="batch_size", metavar="B", type=int,
+                        default=1)
+    parser.add_argument("--learning-rate", "-l", metavar="LR", type=float, default=1e-5,
+                        dest="lr")
+    parser.add_argument("--load", "-f", type=str, default=None,
+                        help="Resume from a .npz checkpoint, 'latest', or load .pth weights")
+    parser.add_argument("--scale", "-s", type=float, default=0.5,
+                        help="Downscaling factor of the images")
+    parser.add_argument("--validation", "-v", dest="val", type=float, default=10.0,
+                        help="Accepted for reference CLI compatibility and ignored: the "
+                             "split is directory-based (imgs/train vs imgs/val)")
+    parser.add_argument("--amp", action="store_true", default=True,
+                        help="bf16 compute with f32 master weights (the default)")
+    parser.add_argument("--no-amp", dest="amp", action="store_false", help="Full f32 compute")
+    parser.add_argument("--no-save-val-predictions", dest="save_val_predictions",
+                        action="store_false", default=True,
+                        help="Skip the per-epoch prediction PNG dumps")
+    parser.add_argument("--no-val-postprocess", dest="val_postprocess",
+                        action="store_false", default=True,
+                        help="Skip the cv2 post-processed Dice during validation")
+    parser.add_argument("--classes", "-c", type=int, default=3, help="Number of classes")
+    parser.add_argument("--model", "-m", default="unet_s", choices=["unet", "unet_t", "unet_s"],
+                        help="Model variant")
+    parser.add_argument("--data-root", default="data/data-without-black-shadow")
+    parser.add_argument("--nan-check-every", type=int, default=1,
+                        help="Steps between NaN-guard/metric fetches")
+    parser.add_argument("--no-scheduler-quirk", dest="scheduler_quirk", action="store_false",
+                        default=True, help="Step the LR schedule by epoch instead of by Dice")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; fails without a card) or cpu")
+    for flag in _NOT_PORTED:
+        parser.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
+                            dest=f"not_ported_{flag[2:].replace('-', '_')}")
+    args = parser.parse_args(argv)
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
+            parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
+                         "use the JAX package's umics-train")
+    if args.classes == 1:
+        parser.error("--classes 1: the binary loss is not ported to the PyTorch package yet")
+    return args
+
+
+def main(argv=None) -> int:
+    args = get_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+
+    from ..config import TrainConfig
+    from ..engine.checkpoint import latest_checkpoint, load_checkpoint, load_weights
+    from ..engine.train import train_model
+    from ..models.torch_compat import params_from_state_dict
+
+    cfg = TrainConfig(model=args.model, classes=args.classes, data_root=args.data_root,
+                      scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
+                      learning_rate=args.lr, amp=args.amp, scheduler_quirk=args.scheduler_quirk,
+                      load=args.load, save_val_predictions=args.save_val_predictions,
+                      val_postprocess=args.val_postprocess,
+                      nan_check_every=args.nan_check_every)
+
+    state = None
+    if cfg.load == "latest":
+        cfg.load = latest_checkpoint(cfg.dir_checkpoint)
+        if cfg.load is None:
+            logging.info("No checkpoint found in %s; starting fresh", cfg.dir_checkpoint)
+    if cfg.load:
+        if str(cfg.load).endswith(".npz"):
+            state = load_checkpoint(cfg.load)  # weights, BN stats, optimizer state, step
+        else:
+            state_dict, _ = load_weights(cfg.load)  # reference .pth: weights + BN stats
+            params, bn_state, _ = params_from_state_dict(state_dict)
+            state = {"params": params, "bn_state": bn_state, "opt_state": None, "step": 0}
+        logging.info("Model loaded from %s", cfg.load)
+
+    train_model(cfg, state=state, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,9 +4,17 @@
 // package (pallas_call at :133, body _kernel at :72-123).  That kernel works
 // on a space-to-depth-4 tensor only to dodge the TPU's (8, 128) memory
 // tiling; on Hopper the same function is computed on plain NHWC with
-// 8 <= Cin <= 32, any Cout >= 1, any H and W (the ragged edge is masked here).
+// 8 <= Cin <= 64, any Cout >= 1, any H and W (the ragged edge is masked here).
 //
 //   y[b,h,w,co] = sum_{u,v,ci} x[b,h+u-1,w+v-1,ci] * W[u,v,ci,co]
+//
+// The same entry computes the input gradient of such a conv (the TPU
+// kernel's custom VJP, pallas_conv.py:178-183): dx is this conv of the
+// output gradient with the weight rotated 180 degrees and its in/out
+// channels swapped, so the forward's Cout (up to 64 in unet_s) is dx's Cin.
+// At Cin = 64 a block stages 37 KB of f32 weights plus the halo tile,
+// 80 KB in bf16 and 159 KB in f32: under the 227 KB opt-in, one f32 block
+// per SM.
 //
 // x is (B, H, W, Cin), the weight is the HWIO kernel packed as a (9*Cin, Cout)
 // matrix (row (u*3+v)*Cin + ci), y is (B, H, W, Cout); all three share one

@@ -1,1 +1,1 @@
-"""Host-side image preprocessing."""
+"""Host-side dataset, preprocessing and the batch pipeline to the card."""

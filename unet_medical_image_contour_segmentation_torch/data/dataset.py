@@ -1,16 +1,85 @@
-"""Image preprocessing of the reference dataset (the JAX package's
-``data/dataset.py:BasicDataset.preprocess``).  Only ``preprocess`` is ported
-so far: the Predictor needs it.  PIL is imported where it is used, so the
-package imports on machines without it."""
+"""Host-side dataset, the port's copy of the JAX package's ``data/dataset.py``.
+
+Same behaviour as the reference's BasicDataset: id scan, parallel mask-value
+scan, 4x rotation augmentation (original + 90/180/270 with expand), PIL
+NEAREST/BICUBIC scale resize, mask value map {255->2, 128->1, 0->0}, /255
+image normalisation; samples come out channel-last, ``{"image": (H, W, 1)
+float32, "mask": (H, W) int32}``.  PIL is imported where it is used, so the
+package imports on machines without it.  The decoded-sample caches (RAM and
+disk) are not ported yet: asking for one raises ``NotImplementedError``.
+"""
 
 from __future__ import annotations
 
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from os import listdir
+from os.path import isfile, join, splitext
+from pathlib import Path
+from typing import Dict
+
 import numpy as np
 
-__all__ = ["BasicDataset"]
+__all__ = ["BasicDataset", "load_image", "unique_mask_values"]
+
+log = logging.getLogger(__name__)
+
+
+def load_image(filename):
+    """npy / torch-tensor / image file -> PIL image."""
+    from PIL import Image
+
+    ext = splitext(str(filename))[1]
+    if ext == ".npy":
+        return Image.fromarray(np.load(filename))
+    if ext in (".pt", ".pth"):
+        import torch
+
+        return Image.fromarray(torch.load(filename, weights_only=False).numpy())
+    return Image.open(filename)
+
+
+def unique_mask_values(idx: str, mask_dir: Path, mask_suffix: str):
+    mask_file = list(Path(mask_dir).glob(idx + mask_suffix + ".*"))[0]
+    mask = np.asarray(load_image(mask_file))
+    if mask.ndim == 2:
+        return np.unique(mask)
+    if mask.ndim == 3:
+        return np.unique(mask.reshape(-1, mask.shape[-1]), axis=0)
+    raise ValueError(f"mask arrays must be rank 2 or 3, got rank {mask.ndim}")
 
 
 class BasicDataset:
+    """Image/mask pairs (``<id>.*`` in ``images_dir``, ``<id><mask_suffix>.*``
+    in ``mask_dir``) with optional 4x rotation augmentation."""
+
+    def __init__(self, images_dir, mask_dir, scale: float = 1.0, mask_suffix: str = "_mask",
+                 augment: bool = True, cache_bytes: int = 0, disk_cache_dir=None):
+        if cache_bytes > 0 or disk_cache_dir:
+            raise NotImplementedError("the decoded-sample RAM and disk caches are not "
+                                      "ported yet; pass cache_bytes=0, disk_cache_dir=None")
+        self.images_dir = Path(images_dir)
+        self.mask_dir = Path(mask_dir)
+        if not 0 < scale <= 1:
+            raise ValueError(f"scale must lie in (0, 1], got {scale}")
+        self.scale = scale
+        self.mask_suffix = mask_suffix
+        self.augment = augment
+
+        self.ids = [splitext(f)[0] for f in listdir(images_dir)
+                    if isfile(join(images_dir, f)) and not f.startswith(".")]
+        if not self.ids:
+            raise RuntimeError(f"image directory {images_dir} contains no usable files")
+        log.info("dataset ready: %d ids under %s", len(self.ids), images_dir)
+
+        with ThreadPoolExecutor() as ex:
+            unique = list(ex.map(
+                lambda i: unique_mask_values(i, self.mask_dir, self.mask_suffix), self.ids))
+        self.mask_values = list(sorted(np.unique(np.concatenate(unique), axis=0).tolist()))
+
+    def __len__(self) -> int:
+        return len(self.ids) * (4 if self.augment else 1)
+
     @staticmethod
     def preprocess(mask_values, pil_img, scale: float, is_mask: bool):
         """Resize and value-map (mask) or normalise (image) one PIL image.
@@ -40,3 +109,33 @@ class BasicDataset:
         if (img > 1).any():
             img = img.astype(np.float32) / 255.0
         return np.ascontiguousarray(img, dtype=np.float32)
+
+    @staticmethod
+    def rotate_image_and_mask(img, mask, angle: int):
+        return img.rotate(angle, expand=True), mask.rotate(angle, expand=True)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        original_idx = idx // 4 if self.augment else idx
+        rotation_idx = idx % 4 if self.augment else 0
+
+        name = self.ids[original_idx]
+        mask_file = list(self.mask_dir.glob(name + self.mask_suffix + ".*"))
+        img_file = list(self.images_dir.glob(name + ".*"))
+        if len(img_file) != 1:
+            raise ValueError(f"expected exactly one image for id {name!r}, got {img_file}")
+        if len(mask_file) != 1:
+            raise ValueError(f"expected exactly one mask for id {name!r}, got {mask_file}")
+
+        mask = load_image(mask_file[0])
+        img = load_image(img_file[0])
+        if img.size != mask.size:
+            raise ValueError(f"size mismatch for {name!r}: image {img.size} vs mask {mask.size}")
+
+        if self.augment and rotation_idx > 0:
+            img, mask = self.rotate_image_and_mask(img, mask, (90, 180, 270)[rotation_idx - 1])
+
+        img_a = self.preprocess(self.mask_values, img, self.scale, is_mask=False)
+        mask_a = self.preprocess(self.mask_values, mask, self.scale, is_mask=True)
+        if not np.all((mask_a >= 0) & (mask_a <= 2)):
+            raise ValueError("mask holds values outside the class range {0,1,2}")
+        return {"image": img_a, "mask": mask_a.astype(np.int32)}

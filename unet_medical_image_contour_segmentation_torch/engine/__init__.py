@@ -1,1 +1,1 @@
-"""Checkpoints and the dense Predictor."""
+"""Checkpoints, the dense Predictor, the optimizer, the train step and loop, validation."""

@@ -9,6 +9,7 @@ other unchanged.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -18,8 +19,9 @@ import torch
 from torch import nn
 
 from ..models.torch_compat import load_pth, params_from_state_dict, state_dict_from_jax
+from .optim import opt_state_to_jax
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_weights"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_weights", "latest_checkpoint"]
 
 _SEP = "//"
 
@@ -46,9 +48,14 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
 
 
 def save_checkpoint(path: str, model: nn.Module, step: int = 0,
-                    mask_values=None, extra: Optional[dict] = None) -> None:
+                    mask_values=None, extra: Optional[dict] = None,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> None:
     """Write the model's weights as ``.npz``, or as a reference ``.pth``
-    state_dict (with its ``mask_values`` entry) when the path says so."""
+    state_dict (with its ``mask_values`` entry) when the path says so.
+
+    With ``optimizer`` (the RMSprop over ``model``'s parameters) the ``.npz``
+    also holds its state as the JAX package's ``opt_state``, so a training
+    run resumes from it in either package."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     if str(path).endswith(".pth"):
         if mask_values is not None:
@@ -59,6 +66,9 @@ def save_checkpoint(path: str, model: nn.Module, step: int = 0,
     blobs: Dict[str, np.ndarray] = {}
     blobs.update({f"params{_SEP}{k}": v for k, v in _flatten(params).items()})
     blobs.update({f"bn_state{_SEP}{k}": v for k, v in _flatten(bn_state).items()})
+    if optimizer is not None:
+        opt_state = opt_state_to_jax(model, optimizer)
+        blobs.update({f"opt_state{_SEP}{k}": v for k, v in _flatten(opt_state).items()})
     meta = {"step": int(step), "mask_values": mask_values, "extra": extra or {},
             "format": "umics-tpu-v1"}
     blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
@@ -92,3 +102,11 @@ def load_weights(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:
         return load_pth(path)
     ck = load_checkpoint(path)
     return state_dict_from_jax(ck["params"], ck["bn_state"]), ck["mask_values"]
+
+
+def latest_checkpoint(directory) -> Optional[str]:
+    """The newest ``checkpoint_epoch*.npz`` / ``model_epoch*.npz`` in ``directory``."""
+    candidates = sorted(glob.glob(os.path.join(str(directory), "checkpoint_epoch*.npz"))
+                        + glob.glob(os.path.join(str(directory), "model_epoch*.npz")),
+                        key=os.path.getmtime)
+    return candidates[-1] if candidates else None

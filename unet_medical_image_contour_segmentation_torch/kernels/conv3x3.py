@@ -1,23 +1,30 @@
-"""3x3 stride-1 SAME convolution, NHWC, as a hand-written Hopper kernel.
+"""3x3 stride-1 SAME convolution, NHWC, as a hand-written Hopper kernel, with
+its gradients.
 
 Replaces the TPU kernel ``ops/pallas_conv.py:conv_s2d_b4_im2col`` of the JAX
-package (``pallas_call`` at :133).  That kernel takes a space-to-depth-4
-tensor only to get around the TPU's (8, 128) memory tiling at C < 128; a
-Hopper kernel reads NHWC with C = 8..32 directly, so the kernel here computes
-the same function, a 3x3 SAME conv with f32 accumulation, on NHWC tensors,
-and :func:`conv_s2d_b4_im2col` keeps the TPU kernel's s2d contract as a thin
+package (``pallas_call`` at :133) and its custom VJP (``_bwd_rule``,
+:178-190).  That kernel takes a space-to-depth-4 tensor only to get around
+the TPU's (8, 128) memory tiling at C < 128; a Hopper kernel reads NHWC with
+C = 8..64 directly, so the kernel here computes the same function, a 3x3
+SAME conv with f32 accumulation, on NHWC tensors, and
+:func:`conv_s2d_b4_im2col` keeps the TPU kernel's s2d contract as a thin
 ``s2d . conv . d2s`` wrapper.
 
-Bound: memory.  The function reads x and writes y once; at the unet_s shapes
-its 9*Cin*Cout MACs per pixel are far below the card's operations-per-byte
-balance.  The design (``csrc/conv3x3.cu``) is the simple first version: one
-block per (image, 16x32 output tile, 16 output channels) stages the halo tile
-and its weight chunk in shared memory, and each thread sums 4 pixels x 16
-channels in f32 registers on the CUDA cores.
+Gradients, as the JAX package takes them: dx is the same kernel on the
+output gradient with the weight rotated 180 degrees and in/out swapped
+(:func:`conv3x3_nhwc_dx`); dw, which JAX leaves to an XLA linear transpose
+outside the Pallas kernel, is cuDNN's weight gradient on the card and the
+transposed im2col product on the CPU (:func:`conv3x3_nhwc_dw`).
 
-:func:`conv3x3_nhwc` runs the kernel for a CUDA tensor and the plain
-version :func:`conv3x3_nhwc_reference` for a CPU tensor; nothing else picks
-between them.
+Bound: memory.  The function reads x and writes y once; at the unet_s
+shapes its 9*Cin*Cout MACs per pixel are far below the card's
+operations-per-byte balance.  The design (``csrc/conv3x3.cu``) is the simple
+first version: one block per (image, 16x32 output tile, 16 output channels)
+stages the halo tile and its weight chunk in shared memory, and each thread
+sums 4 pixels x 16 channels in f32 registers on the CUDA cores.
+
+Each wrapper runs its kernel for a CUDA tensor and its plain version for a
+CPU tensor; nothing else picks between them.
 """
 
 from __future__ import annotations
@@ -32,14 +39,19 @@ from ..ops.s2d import d2s, s2d
 
 __all__ = [
     "conv3x3_nhwc",
+    "conv3x3_nhwc_dx",
+    "conv3x3_nhwc_dw",
     "conv3x3_nhwc_reference",
+    "conv3x3_nhwc_dw_reference",
     "conv_s2d_b4_im2col",
     "pack_weight",
+    "rotate_weight",
     "supported",
 ]
 
-CIN_MIN, CIN_MAX = 8, 32
-_TILE_H, _CO_CHUNK = 16, 16   # csrc/conv3x3.cu: TH, CO
+CIN_MIN, CIN_MAX = 8, 64          # what the kernel takes (dx: Cin = the forward's Cout)
+DISPATCH_CIN_MAX = 32             # the forward rule of the JAX package
+_TILE_H, _CO_CHUNK = 16, 16       # csrc/conv3x3.cu: TH, CO
 _GRID_MAX = 65535
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -48,7 +60,7 @@ def supported(w_shape, stride: int = 1, padding: int = 0) -> bool:
     """The dispatch rule: a 3x3, stride-1, pad-1 conv with 8 <= Cin <= 32
     (the JAX rule of ``ops/s2d.py:179-181``, minus its layout and env terms)."""
     kh, kw, cin, _ = w_shape
-    return (kh, kw, stride, padding) == (3, 3, 1, 1) and CIN_MIN <= cin <= CIN_MAX
+    return (kh, kw, stride, padding) == (3, 3, 1, 1) and CIN_MIN <= cin <= DISPATCH_CIN_MAX
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -56,6 +68,12 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     (u*3 + v)*Cin + ci.  A view when ``w`` is contiguous, so a weight stored
     contiguous in the compute dtype is packed once, where it is stored."""
     return w.reshape(9 * w.shape[2], w.shape[3]).contiguous()
+
+
+def rotate_weight(w: torch.Tensor) -> torch.Tensor:
+    """The weight of the input gradient: HWIO rotated 180 degrees with in and
+    out swapped, ``w[::-1, ::-1].transpose(0, 1, 3, 2)`` (pallas_conv.py:182)."""
+    return w.flip(0, 1).transpose(2, 3)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -77,35 +95,25 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x must be contiguous NHWC")
 
 
+def _patches(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> the (B, H, W, 9*C) zero-padded 3x3 neighbourhoods,
+    channel (u*3 + v)*C + c: the rows of :func:`pack_weight`."""
+    _, h, wd, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, u:u + h, v:v + wd, :] for u in range(3) for v in range(3)],
+                     dim=-1)
+
+
 def conv3x3_nhwc_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version: pad by 1, concatenate the 9 shifted slices into a
     (B, H, W, 9*Cin) patch, one product with the packed weight in f32, cast."""
     _check(x, w)
-    _, h, wd, _ = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    patch = torch.cat([xp[:, u:u + h, v:v + wd, :] for u in range(3) for v in range(3)],
-                      dim=-1)
-    y = patch.float() @ pack_weight(w).float()
+    y = _patches(x).float() @ pack_weight(w).float()
     return y.to(x.dtype)
 
 
-def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y[b,h,w,co] = sum_{u,v,ci} x[b,h+u-1,w+v-1,ci] * w[u,v,ci,co], zero padded.
-
-    x: contiguous (B, H, W, Cin), bf16 or f32; w: HWIO (3, 3, Cin, Cout) in
-    x's dtype -> (B, H, W, Cout) in x's dtype, summed in f32.  A CUDA tensor
-    goes to the kernel (and adds one to ``conv3x3_nhwc.launches``), a CPU
-    tensor to the plain version.  Forward only: a CUDA input that requires
-    grad raises until the backward kernel exists.
-    """
-    _check(x, w)
-    if x.device.type == "cpu":
-        return conv3x3_nhwc_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_nhwc runs on cuda or cpu, not {x.device}")
-    if x.requires_grad or w.requires_grad:
-        raise RuntimeError("conv3x3_nhwc has no backward yet: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/conv3x3.cu on CUDA tensors (checked by the caller)."""
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     if -(-h // _TILE_H) > _GRID_MAX or b * -(-cout // _CO_CHUNK) > _GRID_MAX:
@@ -120,8 +128,103 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"conv3x3_nhwc launch failed: "
                            f"{lib.conv3x3_error_string(err).decode()} ({err})")
+    return y
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_nhwc runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if _device_of(x) == "cpu":
+        return conv3x3_nhwc_reference(x, w)
+    y = _launch(x, w)
     conv3x3_nhwc.launches += 1
     return y
+
+
+def conv3x3_nhwc_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of ``y = conv3x3_nhwc(x, w)`` for the output gradient ``g``: the same
+    conv of ``g`` with :func:`rotate_weight` of ``w``, in ``w``'s dtype.
+
+    A CUDA tensor goes to the kernel (and adds one to
+    ``conv3x3_nhwc_dx.launches``), a CPU tensor to the plain version.
+    """
+    g = g.to(w.dtype).contiguous()
+    w_rot = rotate_weight(w)
+    _check(g, w_rot)
+    if _device_of(g) == "cpu":
+        return conv3x3_nhwc_reference(g, w_rot)
+    dx = _launch(g, w_rot)
+    conv3x3_nhwc_dx.launches += 1
+    return dx
+
+
+conv3x3_nhwc_dx.launches = 0
+
+
+def conv3x3_nhwc_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain dw: the im2col patch of x transposed times g, in f32, cast
+    to x's dtype; HWIO (3, 3, Cin, Cout)."""
+    cin, cout = x.shape[3], g.shape[3]
+    dw = _patches(x).float().reshape(-1, 9 * cin).T @ g.float().reshape(-1, cout)
+    return dw.reshape(3, 3, cin, cout).to(x.dtype)
+
+
+def conv3x3_nhwc_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw of ``y = conv3x3_nhwc(x, w)`` for the output gradient ``g``, HWIO in
+    x's dtype.  JAX computes it outside the Pallas kernel (an XLA linear
+    transpose, pallas_conv.py:185-189); on the card it is cuDNN's weight
+    gradient on the channels_last views, on the CPU the plain version."""
+    g = g.to(x.dtype)
+    if _device_of(x) == "cpu":
+        return conv3x3_nhwc_dw_reference(x, g)
+    cin, cout = x.shape[3], g.shape[3]
+    # read for its shape and layout only (output_mask leaves dx out)
+    w_shape = torch.empty((cout, cin, 3, 3), dtype=x.dtype, device=x.device,
+                          memory_format=torch.channels_last)
+    _, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_shape, None,
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])
+    return dw.permute(2, 3, 1, 0)
+
+
+class _Conv3x3(torch.autograd.Function):
+    """The kernel with the JAX package's custom VJP (pallas_conv.py:174-190)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()  # g may arrive as a permuted view
+        dx = conv3x3_nhwc_dx(g, w) if ctx.needs_input_grad[0] else None
+        dw = conv3x3_nhwc_dw(x, g) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[b,h,w,co] = sum_{u,v,ci} x[b,h+u-1,w+v-1,ci] * w[u,v,ci,co], zero padded.
+
+    x: contiguous (B, H, W, Cin), bf16 or f32; w: HWIO (3, 3, Cin, Cout) in
+    x's dtype -> (B, H, W, Cout) in x's dtype, summed in f32.  A CUDA tensor
+    goes to the kernel (and adds one to ``conv3x3_nhwc.launches``), a CPU
+    tensor to the plain version.  When x or w requires grad the call is
+    differentiable: dx through :func:`conv3x3_nhwc_dx` (the kernel again,
+    so Cout must lie in 8..64) and dw through :func:`conv3x3_nhwc_dw`.
+    """
+    _check(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x.requires_grad and not CIN_MIN <= w.shape[3] <= CIN_MAX:
+            raise ValueError(f"the input gradient runs the kernel with Cin = Cout, so "
+                             f"{CIN_MIN} <= Cout <= {CIN_MAX}; got Cout={w.shape[3]}")
+        return _Conv3x3.apply(x, w)
+    return _forward(x, w)
 
 
 conv3x3_nhwc.launches = 0

@@ -12,6 +12,10 @@ JAX package's ``models/torch_compat.py``, which it may not import):
     up{i}.up.{weight,bias}                  <-> up{i}/upconv/{w,b}     ((in,out,kh,kw) <-> HWIO)
     up{i}.conv.double_conv....              <-> up{i}/conv/...
     outc.conv.{weight,bias}                 <-> outc/{w,b}
+
+Per-parameter tensors that are not weights (gradients, the optimizer's
+``square_avg`` / ``momentum_buffer``) cross with the same transpositions
+through :func:`params_tree_from_tensors` and :func:`tensors_from_params_tree`.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["state_dict_from_jax", "params_from_state_dict", "load_pth"]
+__all__ = ["state_dict_from_jax", "params_from_state_dict", "load_pth",
+           "params_tree_from_tensors", "tensors_from_params_tree"]
 
 
 def _conv_w(t) -> np.ndarray:  # OIHW -> HWIO
@@ -101,6 +107,24 @@ def state_dict_from_jax(params, bn_state) -> Dict[str, torch.Tensor]:
     out["outc.conv.weight"] = np.asarray(params["outc"]["w"]).transpose(3, 2, 0, 1)
     out["outc.conv.bias"] = np.asarray(params["outc"]["b"])
     return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def params_tree_from_tensors(model: nn.Module, tensors: Dict[str, Any]) -> dict:
+    """Tensors keyed by the model's parameter names, each shaped like its
+    parameter -> a numpy pytree in the JAX ``params`` layout (transposed as
+    the weights are).  The model's buffers fill the rest of the state_dict."""
+    sd = dict(model.state_dict())
+    sd.update(tensors)
+    params, _, _ = params_from_state_dict(sd)
+    return params
+
+
+def tensors_from_params_tree(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
+    """The inverse: a pytree in the JAX ``params`` layout -> CPU tensors keyed
+    by the model's parameter names, shaped like the parameters."""
+    _, bn_state, _ = params_from_state_dict(model.state_dict())
+    sd = state_dict_from_jax(tree, bn_state)
+    return {name: sd[name] for name, _ in model.named_parameters()}
 
 
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:
