@@ -10,9 +10,11 @@ Phases, in order; any failure exits nonzero before the last line:
   2. build: compiles every kernel source with nvcc (all at once) and prints
      the build seconds and ptxas's registers / shared memory / spills;
   3. kernels vs plain: each kernel at the shapes the main path gives it (and
-     a ragged one), bf16 and f32, against its plain PyTorch version, with
-     kernel / plain / library times and the bound from the bytes and
-     operations of the call;
+     a ragged one), bf16 (the tensor-core kernel) and f32 (the CUDA-core
+     kernel), against its plain PyTorch version, with kernel / plain /
+     library times and the bound from the bytes and operations of the call;
+     every timed call takes the next of enough copies of its input to
+     exceed the 50 MB L2, and a roofline share above 105% fails the run;
   4. backward vs plain: the 3x3 conv's dx (the same kernel on the output
      gradient with the rotated weight) and dw (cuDNN's weight gradient) at
      the training shapes, bf16 and f32, against autograd through the plain
@@ -26,10 +28,12 @@ Phases, in order; any failure exits nonzero before the last line:
      card against the same step on the CPU;
   7. main path, train: make_train_step on unet_s at (8, 512, 512), bf16
      compute with f32 master weights, on a seeded batch of bright rectangles
-     on noise: 7 forward and 7 dx launches per step, a finite falling loss,
+     on noise: 7 forward and 7 dx launches per step, all on the tensor-core
+     kernel, a finite falling loss,
      step time, slices/s and peak memory; then one epoch of train_model on
      an in-memory dataset of 512x512 slices, without tqdm, PIL or cv2;
-  8. a JSON ``kernels`` line, then the device line and the result line.
+  8. a JSON ``kernels`` line (with per-shape rows), then the device line and
+     the result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
 build into build/torch_kernels/.
@@ -40,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -69,6 +74,8 @@ from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # n
     conv3x3_nhwc_dw,
     conv3x3_nhwc_dx,
     conv3x3_nhwc_reference,
+    kernel_blocks_per_sm,
+    launch_geometry,
     rotate_weight,
 )
 from unet_medical_image_contour_segmentation_torch.losses.compound import (  # noqa: E402
@@ -97,6 +104,10 @@ MAIN_CONVS = [
 ]
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# each timed call reads the next of enough input copies to exceed the L2
+ROTATE_BYTES = 64 * 2**20
+MAX_ROOFLINE = 1.05
+SLEEP_HZ = 2.0e9              # above the H100's highest SM clock (1.98 GHz)
 MIN_AGREEMENT = 0.99
 # bf16 rounding moves the logits of this random unet_s by ~1.5% of their
 # spread, so pixels near a class boundary flip; on the CPU, seeds 0..5 with
@@ -113,17 +124,42 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def time_ms(fn, reps: int, warmup: int = 3, queued: bool = True):
+    """(device ms, host ms) per call of ``fn(i)``, i = 0, 1, ... (the call
+    index picks the input, see :func:`copies`), over ``reps`` calls.
+
+    queued: the timed calls wait behind a sleep kernel long enough for the
+    host to issue them all, so the CUDA events time the device alone and
+    not the host's issue rate, which the host clock times instead.  Else
+    the calls run as a caller issues them, and the events time both."""
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        fn(i)
+    issue_s = (time.perf_counter() - t0) / warmup
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    # at most SLEEP_HZ cycles a second, so the sleep lasts at least sleep_s
+    sleep_s = 4 * reps * issue_s + 2e-3
+    if queued:
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
     start.record()
-    for _ in range(reps):
-        fn()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(warmup + i)
+    host_s = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if queued and host_s > sleep_s:
+        raise RuntimeError(f"the host took {host_s:.4f} s to issue {reps} calls, longer than "
+                           f"the {sleep_s:.4f} s sleep they queued behind")
+    return start.elapsed_time(end) / reps, host_s / reps * 1e3
+
+
+def copies(t: torch.Tensor) -> list:
+    """``t`` and clones of it, at least 2 and together at least ROTATE_BYTES,
+    so that a call on copy i % n finds none of its input in the L2."""
+    n = max(2, -(-ROTATE_BYTES // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
 
 
 def phase_device() -> str:
@@ -138,15 +174,36 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every source; -> ptxas's {kernel: "R registers, S/L bytes spill
+    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>")."""
     t0 = time.perf_counter()
     results = _build.build(["conv3x3"])
     log(f"[build] {len(results)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
+    usage, name, spills = {}, None, ""
     for r in results.values():
         log(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.library.name}")
         for line in r.log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
                 log(f"[build]   {line.strip()}")
+            m = re.search(r"conv3x3_mma_kernelILi(\d+)E|conv3x3_kernelIfE", line)
+            if m and "Compiling" in line:
+                name = f"mma<{m.group(1)}>" if m.group(1) else "f32"
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                usage[name] = f"{m.group(1)} registers, {spills}"
+                name = None
+    return usage
+
+
+def kernel_usage(usage: dict, cin: int, cout: int, dtype) -> dict:
+    """Registers, spills, shared memory and resident blocks per SM of the
+    kernel that runs this shape."""
+    geo = launch_geometry(1, 1, 1, cin, cout, dtype)
+    key = f"mma<{geo.cout_chunk // 8}>" if geo.route == "tensor_core" else "f32"
+    return dict(kernel=key, ptxas=usage.get(key, "not printed"), smem_bytes=geo.smem_bytes,
+                blocks_per_sm=kernel_blocks_per_sm(cin, cout, dtype))
 
 
 def conv_bound_ms(b, h, w, cin, cout, dtype):
@@ -160,7 +217,17 @@ def conv_bound_ms(b, h, w, cin, cout, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels():
+def roofline(bound_ms: float, **timed_ms) -> float:
+    """bound / kernel ms; raises when any timed call beats its bound by more
+    than MAX_ROOFLINE allows (its input was then read from the L2)."""
+    for what, ms in timed_ms.items():
+        if bound_ms / ms > MAX_ROOFLINE:
+            raise RuntimeError(f"{what} took {ms:.4f} ms against a bound of {bound_ms:.4f} ms "
+                               f"({bound_ms / ms:.1%} > {MAX_ROOFLINE:.0%} of the roofline)")
+    return bound_ms / timed_ms["kernel"]
+
+
+def phase_kernels(usage: dict):
     """Kernel vs plain at every shape, both dtypes; bf16 timings."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(name, BATCH, HW // s, HW // s, cin, cout) for name, cin, cout, s in MAIN_CONVS]
@@ -186,23 +253,32 @@ def phase_kernels():
                 log(f"[kernels] {name:12s} {str((b, h, w, cin, cout)):26s} f32  "
                     f"max_abs_err {err:.3g} ok")
                 continue
-            x_nchw = x.permute(0, 3, 1, 2)
+            xs = copies(x)
             w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            ms = time_ms(lambda: conv3x3_nhwc(x, wt), reps=20)
-            plain_ms = time_ms(lambda: conv3x3_nhwc_reference(x, wt), reps=3, warmup=1)
-            library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), reps=20)
+            ms, host_ms = time_ms(lambda i: conv3x3_nhwc(xs[i % len(xs)], wt), reps=20)
+            plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(xs[i % len(xs)], wt),
+                                  reps=3, warmup=1)
+            library_ms, library_host_ms = time_ms(
+                lambda i: F.conv2d(xs[i % len(xs)].permute(0, 3, 1, 2), w_oihw, padding=1),
+                reps=20)
+            del xs
             bound_ms, bound_by = conv_bound_ms(b, h, w, cin, cout, dtype)
+            share = roofline(bound_ms, kernel=ms, library=library_ms)
+            use = kernel_usage(usage, cin, cout, dtype)
             rows.append(dict(name=name, shape=[b, h, w, cin, cout], ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=err))
+                             roofline=share, max_abs_err=err, host_ms=host_ms,
+                             library_host_ms=library_host_ms, **use))
             log(f"[kernels] {name:12s} {str((b, h, w, cin, cout)):26s} bf16 "
                 f"max_abs_err {err:.3g} ok; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                f"roofline {bound_ms / ms:.1%}")
+                f"host issue {host_ms * 1e3:.1f} us (F.conv2d {library_host_ms * 1e3:.1f} us), "
+                f"roofline {share:.1%}; {use['kernel']}: {use['ptxas']}, "
+                f"{use['smem_bytes']} B shared, {use['blocks_per_sm']} blocks/SM")
     return rows, max_err
 
 
-def phase_backward():
+def phase_backward(usage: dict):
     """The autograd Function's dx (the kernel) and dw (cuDNN's weight
     gradient) at every training shape, both dtypes, against autograd through
     the plain version in f32 on the same inputs, cast once; bf16 timings.
@@ -244,21 +320,35 @@ def phase_backward():
                     f"{dx_err:.3g}, dw max_abs_err {dw_err:.3g} ok")
                 continue
             w_rot = rotate_weight(wt)
-            g_nchw = g.permute(0, 3, 1, 2)
             w_rot_oihw = w_rot.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            ms = time_ms(lambda: conv3x3_nhwc_dx(g, wt), reps=20)
-            plain_ms = time_ms(lambda: conv3x3_nhwc_reference(g, w_rot), reps=3, warmup=1)
-            library_ms = time_ms(lambda: F.conv2d(g_nchw, w_rot_oihw, padding=1), reps=20)
-            dw_ms = time_ms(lambda: conv3x3_nhwc_dw(x, g), reps=20)
+            gs, xs = copies(g), copies(x)
+            ms, host_ms = time_ms(lambda i: conv3x3_nhwc_dx(gs[i % len(gs)], wt), reps=20)
+            plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(gs[i % len(gs)], w_rot),
+                                  reps=3, warmup=1)
+            library_ms, library_host_ms = time_ms(
+                lambda i: F.conv2d(gs[i % len(gs)].permute(0, 3, 1, 2), w_rot_oihw, padding=1),
+                reps=20)
+            # dw reads x and g and writes the weight: the forward's bytes and operations
+            dw_ms, _ = time_ms(lambda i: conv3x3_nhwc_dw(xs[i % len(xs)], gs[i % len(gs)]),
+                               reps=20)
+            del gs, xs
             bound_ms, bound_by = conv_bound_ms(b, h, w, cout, cin, dtype)
+            dw_bound_ms, _ = conv_bound_ms(b, h, w, cin, cout, dtype)
+            share = roofline(bound_ms, kernel=ms, library=library_ms)
+            roofline(dw_bound_ms, kernel=dw_ms)
+            use = kernel_usage(usage, cout, cin, dtype)
             rows.append(dict(name=name, shape=[b, h, w, cout, cin], ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             dw_library_ms=dw_ms, max_abs_err=dx_err))
+                             roofline=share, dw_library_ms=dw_ms, dw_bound_ms=dw_bound_ms,
+                             max_abs_err=dx_err, host_ms=host_ms,
+                             library_host_ms=library_host_ms, **use))
             log(f"[backward] {name:12s} {str((b, h, w, cin, cout)):26s} bf16 dx max_abs_err "
                 f"{dx_err:.3g}, dw max_abs_err {dw_err:.3g} ok; dx kernel {ms:.4f} ms "
                 f"({cout}->{cin}), plain {plain_ms:.4f} ms, cuDNN dgrad {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), roofline {bound_ms / ms:.1%}; "
-                f"dw (cuDNN wgrad) {dw_ms:.4f} ms")
+                f"host issue {host_ms * 1e3:.1f} us (cuDNN {library_host_ms * 1e3:.1f} us), "
+                f"bound {bound_ms:.4f} ms ({bound_by}), roofline {share:.1%}; {use['kernel']}: "
+                f"{use['ptxas']}, {use['smem_bytes']} B shared, {use['blocks_per_sm']} blocks/SM; "
+                f"dw (cuDNN wgrad) {dw_ms:.4f} ms, bound {dw_bound_ms:.4f} ms")
     return rows, max_err
 
 
@@ -344,6 +434,18 @@ def smooth_images(seed: int, n: int, hw: int, cells: int = 16) -> np.ndarray:
     return img.clamp(0, 1)[:, 0].numpy()
 
 
+def reset_launches() -> None:
+    for fn in (conv3x3_nhwc, conv3x3_nhwc_dx):
+        fn.launches = fn.tensor_core_launches = 0
+
+
+def read_launches() -> dict:
+    return {key: getattr(fn, attr)
+            for fn in (conv3x3_nhwc, conv3x3_nhwc_dx)
+            for key, attr in ((fn.__name__, "launches"),
+                              (f"{fn.__name__} tensor_core", "tensor_core_launches"))}
+
+
 def phase_main_path(model, profile_dir=None):
     images = smooth_images(1, BATCH, HW)
     images_u8 = np.round(images * 255).astype(np.uint8)
@@ -352,19 +454,22 @@ def phase_main_path(model, profile_dir=None):
     pred.predict_array(images[:1])  # warm-up: cuDNN picks its algorithms here
     torch.cuda.synchronize()
 
-    conv3x3_nhwc.launches = conv3x3_nhwc_dx.launches = 0
+    reset_launches()
     masks = pred.predict_array(images)
     masks_u8 = pred.predict_array(images_u8)
-    launches = {"conv3x3_nhwc": conv3x3_nhwc.launches,
-                "conv3x3_nhwc_dx": conv3x3_nhwc_dx.launches}
+    launches = read_launches()
     per_forward = len(MAIN_CONVS)
-    if launches != {"conv3x3_nhwc": 2 * per_forward, "conv3x3_nhwc_dx": 0}:
+    if launches != {"conv3x3_nhwc": 2 * per_forward, "conv3x3_nhwc_dx": 0,
+                    "conv3x3_nhwc tensor_core": 2 * per_forward,
+                    "conv3x3_nhwc_dx tensor_core": 0}:
         raise RuntimeError(f"two predict forwards launched {launches}, want "
-                           f"{2 * per_forward} forward and no dx launches")
+                           f"{2 * per_forward} forward launches, all on the tensor cores, "
+                           f"and no dx launches")
     check_masks(masks, (BATCH, HW, HW))
     check_masks(masks_u8, (BATCH, HW, HW))
     log(f"[main] unet_s bf16 predict_array (8, 512, 512) float + uint8: "
-        f"conv3x3_nhwc launches {launches['conv3x3_nhwc']} ({per_forward} per forward); "
+        f"conv3x3_nhwc launches {launches['conv3x3_nhwc']} ({per_forward} per forward, all on "
+        f"the tensor-core kernel); "
         f"class shares {np.bincount(masks.ravel(), minlength=3) / masks.size}")
 
     with exact_f32():
@@ -406,7 +511,7 @@ def phase_main_path(model, profile_dir=None):
     # the device forward alone: one batch resident on the card
     x = torch.from_numpy(images).cuda()
     with torch.inference_mode():
-        fwd_ms = time_ms(lambda: pred.model(x).argmax(-1), reps=20)
+        fwd_ms, _ = time_ms(lambda i: pred.model(x).argmax(-1), reps=20, queued=False)
     log(f"[main] predict_array steady state: {BATCH * reps / dt:.1f} slices/s "
         f"({dt / reps * 1e3:.3f} ms per batch of {BATCH}, host clock); batch-1 latency "
         f"p50 {lat_p50:.3f} ms, p80 {lat_p80:.3f} ms (50 calls); device forward+argmax "
@@ -525,12 +630,11 @@ def phase_train(profile_dir=None):
     batch = {k: torch.from_numpy(v).cuda() for k, v in rect_batch(6, BATCH, HW, HW).items()}
     per_step = len(MAIN_CONVS)
 
-    conv3x3_nhwc.launches = conv3x3_nhwc_dx.launches = 0
+    reset_launches()
     losses = [step(batch, TRAIN_LR)["loss"]]
-    if (conv3x3_nhwc.launches, conv3x3_nhwc_dx.launches) != (per_step, per_step):
-        raise RuntimeError(f"one train step launched the forward kernel "
-                           f"{conv3x3_nhwc.launches} and dx {conv3x3_nhwc_dx.launches} times, "
-                           f"want {per_step} each")
+    if set(read_launches().values()) != {per_step}:
+        raise RuntimeError(f"one train step launched {read_launches()}, want {per_step} "
+                           f"forward and {per_step} dx launches, all on the tensor cores")
     for _ in range(TRAIN_WARMUP - 1):
         losses.append(step(batch, TRAIN_LR)["loss"])
     torch.cuda.synchronize()
@@ -544,16 +648,16 @@ def phase_train(profile_dir=None):
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    launches = {"conv3x3_nhwc": conv3x3_nhwc.launches,
-                "conv3x3_nhwc_dx": conv3x3_nhwc_dx.launches}
-    if launches != {"conv3x3_nhwc": per_step * n_steps, "conv3x3_nhwc_dx": per_step * n_steps}:
+    launches = read_launches()
+    if set(launches.values()) != {per_step * n_steps}:
         raise RuntimeError(f"{n_steps} train steps launched {launches}, want "
-                           f"{per_step * n_steps} of each")
+                           f"{per_step * n_steps} of each, all on the tensor cores")
     curve = torch.stack(losses).tolist()
     if not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]:
         raise RuntimeError(f"the train loss is not finite and falling: {curve}")
     log(f"[train] unet_s bf16 make_train_step ({BATCH}, {HW}, {HW}): {2 * per_step} kernel "
-        f"launches per step ({per_step} forward + {per_step} dx), {launches} in {n_steps} "
+        f"launches per step ({per_step} forward + {per_step} dx, all on the tensor-core "
+        f"kernel), {launches} in {n_steps} "
         f"steps; loss {' '.join(f'{v:.4f}' for v in curve)}")
     log(f"[train] step {step_ms:.3f} ms (CUDA events, {TRAIN_STEPS} steps after "
         f"{TRAIN_WARMUP} warm-ups, batch resident), {BATCH * 1e3 / step_ms:.1f} slices/s, "
@@ -649,6 +753,12 @@ def phase_train_model(n_train: int = 32):
                 dice_postprocessed=v["dice_postprocessed"], min_dice=v["min_dice"])
 
 
+def shape_rows(rows) -> list:
+    """The per-shape numbers of the ``kernels`` line."""
+    return [{k: r[k] for k in ("name", "shape", "ms", "bound_ms", "library_ms", "roofline")}
+            for r in rows]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -656,9 +766,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     smi = phase_device()
-    phase_build()
-    rows, max_err = phase_kernels()
-    bwd_rows, bwd_err = phase_backward()
+    usage = phase_build()
+    rows, max_err = phase_kernels(usage)
+    bwd_rows, bwd_err = phase_backward(usage)
     model = build_model(seed=MODEL_SEED)
     phase_small_reference(model)
     launches, main = phase_main_path(model, args.profile)
@@ -683,6 +793,7 @@ def main(argv=None) -> int:
         "bound_ms": sum(r["bound_ms"] for r in main_rows),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
         "library_ms": sum(r["library_ms"] for r in main_rows),
+        "shapes": shape_rows(main_rows),
     }, {
         # the same kernel as the input gradient in the train step's backward
         "name": "conv3x3_nhwc_dx",
@@ -697,10 +808,17 @@ def main(argv=None) -> int:
         "bound_ms": sum(r["bound_ms"] for r in bwd_rows),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows) else "operations",
         "library_ms": sum(r["library_ms"] for r in bwd_rows),
+        "shapes": shape_rows(bwd_rows),
     }]
+    fwd = kernels[0]
+    log(f"[kernels] per forward: kernel {fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+        f"(roofline {fwd['bound_ms'] / fwd['ms']:.1%}), F.conv2d {fwd['library_ms']:.4f} ms, "
+        f"kernel / library {fwd['ms'] / fwd['library_ms']:.3f}")
     log(f"[backward] per train step: dx kernel {kernels[1]['ms']:.4f} ms, bound "
         f"{kernels[1]['bound_ms']:.4f} ms, cuDNN dgrad {kernels[1]['library_ms']:.4f} ms, "
-        f"dw (cuDNN wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms")
+        f"kernel / library {kernels[1]['ms'] / kernels[1]['library_ms']:.3f}; dw (cuDNN "
+        f"wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms, bound "
+        f"{sum(r['dw_bound_ms'] for r in bwd_rows):.4f} ms")
     log(f"[main] {json.dumps(main)}")
     log(f"[train] {json.dumps(train)}")
     print(json.dumps({"kernels": kernels}))

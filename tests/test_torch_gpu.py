@@ -56,6 +56,66 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, tol, shape, cin, cout):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("w", [3, 31, 33, 65])
+@pytest.mark.parametrize("cout", [1, 3, 17, 40, 64, 80])
+@pytest.mark.parametrize("cin", [9, 24, 40, 64])
+def test_tensor_core_kernel_edge_shapes(cuda, cin, cout, w):
+    """bf16 on the tensor-core kernel at one row, widths around the 32-pixel
+    tile, Cin not a multiple of 16 (9 not even of 8: the 2-byte load path)
+    and Cout not a multiple of 8 (the 2-byte store path) or above 64 (two
+    chunks), against the plain version at the bf16 tolerance."""
+    x, wt = _xw(46, (2, 1, w), cin, cout, cuda, torch.bfloat16)
+    before = (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches)
+    got = K.conv3x3_nhwc(x, wt)
+    want = K.conv3x3_nhwc_reference(x, wt)
+    torch.cuda.synchronize()
+    assert (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_routes_by_dtype(cuda, dtype):
+    """bf16 launches the tensor-core kernel, f32 the CUDA-core kernel."""
+    x, w = _xw(47, (1, 16, 16), 16, 16, cuda, dtype)
+    before = (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches)
+    with exact_f32():
+        K.conv3x3_nhwc(x, w)
+    on_tc = int(dtype == torch.bfloat16)
+    assert (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches) == (
+        before[0] + 1, before[1] + on_tc)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_geometry_matches_the_kernel(cuda, dtype):
+    """The pure-Python geometry's shared memory is the built kernel's, and
+    at least one block fits on an SM, for every Cin and chunk width."""
+    for cin in range(K.CIN_MIN, K.CIN_MAX + 1):
+        for cout in (1, 3, 8, 9, 16, 17, 32, 33, 40, 64, 80):
+            geo = K.launch_geometry(1, 8, 8, cin, cout, dtype)
+            assert K.kernel_smem_bytes(cin, cout, dtype) == geo.smem_bytes, (cin, cout)
+            assert K.kernel_blocks_per_sm(cin, cout, dtype) >= 1, (cin, cout)
+
+
+@pytest.mark.parametrize("cin", [40, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_conv3x3_dx_at_cin_64(cuda, dtype, tol, cin):
+    """dx of a Cin -> 64 conv is a 64 -> Cin conv: the widest the kernels take."""
+    x, w = _xw(48, (2, 19, 45), cin, 64, cuda, dtype)
+    g = torch.from_numpy(np.random.default_rng(49).standard_normal((2, 19, 45, 64))
+                         .astype(np.float32)).to(cuda, dtype)
+    before = (K.conv3x3_nhwc_dx.launches, K.conv3x3_nhwc_dx.tensor_core_launches)
+    with exact_f32():
+        got = K.conv3x3_nhwc_dx(g, w)
+        want = K.conv3x3_nhwc_reference(g, K.rotate_weight(w))
+        torch.cuda.synchronize()
+    on_tc = int(dtype == torch.bfloat16)
+    assert (K.conv3x3_nhwc_dx.launches, K.conv3x3_nhwc_dx.tensor_core_launches) == (
+        before[0] + 1, before[1] + on_tc)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape,cin,cout", [
     ((2, 32, 32), 32, 64),   # dx has Cin = 64
@@ -118,15 +178,17 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 def test_train_step_launches_14_kernels(cuda):
     """unet_s in bf16: each step runs the 3x3 kernel 7 times forward and 7
-    times as dx."""
+    times as dx, every time on the tensor-core kernel."""
     model = seeded_unet_s(torch.bfloat16).to(cuda)
     step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=1e-4))
     batch = _rect_batch(cuda)
-    fwd, dx = K.conv3x3_nhwc.launches, K.conv3x3_nhwc_dx.launches
+    counters = [(f, a) for f in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)
+                for a in ("launches", "tensor_core_launches")]
+    before = [getattr(f, a) for f, a in counters]
     for _ in range(2):
         metrics = step(batch, 1e-4)
     torch.cuda.synchronize()
-    assert (K.conv3x3_nhwc.launches - fwd, K.conv3x3_nhwc_dx.launches - dx) == (14, 14)
+    assert [getattr(f, a) - n for (f, a), n in zip(counters, before)] == [14, 14, 14, 14]
     assert np.isfinite(metrics["loss"].item())
 
 

@@ -116,3 +116,99 @@ def test_rejects_bad_layouts():
 ])
 def test_dispatch_rule(w_shape, stride, padding, want):
     assert K.supported(w_shape, stride, padding) is want
+
+
+_TC_CIN = [8, 9, 16, 24, 32, 64]
+_TC_COUT = [1, 3, 16, 17, 40, 64, 80]
+
+
+@pytest.mark.parametrize("cout", _TC_COUT)
+@pytest.mark.parametrize("cin", _TC_CIN)
+def test_tiled_reference_matches_plain_and_jax(cin, cout):
+    """The tensor-core kernel's arithmetic through its launch geometry (Cin
+    zero-padded to a multiple of 16, Cout cut into chunks of up to 64,
+    padded with zero columns, a sum over the 9 taps) against the plain
+    version and JAX's NHWC conv, in f32."""
+    x, w = _xw(50, (2, 5, 11), cin, cout)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = K.conv3x3_nhwc_tiled_reference(xt, wt).numpy()
+    np.testing.assert_allclose(got, K.conv3x3_nhwc_reference(xt, wt).numpy(),
+                               rtol=1e-4, atol=1e-5)
+    want = np.asarray(jax_conv2d(jnp.asarray(x), jnp.asarray(w), padding=1))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(9, 17), (24, 40), (64, 80), (8, 1)])
+def test_tiled_reference_matches_pallas_interpret(cin, cout):
+    """The same, in the TPU kernel's s2d contract, against the Pallas kernel
+    in interpret mode."""
+    x, w = _xw(51, (1, 8, 12), cin, cout)
+    xs = np.array(JS.s2d(jnp.asarray(x), 4))
+    want = np.asarray(jax_conv_s2d_b4_im2col(jnp.asarray(xs), jnp.asarray(w)))
+    got = TS.s2d(K.conv3x3_nhwc_tiled_reference(torch.from_numpy(x), torch.from_numpy(w)), 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,cout", [
+    (1, 1, 3, 1), (2, 1, 65, 80), (3, 17, 31, 17), (2, 37, 53, 40), (1, 33, 65, 64),
+    (8, 128, 128, 64), (2, 19, 45, 200), (8, 256, 256, 16),
+])
+def test_launch_geometry_covers_every_output_once(dtype, b, h, w, cout):
+    """The blocks of the grid, each cut at the image edge and at Cout, cover
+    every output pixel and channel exactly once."""
+    geo = K.launch_geometry(b, h, w, 16, cout, dtype)
+    (gx, gy, gz), (th, tw), n = geo.grid, geo.tile, geo.cout_chunk
+    seen = np.zeros((b, h, w, cout), np.int32)
+    for bz in range(gz):
+        img, chunk = divmod(bz, geo.n_chunks)
+        for by in range(gy):
+            for bx in range(gx):
+                seen[img, by * th:(by + 1) * th, bx * tw:(bx + 1) * tw,
+                     chunk * n:(chunk + 1) * n] += 1
+    assert (seen == 1).all()
+    assert gz == b * geo.n_chunks and (gx - 1) * tw < w and (gy - 1) * th < h
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_geometry_fits_shared_memory(dtype):
+    """Every 8 <= Cin <= 64 and any Cout stays within a block's 232,448 bytes."""
+    for cin in range(K.CIN_MIN, K.CIN_MAX + 1):
+        for cout in range(1, 257):
+            geo = K.launch_geometry(1, 8, 8, cin, cout, dtype)
+            assert geo.smem_bytes <= K.SMEM_MAX == 232_448, (cin, cout, geo)
+            assert geo.cin_padded >= cin and geo.cout_chunk * geo.n_chunks >= cout
+
+
+@pytest.mark.parametrize("cin,cout,dtype,smem", [
+    (16, 16, torch.bfloat16, 23_232),    # 10x34 halo at 48 B + 144 weight rows at 48 B
+    (32, 64, torch.bfloat16, 68_672),    # 340 x 80 B + 288 x 144 B
+    (64, 32, torch.bfloat16, 95_040),    # 340 x 144 B + 576 x 80 B
+    (8, 1, torch.bfloat16, 18_624),      # Cin padded to 16: 340 x 48 B + 144 x 16 B
+    (64, 16, torch.float32, 195_984),    # 9*64*16 f32 weights + 18x34 halo at 65 words
+])
+def test_launch_geometry_shared_memory_by_hand(cin, cout, dtype, smem):
+    assert K.launch_geometry(8, 512, 512, cin, cout, dtype).smem_bytes == smem
+
+
+def test_route_is_decided_by_dtype_without_a_launch(monkeypatch):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel, and
+    neither the route nor the geometry needs the built library."""
+    monkeypatch.setattr(K, "_library", lambda: pytest.fail("the library was loaded"))
+    assert K.route(torch.bfloat16) == "tensor_core"
+    assert K.route(torch.float32) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert K.launch_geometry(2, 16, 16, 16, 16, dtype).route == K.route(dtype)
+    with pytest.raises(TypeError, match="float16"):
+        K.route(torch.float16)
+
+
+def test_cpu_bf16_calls_count_no_launch():
+    x, w = _xw(52, (1, 8, 8), 16, 16)
+    xb, wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    for fn in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx):
+        fn.launches = fn.tensor_core_launches = 0
+    K.conv3x3_nhwc(xb, wb)
+    K.conv3x3_nhwc_dx(xb, wb)
+    assert [(fn.launches, fn.tensor_core_launches)
+            for fn in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)] == [(0, 0), (0, 0)]
