@@ -9,10 +9,11 @@ Phases, in order; any failure exits nonzero before the last line:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel source with nvcc (all at once) and prints
      the build seconds and ptxas's registers / shared memory / spills;
-  3. kernels vs plain: each kernel at the shapes the main path gives it (and
-     a ragged one), bf16 (the tensor-core kernel) and f32 (the CUDA-core
-     kernel), against its plain PyTorch version, with kernel / plain /
-     library times and the bound from the bytes and operations of the call;
+  3. kernels vs plain: each kernel at the shapes the main paths give it (the
+     dense forward's, the tiled forward's windows of 704² and 1216², and a
+     ragged one), bf16 (the tensor-core kernel) and f32 (the CUDA-core
+     kernel), against its plain PyTorch version, with kernel / plain (dense
+     shapes) / library times and the bound from the bytes and operations;
      every timed call takes the next of enough copies of its input to
      exceed the 50 MB L2, and a roofline share above 105% fails the run;
   4. backward vs plain: the 3x3 conv's dx (the same kernel on the output
@@ -32,7 +33,18 @@ Phases, in order; any failure exits nonzero before the last line:
      kernel, a finite falling loss,
      step time, slices/s and peak memory; then one epoch of train_model on
      an in-memory dataset of 512x512 slices, without tqdm, PIL or cv2;
-  8. a JSON ``kernels`` line (with per-shape rows), then the device line and
+  8. main path, tiled predict: unet_s bf16 at (2, 2048, 2048) float and
+     uint8 (auto tile 512) and (1, 4096, 4096) (auto tile 1024, and 512):
+     7 launches per window-group forward, all on the tensor cores; masks
+     against f32 tiled masks (>= 99%), against dense masks in the interior
+     (>= 99.9% in f32, >= 99% in bf16), and card vs CPU on a small image;
+     slices/s, megapixels/s,
+     device ms per image, peak memory, dense at 2048² beside it;
+  9. main path, pipeline: whether PIL and cv2 import; if so, run_pipeline on
+     16 synthetic 1536x1024 RAW scans with an injected unet_s Predictor and
+     with the default full unet from a saved .npz (stage directories, labelme
+     JSON, seconds per stage, launches); if not, stage 3's device work alone;
+ 10. a JSON ``kernels`` line (with per-shape rows), then the device line and
      the result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
@@ -42,7 +54,9 @@ build into build/torch_kernels/.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import logging
 import os
 import re
 import subprocess
@@ -58,9 +72,13 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from unet_medical_image_contour_segmentation_torch import exact_f32  # noqa: E402
-from unet_medical_image_contour_segmentation_torch.config import TrainConfig  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.config import (  # noqa: E402
+    PipelineConfig,
+    TrainConfig,
+)
 from unet_medical_image_contour_segmentation_torch.engine.checkpoint import (  # noqa: E402
     load_checkpoint,
+    save_checkpoint,
 )
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor  # noqa: E402
@@ -84,7 +102,15 @@ from unet_medical_image_contour_segmentation_torch.losses.compound import (  # n
 from unet_medical_image_contour_segmentation_torch.models.torch_compat import (  # noqa: E402
     state_dict_from_jax,
 )
-from unet_medical_image_contour_segmentation_torch.models.unet import unet_s  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.models.unet import unet, unet_s  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.pipeline.post_process import (  # noqa: E402
+    postprocess_mask,
+)
+from unet_medical_image_contour_segmentation_torch.pipeline.seg_main import (  # noqa: E402
+    STAGES,
+    _build_predictor,
+    run_pipeline,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -103,12 +129,24 @@ MAIN_CONVS = [
     ("up4.conv2", 16, 16, 1),
 ]
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
+# the tiled unet_s forwards hand the kernel tpb * n windows of tile + 2 * 96
+# pixels: 16 of 704² (tile 512 at (2, 2048, 2048)) and 8 of 1216² (tile 1024
+# at (1, 4096, 4096)); MAIN_CONVS at each window's levels
+HALO = 96
+TILED_WINDOWS = [(16, 512 + 2 * HALO), (8, 1024 + 2 * HALO)]
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # each timed call reads the next of enough input copies to exceed the L2
 ROTATE_BYTES = 64 * 2**20
 MAX_ROOFLINE = 1.05
 SLEEP_HZ = 2.0e9              # above the H100's highest SM clock (1.98 GHz)
 MIN_AGREEMENT = 0.99
+# tiled vs dense f32 masks (TF32 off), >= HALO from the border.  In bf16 the
+# two agreed on 100% of the interior at 2048² but on 99.78% at 4096² on an
+# H100 (PERF.md): the convs left to cuDNN run at other shapes in the two
+# paths and may take other algorithms, and a bf16 rounding then flips
+# near-ties, as between 8 and 2 windows of one size (tests/test_torch_gpu.py);
+# bf16 is held to MIN_AGREEMENT there, like bf16 against f32
+MIN_INTERIOR_AGREEMENT = 0.999
 # bf16 rounding moves the logits of this random unet_s by ~1.5% of their
 # spread, so pixels near a class boundary flip; on the CPU, seeds 0..5 with
 # smooth_images agree on 99.03..99.36% of pixels, and seed 4 (99.35%,
@@ -228,12 +266,17 @@ def roofline(bound_ms: float, **timed_ms) -> float:
 
 
 def phase_kernels(usage: dict):
-    """Kernel vs plain at every shape, both dtypes; bf16 timings."""
+    """Kernel vs plain at every shape, both dtypes; bf16 timings.  The plain
+    version is timed at the dense shapes only (it is no yardstick of speed,
+    and at the tiled shapes its im2col patch takes seconds)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(name, BATCH, HW // s, HW // s, cin, cout) for name, cin, cout, s in MAIN_CONVS]
-    shapes.append(RAGGED)
+    shapes = [(name, BATCH, HW // s, HW // s, cin, cout, "dense")
+              for name, cin, cout, s in MAIN_CONVS]
+    shapes.append((*RAGGED, "ragged"))
+    shapes += [(f"{name}@{win}", b, win // s, win // s, cin, cout, f"tiled{win}")
+               for b, win in TILED_WINDOWS for name, cin, cout, s in MAIN_CONVS]
     rows, max_err = [], 0.0
-    for name, b, h, w, cin, cout in shapes:
+    for name, b, h, w, cin, cout, path in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
             wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
@@ -250,14 +293,16 @@ def phase_kernels(usage: dict):
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: max abs err {err}")
             max_err = max(max_err, err)
             if dtype != torch.bfloat16:
-                log(f"[kernels] {name:12s} {str((b, h, w, cin, cout)):26s} f32  "
+                log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} f32  "
                     f"max_abs_err {err:.3g} ok")
                 continue
             xs = copies(x)
             w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             ms, host_ms = time_ms(lambda i: conv3x3_nhwc(xs[i % len(xs)], wt), reps=20)
-            plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(xs[i % len(xs)], wt),
-                                  reps=3, warmup=1)
+            plain_ms = None
+            if not path.startswith("tiled"):
+                plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(xs[i % len(xs)], wt),
+                                      reps=3, warmup=1)
             library_ms, library_host_ms = time_ms(
                 lambda i: F.conv2d(xs[i % len(xs)].permute(0, 3, 1, 2), w_oihw, padding=1),
                 reps=20)
@@ -265,12 +310,14 @@ def phase_kernels(usage: dict):
             bound_ms, bound_by = conv_bound_ms(b, h, w, cin, cout, dtype)
             share = roofline(bound_ms, kernel=ms, library=library_ms)
             use = kernel_usage(usage, cin, cout, dtype)
-            rows.append(dict(name=name, shape=[b, h, w, cin, cout], ms=ms, plain_ms=plain_ms,
+            rows.append(dict(name=name, path=path, shape=[b, h, w, cin, cout], ms=ms,
+                             plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                              roofline=share, max_abs_err=err, host_ms=host_ms,
                              library_host_ms=library_host_ms, **use))
-            log(f"[kernels] {name:12s} {str((b, h, w, cin, cout)):26s} bf16 "
-                f"max_abs_err {err:.3g} ok; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+            log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} bf16 "
+                f"max_abs_err {err:.3g} ok; kernel {ms:.4f} ms, plain {plain}, "
                 f"F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                 f"host issue {host_ms * 1e3:.1f} us (F.conv2d {library_host_ms * 1e3:.1f} us), "
                 f"roofline {share:.1%}; {use['kernel']}: {use['ptxas']}, "
@@ -337,7 +384,8 @@ def phase_backward(usage: dict):
             share = roofline(bound_ms, kernel=ms, library=library_ms)
             roofline(dw_bound_ms, kernel=dw_ms)
             use = kernel_usage(usage, cout, cin, dtype)
-            rows.append(dict(name=name, shape=[b, h, w, cout, cin], ms=ms, plain_ms=plain_ms,
+            rows.append(dict(name=name, path="train", shape=[b, h, w, cout, cin], ms=ms,
+                             plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                              roofline=share, dw_library_ms=dw_ms, dw_bound_ms=dw_bound_ms,
                              max_abs_err=dx_err, host_ms=host_ms,
@@ -352,9 +400,11 @@ def phase_backward(usage: dict):
     return rows, max_err
 
 
-def random_unet_params(seed: int, widths=(16, 32, 64, 128, 256), n_channels=1, n_classes=3):
-    """unet_s weights in the JAX package's layout (numpy pytrees), from a seed:
-    He-normal convs and BN affines / running stats near identity."""
+def random_unet_params(seed: int, widths=(16, 32, 64, 128, 256), n_channels=1, n_classes=3,
+                       bilinear=False, attention=False):
+    """UNet weights in the JAX package's layout (numpy pytrees), from a seed:
+    He-normal convs and BN affines / running stats near identity; unet_s by
+    default, bilinear ups and unet_sa's attention convs when asked."""
     rng = np.random.default_rng(seed)
 
     def conv(k, cin, cout, fan_in):
@@ -366,38 +416,51 @@ def random_unet_params(seed: int, widths=(16, 32, 64, 128, 256), n_channels=1, n
                 {"mean": rng.normal(0, 0.1, c).astype(np.float32),
                  "var": rng.uniform(0.8, 1.2, c).astype(np.float32)})
 
-    def double_conv(cin, cout):
-        (p1, s1), (p2, s2) = bn(cout), bn(cout)
-        params = {"conv1": {"w": conv(3, cin, cout, 9 * cin)}, "bn1": p1,
-                  "conv2": {"w": conv(3, cout, cout, 9 * cout)}, "bn2": p2}
+    def double_conv(cin, cout, cmid=None):
+        cmid = cmid or cout
+        (p1, s1), (p2, s2) = bn(cmid), bn(cout)
+        params = {"conv1": {"w": conv(3, cin, cmid, 9 * cin)}, "bn1": p1,
+                  "conv2": {"w": conv(3, cmid, cout, 9 * cmid)}, "bn2": p2}
         return params, {"bn1": s1, "bn2": s2}
 
-    w = widths
+    w, f = widths, 2 if bilinear else 1
     params, state = {}, {}
     params["inc"], state["inc"] = double_conv(n_channels, w[0])
-    for i, (cin, cout) in enumerate([(w[0], w[1]), (w[1], w[2]), (w[2], w[3]), (w[3], w[4])], 1):
+    for i, (cin, cout) in enumerate([(w[0], w[1]), (w[1], w[2]), (w[2], w[3]),
+                                     (w[3], w[4] // f)], 1):
         params[f"down{i}"], state[f"down{i}"] = double_conv(cin, cout)
-    for i, (cin, cout) in enumerate([(w[4], w[3]), (w[3], w[2]), (w[2], w[1]), (w[1], w[0])], 1):
-        conv_p, conv_s = double_conv(cin, cout)
-        params[f"up{i}"] = {"upconv": {"w": conv(2, cin, cin // 2, cin),
-                                       "b": np.zeros(cin // 2, np.float32)},
-                            "conv": conv_p}
+    for i, (cin, cout) in enumerate([(w[4], w[3] // f), (w[3], w[2] // f), (w[2], w[1] // f),
+                                     (w[1], w[0])], 1):
+        conv_p, conv_s = double_conv(cin, cout, cin // 2 if bilinear else None)
+        params[f"up{i}"] = {"conv": conv_p}
+        if not bilinear:
+            params[f"up{i}"]["upconv"] = {"w": conv(2, cin, cin // 2, cin),
+                                          "b": np.zeros(cin // 2, np.float32)}
+        if attention:
+            params[f"up{i}"]["att"] = {"conv": {"w": conv(7, 2, 1, 2 * 49)}}
         state[f"up{i}"] = {"conv": conv_s}
     params["outc"] = {"w": conv(1, w[0], n_classes, w[0]), "b": np.zeros(n_classes, np.float32)}
     return params, state
 
 
-def build_model(seed: int):
-    """unet_s from seeded weights; the head bias is then centred so that the
-    three classes split the pixels of a noise image, which keeps the mask
-    comparison below from passing on a constant map."""
-    params, state = random_unet_params(seed)
-    model = unet_s()
+def build_model(seed: int, factory=unet_s, class2_share=None):
+    """A UNet (unet_s by default) from seeded weights; the head bias is then
+    centred so that the three classes split the pixels of a noise image,
+    which keeps the mask comparisons from passing on a constant map.  With
+    ``class2_share``, class 2 is then raised until it wins on that share of
+    the noise image's pixels (the pipeline needs class-2 regions to trace)."""
+    model = factory()
+    params, state = random_unet_params(seed, model.widths)
     model.load_state_dict(state_dict_from_jax(params, state))
     probe = np.random.default_rng(seed + 1).random((1, 128, 128), dtype=np.float32)
     with torch.inference_mode():
         logits = model.eval()(torch.from_numpy(probe))
-    params["outc"]["b"] = -logits.mean(dim=(0, 1, 2)).numpy()
+    bias = -logits.mean(dim=(0, 1, 2))
+    if class2_share is not None:
+        centred = logits + bias
+        lead = centred[..., :2].amax(dim=-1) - centred[..., 2]
+        bias[2] += torch.quantile(lead.ravel(), class2_share)
+    params["outc"]["b"] = bias.numpy()
     model.load_state_dict(state_dict_from_jax(params, state))
     return model
 
@@ -432,6 +495,21 @@ def smooth_images(seed: int, n: int, hw: int, cells: int = 16) -> np.ndarray:
     coarse = np.random.default_rng(seed).random((n, 1, cells, cells), dtype=np.float32)
     img = F.interpolate(torch.from_numpy(coarse), size=(hw, hw), mode="bicubic")
     return img.clamp(0, 1)[:, 0].numpy()
+
+
+def write_raw_scans(directory, seed: int, n: int, width: int, height: int) -> None:
+    """``n`` little-endian uint16 RAW frames ``scan{i:02d}.raw`` in ``directory``:
+    a smooth background in [15000, 45000] and one bright ellipse (60000)."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((n, 1, 8, 12), dtype=np.float32))
+    background = F.interpolate(coarse, size=(height, width), mode="bicubic").clamp(0, 1)
+    yy, xx = np.mgrid[:height, :width]
+    for i in range(n):
+        frame = 15000 + background[i, 0].numpy() * 30000
+        (cy, ry), (cx, rx) = [(rng.uniform(0.3, 0.7) * d, rng.uniform(0.15, 0.3) * d)
+                              for d in (height, width)]
+        frame[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 60000
+        frame.astype("<u2").tofile(os.path.join(directory, f"scan{i:02d}.raw"))
 
 
 def reset_launches() -> None:
@@ -753,10 +831,362 @@ def phase_train_model(n_train: int = 32):
                 dice_postprocessed=v["dice_postprocessed"], min_dice=v["min_dice"])
 
 
+def tiled_logits(model, x: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
+    """The tiled forward as a plain loop, for margins: (n, H, W[, C]) float
+    images on the model's device -> (n, H, W, classes) logits, each tile's
+    from the core of its window of the zero-padded image."""
+    x = x if x.dim() == 4 else x.unsqueeze(-1)
+    n, h, w, _ = x.shape
+    ph, pw, win = -h % tile, -w % tile, tile + 2 * halo
+    padded = F.pad(x, (0, 0, halo, halo + pw, halo, halo + ph))
+    out = None
+    with torch.inference_mode():
+        for i in range(0, h + ph, tile):
+            for j in range(0, w + pw, tile):
+                logits = model(padded[:, i:i + win, j:j + win].contiguous())
+                if out is None:
+                    out = logits.new_empty((n, h + ph, w + pw, logits.shape[-1]))
+                out[:, i:i + tile, j:j + tile] = logits[:, halo:halo + tile, halo:halo + tile]
+    return out[:, :h, :w]
+
+
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def group_forwards(pred, n: int, h: int, w: int) -> int:
+    """Forwards of one tiled predict_array call: groups of tpb tiles."""
+    tile = pred.tile or pred._auto_tile(h, w)
+    tiles = -(-h // tile) * -(-w // tile)
+    per_chunk = -(-tiles // min(pred.tile_batch, tiles))
+    return per_chunk * -(-n // pred.batch_size)
+
+
+def interior(masks: np.ndarray) -> np.ndarray:
+    return masks[:, HALO:-HALO, HALO:-HALO]
+
+
+TILED_REPS = 5
+# (n, hw) of the tiled runs: the auto tile is 512 at 2048² (4 tiles of 1024
+# are too few) and 1024 at 4096²
+TILED_SIZES = ((2, 2048), (1, 4096))
+
+
+def phase_tiled(model):
+    """Tiled predict_array, unet_s bf16 with the MODEL_SEED weights: (2, 2048,
+    2048) float and uint8 at the auto tile (512), (1, 4096, 4096) at the auto
+    tile (1024) and at tile 512.  7 kernel launches per window-group forward,
+    all on the tensor cores; masks agree with f32 tiled masks (TF32 off) on
+    >= 99% of pixels; tiled agrees with dense on >= 99.9% of the interior in
+    f32 and >= 99% in bf16 (>= HALO from the border; near it the two are
+    different functions, see engine/predict.py); on a small image the card's
+    f32 tiled masks equal the CPU's on decided pixels.  Host-clock slices/s and megapixels/s,
+    device ms per image (CUDA events, image resident), peak memory; dense at
+    2048² beside it."""
+    (n2, s2), (n4, s4) = TILED_SIZES
+    small, big = sorted(Predictor.AUTO_TILES)
+    img2 = smooth_images(21, n2, s2, cells=s2 // 32)
+    img2_u8 = np.round(img2 * 255).astype(np.uint8)
+    img4 = smooth_images(22, n4, s4, cells=s4 // 32)
+    bf16 = dict(device="cuda", compute_dtype=torch.bfloat16, tile_halo=HALO)
+    auto, t_small = Predictor(model, **bf16), Predictor(model, tile=small, **bf16)
+    dense = Predictor(model, tile_threshold=0, **bf16)
+    if (auto._auto_tile(s2, s2), auto._auto_tile(s4, s4)) != (small, big):
+        raise RuntimeError("the auto tile rule changed")
+    runs = [(f"{s2} float", auto, img2), (f"{s2} uint8", auto, img2_u8),
+            (f"{s4} tile{big}", auto, img4), (f"{s4} tile{small}", t_small, img4)]
+    for _, pred, images in runs:  # warm-up: cuDNN picks its algorithms per shape
+        pred.predict_array(images)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    masks = [pred.predict_array(images) for _, pred, images in runs]
+    launches = read_launches()
+    forwards = sum(group_forwards(pred, *images.shape[:3]) for _, pred, images in runs)
+    per_forward = len(MAIN_CONVS)
+    if launches != {"conv3x3_nhwc": per_forward * forwards, "conv3x3_nhwc_dx": 0,
+                    "conv3x3_nhwc tensor_core": per_forward * forwards,
+                    "conv3x3_nhwc_dx tensor_core": 0}:
+        raise RuntimeError(f"{forwards} tiled group forwards launched {launches}, want "
+                           f"{per_forward} each, all on the tensor cores")
+    for (name, _, images), m in zip(runs, masks):
+        check_masks(m, images.shape[:3])
+    log(f"[tiled] unet_s bf16 predict_array, halo {HALO}, {', '.join(n for n, _, _ in runs)}: "
+        f"{forwards} window-group forwards, conv3x3_nhwc launches "
+        f"{launches['conv3x3_nhwc']} ({per_forward} per forward, all on the tensor-core kernel)")
+
+    with exact_f32():
+        f32_auto = Predictor(model, device="cuda", tile_halo=HALO)
+        f32_small = Predictor(model, device="cuda", tile=small, tile_halo=HALO)
+        ref = [f32_auto.predict_array(img2), f32_auto.predict_array(img2_u8),
+               f32_auto.predict_array(img4), f32_small.predict_array(img4)]
+        f32_dense = Predictor(model, device="cuda", tile_threshold=0)
+        ref_dense = [f32_dense.predict_array(img2), f32_dense.predict_array(img2_u8)]
+        ref_dense += [f32_dense.predict_array(img4)] * 2
+    dense_masks = [dense.predict_array(img2), dense.predict_array(img2_u8)]
+    dense_masks += [dense.predict_array(img4)] * 2
+    result = {}
+    for (name, _, _), m, r, d, rd in zip(runs, masks, ref, dense_masks, ref_dense):
+        agree = float((m == r).mean())
+        inner = float((interior(m) == interior(d)).mean())
+        inner_f32 = float((interior(r) == interior(rd)).mean())
+        diff = int((interior(m) != interior(d)).sum())
+        diff_f32 = int((interior(r) != interior(rd)).sum())
+        border = float((m != d).mean())
+        log(f"[tiled] {name}: bf16 vs f32 tiled masks agree on {agree:.4%}; tiled vs dense "
+            f"agree on {inner_f32:.4%} of the interior in f32 ({diff_f32} pixels differ) and "
+            f"{inner:.4%} in bf16 ({diff} pixels differ); bf16 tiled and dense differ on "
+            f"{border:.4%} of the whole image")
+        if min(agree, inner) < MIN_AGREEMENT or inner_f32 < MIN_INTERIOR_AGREEMENT:
+            raise RuntimeError(f"{name}: bf16 vs f32 agreement {agree:.4%} or bf16 interior "
+                               f"tiled vs dense {inner:.4%} (< {MIN_AGREEMENT:.0%}), or f32 "
+                               f"interior tiled vs dense {inner_f32:.4%} "
+                               f"(< {MIN_INTERIOR_AGREEMENT:.1%})")
+        result[name] = dict(agreement_f32=agree, interior_agreement_dense_f32=inner_f32,
+                            interior_pixels_differ_f32=diff_f32, interior_agreement_dense=inner,
+                            interior_pixels_differ=diff, whole_image_differ_dense=border)
+    phase_tiled_reference(model)
+
+    for name, pred, images in runs + [(f"{s2} dense", dense, img2)]:
+        n, h, w = images.shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TILED_REPS):
+            pred.predict_array(images)
+        dt = (time.perf_counter() - t0) / TILED_REPS
+        peak = torch.cuda.max_memory_allocated()
+        x = torch.from_numpy(images[..., None]).cuda()
+        if pred is dense:
+            with torch.inference_mode():
+                dev_ms, _ = time_ms(lambda i: dense._classes(dense.model(x)), reps=TILED_REPS,
+                                    warmup=2, queued=False)
+        else:
+            tile = pred.tile or pred._auto_tile(h, w)
+            dev_ms, _ = time_ms(lambda i: pred._tile_grid(x, tile, HALO), reps=TILED_REPS,
+                                warmup=2, queued=False)
+        del x
+        row = result.setdefault(name, {})
+        row.update(slices_per_s=n / dt, megapixels_per_s=n * h * w / dt / 1e6,
+                   call_ms=dt * 1e3, device_ms_per_image=dev_ms / n, peak_mib=peak / 2**20)
+        log(f"[tiled] {name} ({n}, {h}, {w}): {n / dt:.3f} slices/s, "
+            f"{n * h * w / dt / 1e6:.1f} megapixels/s (host clock, {TILED_REPS} calls of "
+            f"{dt * 1e3:.2f} ms, host array in, host masks out); device {dev_ms / n:.3f} ms "
+            f"per image (CUDA events, image resident); peak memory {peak / 2**20:.1f} MiB")
+    r_big, r_small = result[f"{s4} tile{big}"], result[f"{s4} tile{small}"]
+    r_tiled, r_dense = result[f"{s2} float"], result[f"{s2} dense"]
+    log(f"[tiled] {s4}²: tile {big} / tile {small} device time "
+        f"{r_big['device_ms_per_image'] / r_small['device_ms_per_image']:.3f}, slices/s "
+        f"{r_big['slices_per_s'] / r_small['slices_per_s']:.3f}; {s2}²: tiled / dense device "
+        f"time {r_tiled['device_ms_per_image'] / r_dense['device_ms_per_image']:.3f}")
+    return launches, result
+
+
+def phase_tiled_reference(model) -> None:
+    """(1, 320, 448), tile 128: the card's f32 tiled masks (kernel + cuDNN, TF32
+    off) against the CPU's, on pixels whose top-two margin exceeds 1e-3."""
+    small = smooth_images(23, 1, 448)[:, :320]
+    with exact_f32():
+        card = Predictor(model, device="cuda", tile=128, tile_halo=HALO, tile_threshold=1)
+        got = card.predict_array(small)
+        margin = top2_margin(tiled_logits(card.model, torch.from_numpy(small).cuda(), 128,
+                                          HALO)).cpu().numpy()
+    want = Predictor(model, device="cpu", tile=128, tile_halo=HALO,
+                     tile_threshold=1).predict_array(small)
+    decided = margin > 1e-3
+    if not np.array_equal(got[decided], want[decided]):
+        raise RuntimeError("card f32 tiled masks differ from the CPU's on decided pixels")
+    log(f"[tiled-reference] (1, 320, 448) tile 128 f32: card masks equal the CPU's on "
+        f"{decided.mean():.2%} decided pixels ({int((got != want).sum())} pixels differ in all)")
+
+
+PIPE_SCANS, PIPE_W, PIPE_H, PIPE_TARGET = 16, 1536, 1024, 512
+PIPE_WINDOW = dict(window_width=30000, window_length=35000)
+LABELME_KEYS = {"version", "imagePath", "imageData", "flags", "shapes", "imageWidth",
+                "imageHeight"}
+
+
+class StageSeconds(logging.Handler):
+    """Collects run_pipeline's per-stage seconds from its log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.seconds = {}
+
+    def emit(self, record):
+        m = re.match(r"stage (\d): .*?([\d.]+) s$", record.getMessage())
+        if m:
+            self.seconds[int(m.group(1))] = float(m.group(2))
+
+
+def host_libraries() -> dict:
+    found = {}
+    for name in ("PIL", "cv2"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = None
+    return found
+
+
+def check_results(root: Path) -> tuple:
+    """Every stage directory is filled; every labelme JSON is well formed.
+    -> (JSON files, polygons)."""
+    counts = {stage: len(os.listdir(root / stage)) for stage in STAGES.values()}
+    if min(counts.values()) == 0 or counts["1_raw_png"] != PIPE_SCANS:
+        raise RuntimeError(f"pipeline stage directories under {root}: {counts}")
+    jsons = sorted((root / "5_json_results").glob("*.json"))
+    polygons = 0
+    for path in jsons:
+        data = json.loads(path.read_text())
+        pts = [np.asarray(s["points"]) for s in data["shapes"]]
+        if (set(data) != LABELME_KEYS or data["version"] != "1.0.2.799"
+                or (data["imageWidth"], data["imageHeight"]) != (PIPE_W, PIPE_H)
+                or not pts or any(p.ndim != 2 or p.shape[1] != 2 or p.min() < 0
+                                  or p[:, 0].max() >= PIPE_W or p[:, 1].max() >= PIPE_H
+                                  for p in pts)):
+            raise RuntimeError(f"malformed labelme JSON {path.name}")
+        polygons += len(pts)
+    if not jsons:
+        raise RuntimeError(f"no contour JSON under {root}")
+    return len(jsons), polygons
+
+
+def run_timed(cfg, predictor=None):
+    """run_pipeline with its stage seconds and launch counts."""
+    logger = logging.getLogger(run_pipeline.__module__)
+    handler, level = StageSeconds(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        run_pipeline(cfg, predictor=predictor)
+        seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return read_launches(), handler.seconds, seconds
+
+
+def phase_pipeline():
+    """The 5-stage pipeline on 16 seeded synthetic 1536x1024 uint16 RAW scans:
+    once with an injected unet_s Predictor (bf16, 7 kernel launches per batch
+    of 8), once with the default predictor built from a saved .npz of the
+    full unet (widths 64..1024: no conv with 8 <= Cin <= 32, so no kernel
+    launch).  The weights' class 2 is raised so the masks have regions to
+    trace.  Where PIL or cv2 does not import, says so and runs only stage
+    3's device work, a letterboxed (16, 512, 512) uint8 batch through the
+    full unet."""
+    libs = host_libraries()
+    log(f"[pipeline] host libraries: PIL {libs['PIL'] or 'does not import'}, "
+        f"cv2 {libs['cv2'] or 'does not import'}")
+    full = build_model(MODEL_SEED, unet, class2_share=0.6)
+    if None in libs.values():
+        log("[pipeline] PIL or cv2 is missing on this machine: stages 1, 2, 4 and 5 and "
+            "stage 3's PNG reading, post-processing and writing cannot run; running only "
+            "stage 3's device work on arrays")
+        batch = np.round(smooth_images(31, PIPE_SCANS, PIPE_TARGET) * 255).astype(np.uint8)
+        bar = (PIPE_TARGET - PIPE_TARGET * PIPE_H // PIPE_W) // 2  # the letterbox bars
+        batch[:, :bar], batch[:, PIPE_TARGET - bar:] = 0, 0
+        pred = Predictor(full, device="cuda", compute_dtype=torch.bfloat16)
+        pred.predict_array(batch[:8])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        masks = pred.predict_array(batch)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        check_masks(masks, batch.shape)
+        if launches["conv3x3_nhwc"]:
+            raise RuntimeError(f"the full unet launched the 3x3 kernel: {launches}")
+        log(f"[pipeline] stage 3 device work only: full unet bf16 predict_array "
+            f"{batch.shape} uint8 in {seconds:.3f} s, kernel launches {launches}")
+        return launches, dict(host_libraries=libs, stage3_only_seconds=seconds)
+
+    injected = Predictor(build_model(MODEL_SEED, unet_s, class2_share=0.6), device="cuda",
+                         compute_dtype=torch.bfloat16)
+    result = dict(host_libraries=libs)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "raws").mkdir()
+        write_raw_scans(tmp / "raws", 31, PIPE_SCANS, PIPE_W, PIPE_H)
+        save_checkpoint(str(tmp / "unet.npz"), full)
+        injected.predict_array(np.zeros((8, PIPE_TARGET, PIPE_TARGET), np.uint8))  # warm-up
+        for name, predictor, model_path in (("injected unet_s", injected, ""),
+                                            ("default unet from .npz", None,
+                                             str(tmp / "unet.npz"))):
+            root = tmp / name.split()[0]
+            stage3 = None
+            if predictor is None:  # before the run: the full unet's first calls are cold
+                stage3 = stage3_breakdown(model_path, tmp / "injected")
+            cfg = PipelineConfig(input_raw=str(tmp / "raws"), output_root=str(root),
+                                 width=PIPE_W, height=PIPE_H, model=model_path,
+                                 target_size=PIPE_TARGET, **PIPE_WINDOW)
+            launches, stages, seconds = run_timed(cfg, predictor)
+            n_json, n_poly = check_results(root)
+            batches = -(-PIPE_SCANS // injected.batch_size)
+            want = batches * len(MAIN_CONVS) if predictor is injected else 0
+            if (launches["conv3x3_nhwc"], launches["conv3x3_nhwc tensor_core"]) != (want, want):
+                raise RuntimeError(f"pipeline with the {name} predictor launched {launches}, "
+                                   f"want {want} forward launches, all on the tensor cores")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            result[name] = dict(seconds=seconds, stage_seconds=stages, json_files=n_json,
+                                polygons=n_poly, launches=launches["conv3x3_nhwc"])
+            log(f"[pipeline] {name}: {PIPE_SCANS} RAW scans {PIPE_W}x{PIPE_H} -> "
+                f"{n_json} labelme JSON files, {n_poly} polygons, in {seconds:.3f} s "
+                f"({PIPE_SCANS / seconds:.2f} scans/s, host clock); stage seconds "
+                f"{' '.join(f'{k}: {v:.3f}' for k, v in sorted(stages.items()))}; "
+                f"conv3x3_nhwc launches {launches['conv3x3_nhwc']} (want {want})")
+            if stage3 is not None:
+                result[name]["stage3"] = stage3
+    return total, result
+
+
+BREAKDOWN_MASKS = 2
+
+
+def stage3_breakdown(model_path: str, root: Path) -> dict:
+    """Stage 3 of the default model in parts, on the letterboxed slices of
+    the pipeline run under ``root`` (host clock): building the predictor, the
+    first (cold) and a second predict_array of them (uint8), and the host
+    post-processing per mask, over
+    the first BREAKDOWN_MASKS masks, with their external class-2 contours
+    (remove_internal_regions makes one whole-mask pass per contour)."""
+    import cv2
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    pred = _build_predictor(model_path)
+    torch.cuda.synchronize()
+    parts = {"build": time.perf_counter() - t0}
+    batch = np.stack([np.asarray(Image.open(f))
+                      for f in sorted((root / STAGES["normalized_png"]).glob("*.png"))])
+    for key in ("first_predict", "predict"):
+        t0 = time.perf_counter()
+        masks = pred.predict_array(batch)
+        parts[key] = time.perf_counter() - t0
+    sample = masks[:BREAKDOWN_MASKS].astype(np.uint8)
+    t0 = time.perf_counter()
+    for m in sample:
+        postprocess_mask(m)
+    parts["postprocess_per_mask"] = (time.perf_counter() - t0) / len(sample)
+    contours = [len(cv2.findContours((m == 2).astype(np.uint8), cv2.RETR_EXTERNAL,
+                                     cv2.CHAIN_APPROX_SIMPLE)[0]) for m in sample]
+    log(f"[pipeline] stage 3 of the default unet, in parts: "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in parts.items())} "
+        f"({len(batch)} slices {batch.shape[1]}x{batch.shape[2]}, host clock); "
+        f"external class-2 contours of the predicted masks it walks: {contours}")
+    return dict(parts, contours=contours)
+
+
 def shape_rows(rows) -> list:
     """The per-shape numbers of the ``kernels`` line."""
-    return [{k: r[k] for k in ("name", "shape", "ms", "bound_ms", "library_ms", "roofline")}
-            for r in rows]
+    return [{k: r[k] for k in ("name", "path", "shape", "ms", "bound_ms", "library_ms",
+                               "roofline")} for r in rows]
 
 
 def main(argv=None) -> int:
@@ -775,8 +1205,14 @@ def main(argv=None) -> int:
     phase_train_reference()
     train_launches, train = phase_train(args.profile)
     train["epoch"] = phase_train_model()
+    tiled_launches, tiled = phase_tiled(model)
+    pipeline_launches, pipeline = phase_pipeline()
 
-    main_rows = [r for r in rows if r["name"] != "ragged"]
+    main_rows = [r for r in rows if r["path"] == "dense"]
+    tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
+    fwd_launches = {"predict": launches["conv3x3_nhwc"], "train": train_launches["conv3x3_nhwc"],
+                    "tiled": tiled_launches["conv3x3_nhwc"],
+                    "pipeline": pipeline_launches.get("conv3x3_nhwc", 0)}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     pallas = "unet_medical_image_contour_segmentation_tpu/ops/pallas_conv.py"
     kernels = [{
@@ -784,8 +1220,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": f"{pallas}:133",
-        # the predict path's two forwards plus the train path's steps
-        "launches": launches["conv3x3_nhwc"] + train_launches["conv3x3_nhwc"],
+        # the launches of every path: dense predict, train, tiled predict, pipeline
+        "launches": sum(fwd_launches.values()),
+        "launches_by_path": fwd_launches,
         "max_abs_err": max_err,
         # per unet_s forward: the sum over the main path's shapes
         "ms": sum(r["ms"] for r in main_rows),
@@ -794,6 +1231,12 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
         "library_ms": sum(r["library_ms"] for r in main_rows),
         "shapes": shape_rows(main_rows),
+        # per window-group forward of the tiled path, by window size
+        "tiled": {f"{win}": {"batch": b, **{k: sum(r[k] for r in tiled_rows
+                                                  if r["path"] == f"tiled{win}")
+                                            for k in ("ms", "bound_ms", "library_ms")}}
+                  for b, win in TILED_WINDOWS},
+        "tiled_shapes": shape_rows(tiled_rows),
     }, {
         # the same kernel as the input gradient in the train step's backward
         "name": "conv3x3_nhwc_dx",
@@ -819,8 +1262,14 @@ def main(argv=None) -> int:
         f"kernel / library {kernels[1]['ms'] / kernels[1]['library_ms']:.3f}; dw (cuDNN "
         f"wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms, bound "
         f"{sum(r['dw_bound_ms'] for r in bwd_rows):.4f} ms")
+    for win, t in fwd["tiled"].items():
+        log(f"[kernels] per tiled forward of {t['batch']} windows of {win}²: kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
+            f"{t['bound_ms'] / t['ms']:.1%}), F.conv2d {t['library_ms']:.4f} ms")
     log(f"[main] {json.dumps(main)}")
     log(f"[train] {json.dumps(train)}")
+    log(f"[tiled] {json.dumps(tiled)}")
+    log(f"[pipeline] {json.dumps(pipeline)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import rect_batch, seeded_unet_s
+from chip_smoke import (
+    MODEL_SEED,
+    build_model,
+    rect_batch,
+    seeded_unet_s,
+    smooth_images,
+    tiled_logits,
+    top2_margin,
+)
 from unet_medical_image_contour_segmentation_torch import exact_f32
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor
@@ -213,3 +221,86 @@ def test_predictor_on_card_matches_cpu(cuda):
     want = Predictor(model, device="cpu").predict_array(images)
     assert got.shape == want.shape == (2, 64, 96)
     assert (got == want).mean() > 0.999
+
+
+@pytest.fixture(scope="module")
+def seeded_model():
+    return build_model(MODEL_SEED)
+
+
+def _tiled(model, device, dtype=None, **kw):
+    return Predictor(model, device=device, compute_dtype=dtype, tile=128, tile_halo=96,
+                     tile_threshold=1, **kw)
+
+
+def _counts():
+    return [getattr(f, a) for f in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)
+            for a in ("launches", "tensor_core_launches")]
+
+
+def test_tiled_on_card_matches_cpu(cuda, seeded_model):
+    """f32 (TF32 off): the card's tiled masks equal the CPU's wherever the
+    top-two margin of the stitched window logits exceeds 1e-3."""
+    images = smooth_images(50, 1, 320)[:, :, :288]
+    with exact_f32():
+        card = _tiled(seeded_model, cuda)
+        got = card.predict_array(images)
+        margin = top2_margin(tiled_logits(card.model, torch.from_numpy(images).to(cuda), 128,
+                                          96)).cpu().numpy()
+    want = _tiled(seeded_model, "cpu").predict_array(images)
+    ok = margin > 1e-3
+    assert got.shape == want.shape == (1, 320, 288) and ok.mean() > 0.99
+    np.testing.assert_array_equal(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("tile_batch", [1, 4, 8])
+def test_tiled_grid_launches_and_matches_host_stitching(cuda, seeded_model, tile_batch):
+    """3 x 3 tiles: in bf16, 7 tensor-core launches per window-group forward
+    (the last group padded with duplicates); in f32 (TF32 off) the device
+    grid gives the host-stitched map (one forward per tile) on decided
+    pixels.  (In bf16 the two agree on 99.77% at 4 and 8 tiles a group on
+    an H100: the convs left to cuDNN run at another batch there, and a bf16
+    rounding flips near-ties.)"""
+    images = smooth_images(51, 2, 384)
+    grid = _tiled(seeded_model, cuda, torch.bfloat16)
+    grid.tile_batch = tile_batch
+    before = _counts()
+    grid.predict_array(images)
+    forwards = -(-9 // tile_batch)
+    assert [a - b for a, b in zip(_counts(), before)] == [7 * forwards, 7 * forwards, 0, 0]
+    with exact_f32():
+        grid, host = _tiled(seeded_model, cuda), _tiled(seeded_model, cuda)
+        grid.tile_batch, host.tile_on_device = tile_batch, False
+        got, want = grid.predict_array(images), host.predict_array(images)
+        margin = top2_margin(tiled_logits(grid.model, torch.from_numpy(images).to(cuda), 128,
+                                          96)).cpu().numpy()
+    ok = margin > 1e-3
+    assert got.dtype == want.dtype == np.int32 and ok.mean() > 0.99
+    np.testing.assert_array_equal(got[ok], want[ok])
+
+
+def test_tiled_uint8_on_card(cuda, seeded_model):
+    """uint8 stays uint8 in the padded buffer; each window divides by its
+    image's divisor, as the host does before the float path."""
+    u8 = np.round(smooth_images(52, 2, 384) * 255).astype(np.uint8)
+    pred = _tiled(seeded_model, cuda, torch.bfloat16)
+    got, want = pred.predict_array(u8), pred.predict_array(u8.astype(np.float32) / 255)
+    assert (got == want).mean() > 0.9999
+
+
+def test_tiled_interior_matches_dense_on_card(cuda, seeded_model):
+    """f32: tiled equals dense at least HALO from the border, wherever both
+    forwards decide the pixel by a margin above 1e-3."""
+    images = smooth_images(53, 1, 384)
+    x = torch.from_numpy(images).to(cuda)
+    with exact_f32():
+        tiled = _tiled(seeded_model, cuda)
+        got = tiled.predict_array(images)
+        want = Predictor(seeded_model, device=cuda, tile_threshold=0).predict_array(images)
+        with torch.inference_mode():
+            dense_margin = top2_margin(tiled.model(x)).cpu().numpy()
+        tiled_margin = top2_margin(tiled_logits(tiled.model, x, 128, 96)).cpu().numpy()
+    inner = (slice(None), slice(96, -96), slice(96, -96))
+    ok = (dense_margin > 1e-3) & (tiled_margin > 1e-3)
+    np.testing.assert_array_equal(got[inner][ok[inner]], want[inner][ok[inner]])
+    assert (got != want).mean() > 0  # the border band differs: another function

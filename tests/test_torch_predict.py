@@ -173,8 +173,8 @@ def test_cli_predicts_a_directory(model, png_dir, tmp_path):
         np.testing.assert_array_equal(saved, np.asarray(mask_to_image(mask)))
 
 
-@pytest.mark.parametrize("extra", [["--tile", "512"], ["--int8"], ["--bilinear"],
-                                   ["--num-devices", "2"], ["--arch", "unet_sa"]])
+@pytest.mark.parametrize("extra", [["--viz"], ["--int8"], ["--int8-scales", "s.json"],
+                                   ["--num-devices", "2"], ["--arch", "unet_pp"]])
 def test_cli_rejects_what_is_not_ported(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.get_args(["-m", "w.npz", "-i", "x.png", *extra])

@@ -20,6 +20,7 @@ from unet_medical_image_contour_segmentation_torch.models.unet import get_model
 from unet_medical_image_contour_segmentation_torch.models.unet import unet_s as torch_unet_s
 from unet_medical_image_contour_segmentation_tpu.engine import checkpoint as JC
 from unet_medical_image_contour_segmentation_tpu.models.unet import unet_s as jax_unet_s
+from unet_medical_image_contour_segmentation_tpu.models.unet import unet_sa as jax_unet_sa
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -139,7 +140,80 @@ def test_port_checkpoint_loads_into_jax(weights, tmp_path, suffix):
 def test_presets_and_registry():
     assert get_model("unet_t").widths == (8, 16, 32, 64, 128)
     assert get_model("unet").widths == (64, 128, 256, 512, 1024)
-    with pytest.raises(ValueError, match="unet_sa"):
-        get_model("unet_sa")
-    with pytest.raises(NotImplementedError):
-        torch_unet_s(bilinear=True)
+    sa = get_model("unet_sa")
+    assert sa.widths == (16, 32, 64, 128, 256) and sa.use_attention and sa.name == "unet_sa"
+    assert "up1.attention.conv1.weight" in sa.state_dict()
+    bl = torch_unet_s(bilinear=True)
+    assert bl.bilinear and "up1.up.weight" not in bl.state_dict()
+    with pytest.raises(ValueError, match="unet_pp"):
+        get_model("unet_pp")
+
+
+VARIANTS = {  # name: (port kwargs, JAX model, seeded-weight kwargs)
+    "unet_sa": ({}, jax_unet_sa(1, 3), dict(attention=True)),
+    "unet_s_bilinear": ({"bilinear": True}, jax_unet_s(1, 3, True), dict(bilinear=True)),
+    "unet_sa_bilinear": ({"bilinear": True}, jax_unet_sa(1, 3, True),
+                         dict(bilinear=True, attention=True)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def variant(request):
+    kw, jax_model, wkw = VARIANTS[request.param]
+    params, state = random_unet_params(5, **wkw)
+    model = get_model("unet_sa" if jax_model.use_attention else "unet_s", **kw)
+    model.load_state_dict(state_dict_from_jax(params, state))
+    return model.eval(), jax_model, params, state, wkw
+
+
+def test_variant_weights_have_the_jax_structure(variant):
+    _, jax_model, params, state, _ = variant
+    want = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0))
+    assert jax.tree.structure((params, state)) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves(want)):
+        assert (a.shape, a.dtype) == (b.shape, b.dtype)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (48, 80)])
+def test_variant_eval_matches_jax(variant, hw):
+    """unet_sa and bilinear ups: the eval forward and the BN-folded forward
+    against the JAX model's, f32 within 1e-4."""
+    model, jax_model, params, state, _ = variant
+    x = np.random.default_rng(6).random((2, *hw, 1), dtype=np.float32)
+    want, _ = jax_model.with_options(layout="nhwc").apply(params, state, jnp.asarray(x),
+                                                           train=False)
+    np.testing.assert_allclose(port_logits(model, x), np.asarray(want), **TOL)
+    np.testing.assert_allclose(port_logits(fold_bn(model), x), np.asarray(want), **TOL)
+
+
+def test_variant_state_dict_round_trip(variant, tmp_path):
+    """The weight carrier maps up{i}/att/conv/w and bilinear ups both ways,
+    and a reference .pth with attention keys loads."""
+    model, jax_model, params, state, _ = variant
+    p2, s2, _ = params_from_state_dict(model.state_dict())
+    assert jax.tree.structure((params, state)) == jax.tree.structure((p2, s2))
+    for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((p2, s2))):
+        np.testing.assert_array_equal(a, b)
+    path = str(tmp_path / "ref.pth")
+    torch.save(dict(model.state_dict(), mask_values=[0, 128, 255]), path)
+    sd, mask_values = TC.load_weights(path)
+    assert mask_values == [0, 128, 255]
+    assert any(k.endswith("attention.conv1.weight") for k in sd) == jax_model.use_attention
+    again = get_model(model.name, bilinear=model.bilinear)
+    again.load_state_dict(sd)
+    x = np.random.default_rng(7).random((1, 32, 32, 1), dtype=np.float32)
+    np.testing.assert_array_equal(port_logits(again.eval(), x), port_logits(model, x))
+    jp, js, _ = JC.load_weights(path, bilinear=model.bilinear,
+                                use_attention=jax_model.use_attention)
+    for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((jp, js))):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_fold_leaves_the_attention_conv():
+    params, state = random_unet_params(5, attention=True)
+    model = get_model("unet_sa")
+    model.load_state_dict(state_dict_from_jax(params, state))
+    folded = fold_bn(model, torch.bfloat16)
+    assert folded.up1.attention.conv1.weight.dtype == torch.float32
+    torch.testing.assert_close(folded.up1.attention.conv1.weight,
+                               model.up1.attention.conv1.weight)

@@ -5,11 +5,13 @@
         -m checkpoint.npz -i images/ -o masks/ --arch unet_s
 
 The flags of the JAX package's ``cli/predict.py`` that this port supports:
-``.pth``/``.pt``/``.npz`` weights, a file or a recursively walked directory,
+``.pth``/``.pt``/``.npz`` weights of unet, unet_t, unet_s or unet_sa (with
+``--bilinear`` for bilinear ups), a file or a recursively walked directory,
 post-processing on by default, masks saved as {0,128,255} PNGs (next to the
-inputs when ``-o`` is omitted), batches grouped by image size.  Its other
-flags (tiling, int8, data parallelism, exported programs, bilinear models,
-visualisation) are rejected with an error until they are ported.
+inputs when ``-o`` is omitted), batches grouped by image size, and tiled
+serving of images above ``--tile-threshold`` pixels.  Its other flags (int8,
+data parallelism, exported programs, visualisation) are rejected with an
+error until they are ported.
 """
 
 from __future__ import annotations
@@ -21,10 +23,8 @@ import sys
 
 # flags of the JAX CLI that the port does not serve yet
 _NOT_PORTED = {
-    "--viz": "visualisation", "--tile": "tiled inference", "--tile-halo": "tiled inference",
-    "--tile-threshold": "tiled inference", "--bilinear": "bilinear UNets",
-    "--num-devices": "data-parallel serving", "--int8": "int8 serving",
-    "--int8-scales": "int8 serving",
+    "--viz": "visualisation", "--num-devices": "data-parallel serving",
+    "--int8": "int8 serving", "--int8-scales": "int8 serving",
 }
 
 
@@ -38,9 +38,19 @@ def get_args(argv=None):
     parser.add_argument("--no-postprocess", dest="postprocess", action="store_false",
                         default=True, help="Skip the cv2 mask clean-up")
     parser.add_argument("--batch-size", type=int, default=8)
-    parser.add_argument("--arch", default="unet", choices=["unet", "unet_t", "unet_s"],
+    parser.add_argument("--tile", type=int, default=None,
+                        help="Tile size for large scans (default: auto, 512, or 1024 on "
+                             "grids of at least 8 tiles)")
+    parser.add_argument("--tile-halo", type=int, default=96,
+                        help="Tile overlap margin (96 covers the UNets' receptive field)")
+    parser.add_argument("--tile-threshold", type=int, default=None,
+                        help="Pixel count above which images are tiled (default 1536^2; "
+                             "0 disables)")
+    parser.add_argument("--arch", default="unet", choices=["unet", "unet_t", "unet_s", "unet_sa"],
                         help="Architecture of the weight file")
     parser.add_argument("--classes", type=int, default=3)
+    parser.add_argument("--bilinear", action="store_true", default=False,
+                        help="The weights are of a UNet with bilinear ups")
     parser.add_argument("--fast-transfer", action="store_true", default=False,
                         help="Upload raw uint8 pixels and normalise on the device")
     parser.add_argument("--device", default="cuda",
@@ -84,9 +94,11 @@ def main(argv=None) -> int:
     state_dict, _ = load_weights(args.model)
     compute_dtype = torch.bfloat16 if args.device.startswith("cuda") else None
     model = get_model(args.arch, n_channels=1, n_classes=args.classes,
-                      compute_dtype=compute_dtype)
+                      bilinear=args.bilinear, compute_dtype=compute_dtype)
     model.load_state_dict(state_dict)
-    predictor = Predictor(model, device=args.device, batch_size=args.batch_size)
+    predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
+                          tile=args.tile, tile_halo=args.tile_halo,
+                          tile_threshold=args.tile_threshold)
     logging.info("Model loaded on %s", predictor.device)
     results = predictor.predict_paths(in_files, output_dir=args.output,
                                       postprocess=args.postprocess, save=not args.no_save,

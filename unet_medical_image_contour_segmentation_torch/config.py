@@ -1,9 +1,10 @@
-"""The training config and its argparse helpers: the port's own copy of the
-JAX package's ``config.py`` (``TrainConfig``, ``add_dataclass_args``,
-``dataclass_from_args``), field for field, so one config drives either
-package.  ``amp`` is bf16 compute with f32 master weights and no loss
-scaling.  Which fields the port's ``train_model`` does not serve yet is said
-there: it raises for them.
+"""The configs and their argparse helpers: the port's own copy of the JAX
+package's ``config.py`` (``TrainConfig``, ``PostProcessConfig``,
+``PipelineConfig``, ``add_dataclass_args``, ``dataclass_from_args``), field
+for field, so one config drives either package.  ``amp`` is bf16 compute
+with f32 master weights and no loss scaling.  Which fields the port's
+``train_model`` does not serve yet is said there: it raises for them, as
+``run_pipeline`` does for ``int8``.
 """
 
 from __future__ import annotations
@@ -11,13 +12,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["TrainConfig", "add_dataclass_args", "dataclass_from_args"]
+__all__ = ["TrainConfig", "PostProcessConfig", "PipelineConfig", "add_dataclass_args",
+           "dataclass_from_args"]
 
 
 @dataclasses.dataclass
 class TrainConfig:
     # model
-    model: str = "unet_s"                  # unet | unet_t | unet_s
+    model: str = "unet_s"                  # unet | unet_t | unet_s | unet_sa
     n_channels: int = 1
     classes: int = 3
     bilinear: bool = False
@@ -66,6 +68,28 @@ class TrainConfig:
     nan_check_every: int = 1               # steps between NaN-guard/metric fetches
     progress: bool = True                  # tqdm running-loss bar (auto-off on non-TTY)
     metrics_path: Optional[str] = None     # JSONL per-step/epoch metric log
+
+
+@dataclasses.dataclass
+class PostProcessConfig:
+    min_area: int = 15000
+    morph_kernel_size: int = 3
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    """The knobs of the 5-stage RAW -> contour-JSON pipeline."""
+
+    input_raw: str = ""
+    output_root: str = "seg_results"
+    width: int = 0
+    height: int = 0
+    window_width: int = 0
+    window_length: int = 0
+    model: str = ""
+    target_size: int = 512
+    int8: bool = False                     # int8 serving of stage 3: not ported, raises
+    int8_scales: Optional[str] = None      # its calibration JSON
 
 
 def add_dataclass_args(parser, cls, defaults=None):

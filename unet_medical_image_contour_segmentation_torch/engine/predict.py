@@ -1,7 +1,7 @@
 """Inference: preprocess -> forward -> back-resize -> argmax -> post-process.
 
-The dense path of the JAX package's ``engine/predict.py:Predictor``: BN is
-folded into the convs once at construction (which also stores the 3x3
+The dense and tiled paths of the JAX package's ``engine/predict.py:Predictor``:
+BN is folded into the convs once at construction (which also stores the 3x3
 weights packed in the compute dtype), images run through the model in
 batches under ``torch.inference_mode()``, logits go back to the requested
 size by a bilinear resize with ``align_corners=False``, and the argmax takes
@@ -10,8 +10,17 @@ the JAX package's ``losses/s2d_fused.py:argmax_class_major``).  uint8 images
 upload raw and are normalised on the device: /255 only when the image's max
 exceeds 1, as ``BasicDataset.preprocess`` does on the host.
 
-Tiled and int8 serving, data-parallel serving and exported-program serving
-are not ported yet.
+Images above ``tile_threshold`` pixels (1536² by default) are served in
+overlapping tiles: the image is zero-padded by ``tile_halo`` around the tile
+grid, each ``tile + 2*halo`` window runs the forward, and only its central
+``tile`` x ``tile`` core is kept.  This is not the dense function: the dense
+forward zero-pads every conv's activation at the image border, the tiled one
+zero-pads the image and computes the halo, so within about a receptive field
+of the border the two can differ (in the interior they agree).  The port
+follows the JAX package here, tile for tile.
+
+int8 serving, data-parallel serving and exported-program serving are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..data.dataset import BasicDataset
@@ -68,18 +78,48 @@ class Predictor:
 
     ``device`` defaults to ``cuda`` (raising when there is no card);
     ``compute_dtype`` defaults to the model's own.  Every BatchNorm is folded
-    into its conv (exact in eval mode) on a copy of the model.
+    into its conv (exact in eval mode) on a copy of the model.  ``tile``,
+    ``tile_halo`` and ``tile_threshold`` set the tiled path (see the module
+    docstring): ``tile=None`` picks the tile per image (:meth:`_auto_tile`),
+    ``tile_threshold=None`` takes ``TILE_THRESHOLD`` and 0 never tiles.
     """
 
+    # dense-path pixel budget: above it, predict tiles the image; 0 = never
+    TILE_THRESHOLD = 1536 * 1536
+    # tiles stacked into the batch dimension of each tiled forward
+    tile_batch = 8
+    # tile=None takes the largest candidate whose grid has at least
+    # AUTO_TILE_MIN_TILES tiles: a bigger tile computes a smaller share of
+    # halo (1216²/1024² = 1.41x the core's pixels against 704²/512² = 1.89x),
+    # a small grid wastes duplicate tiles in its last group.  The rule is the
+    # JAX package's; the card's tile-512 and tile-1024 times at 4096² are in
+    # PERF.md (chip_smoke.py's tiled phase).
+    AUTO_TILES = (512, 1024)
+    AUTO_TILE_MIN_TILES = 8
+    # False: one forward per tile, stitched on the host (the reference the
+    # device grid is tested against)
+    tile_on_device = True
+
     def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
-                 compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8):
+                 compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
+                 tile: Optional[int] = None, tile_halo: int = 96,
+                 tile_threshold: Optional[int] = None):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.n_classes = model.n_classes
+        self.tile = tile
+        self.tile_halo = tile_halo
+        self.tile_threshold = self.TILE_THRESHOLD if tile_threshold is None else tile_threshold
         cd = model.compute_dtype if compute_dtype is None else compute_dtype
         net = fold_bn(model, cd)
         net.compute_dtype = cd
         self.model = net.to(self.device)
+
+    def _classes(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, n_classes) logits -> (B, H, W) int32 classes."""
+        if self.n_classes == 1:
+            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
+        return logits.argmax(dim=-1).int()
 
     @torch.inference_mode()
     def _forward(self, images: np.ndarray, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -89,18 +129,111 @@ class Predictor:
         logits = self.model(x)
         if tuple(logits.shape[1:3]) != tuple(out_hw):
             logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
-        if self.n_classes == 1:
-            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
-        return logits.argmax(dim=-1).int()
+        return self._classes(logits)
+
+    def _use_tiling(self, in_hw, out_hw) -> bool:
+        """Tile when the image exceeds the pixel budget and no back-resize is
+        asked for (stitched class maps cannot be resized as logits are)."""
+        if self.tile_threshold <= 0 or tuple(out_hw) != tuple(in_hw):
+            return False
+        return in_hw[0] * in_hw[1] > self.tile_threshold
+
+    def _auto_tile(self, h: int, w: int) -> int:
+        for t in sorted(self.AUTO_TILES, reverse=True):
+            if (-(-h // t)) * (-(-w // t)) >= self.AUTO_TILE_MIN_TILES:
+                return t
+        return min(self.AUTO_TILES)
+
+    def _tile_core(self, windows: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
+        """(N, win, win, C) float windows -> (N, tile, tile) int32 classes of
+        their central cores."""
+        logits = self.model(windows)
+        return self._classes(logits[:, halo:halo + tile, halo:halo + tile])
+
+    @torch.inference_mode()
+    def _tile_grid(self, x: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
+        """The device tiled path: (n, h, w, C) image on the device, float or
+        uint8 -> (n, h, w) uint8 class map on the device.
+
+        Pads once, then walks the tile offsets in groups of ``tpb`` =
+        ``tile_batch`` (at most the grid size), the last group padded with
+        duplicates of the last tile so that every forward has one batch
+        shape (a duplicate rewrites its core with the same classes).  Each
+        group's windows stack into the batch dimension, (tpb * n, win, win,
+        C), and their cores are written into the map; nothing returns to
+        the host per tile.  uint8 stays uint8 in the padded buffer and each
+        window is divided by its image's divisor (zero padding cannot raise
+        a uint8 maximum, so the padded and raw maxima agree)."""
+        n, h, w, c = x.shape
+        ph, pw = -h % tile, -w % tile
+        gh, gw = (h + ph) // tile, (w + pw) // tile
+        win = tile + 2 * halo
+        tpb = min(self.tile_batch, gh * gw)
+        offs = [(i * tile, j * tile) for i in range(gh) for j in range(gw)]
+        offs += offs[-1:] * (-len(offs) % tpb)
+        padded = F.pad(x, (0, 0, halo, halo + pw, halo, halo + ph))
+        div = None
+        if x.dtype == torch.uint8:
+            mx = padded.amax(dim=(1, 2, 3)).float()
+            div = torch.where(mx > 1, 255.0, 1.0).view(1, n, 1, 1, 1)
+        out = torch.zeros((n, gh * tile, gw * tile), dtype=torch.uint8, device=x.device)
+        for g in range(0, len(offs), tpb):
+            group = offs[g:g + tpb]
+            wins = torch.stack([padded[:, i:i + win, j:j + win] for i, j in group]).float()
+            if div is not None:
+                wins = wins / div
+            pred = self._tile_core(wins.reshape(tpb * n, win, win, c), tile, halo)
+            pred = pred.reshape(tpb, n, tile, tile).to(torch.uint8)
+            for t, (i, j) in enumerate(group):
+                out[:, i:i + tile, j:j + tile] = pred[t]
+        return out[:, :h, :w]
+
+    @torch.inference_mode()
+    def _tiled_predict(self, images: np.ndarray) -> torch.Tensor:
+        """(n, H, W[, C]) host images -> (n, H, W) class map on the device,
+        through the device grid (:meth:`_tile_grid`) or, with
+        ``tile_on_device = False``, one forward per tile stitched on the host."""
+        n, h, w = images.shape[:3]
+        tile = self.tile or self._auto_tile(h, w)
+        halo = self.tile_halo
+        if images.ndim == 3:
+            images = images[..., None]
+        if self.tile_on_device:
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            return self._tile_grid(x, tile, halo)
+        if images.dtype == np.uint8:
+            images = _norm_uint8(torch.from_numpy(images)).numpy()
+        ph, pw = -h % tile, -w % tile
+        win = tile + 2 * halo
+        padded = np.pad(images, ((0, 0), (halo, halo + ph), (halo, halo + pw), (0, 0)))
+        pending = []  # every forward is issued before the first core is fetched
+        for i in range(0, h + ph, tile):
+            for j in range(0, w + pw, tile):
+                window = np.ascontiguousarray(padded[:, i:i + win, j:j + win])
+                x = torch.from_numpy(window).to(self.device).float()
+                pending.append((i, j, self._tile_core(x, tile, halo)))
+        out = np.empty((n, h + ph, w + pw), np.int32)
+        for i, j, core in pending:
+            out[:, i:i + tile, j:j + tile] = core.cpu().numpy()
+        return torch.from_numpy(out[:, :h, :w])
+
+    def _predict_device(self, images: np.ndarray,
+                        out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """One batch of one size -> its class map (B, outH, outW), tiled or
+        dense, left where it was computed."""
+        in_hw = tuple(images.shape[1:3])
+        out_hw = tuple(out_hw or in_hw)
+        if self._use_tiling(in_hw, out_hw):
+            return self._tiled_predict(images)
+        return self._forward(images, out_hw)
 
     def predict_array(self, images: np.ndarray,
                       out_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
         """images (B, H, W[, C]) float or uint8 -> (B, outH, outW) int32 classes."""
         images = np.asarray(images)
-        out_hw = tuple(out_hw or images.shape[1:3])
-        preds = [self._forward(images[i:i + self.batch_size], out_hw).cpu().numpy()
+        preds = [self._predict_device(images[i:i + self.batch_size], out_hw).cpu().numpy()
                  for i in range(0, len(images), self.batch_size)]
-        return np.concatenate(preds)
+        return np.concatenate(preds).astype(np.int32, copy=False)
 
     def predict_image(self, img, postprocess: bool = True) -> np.ndarray:
         """One PIL image -> {0,1,2} mask at its own size."""
@@ -166,18 +299,19 @@ class Predictor:
                 mask_to_image(pred).save(out_path)
 
         def post_chunk(chunk, preds_device: torch.Tensor) -> None:
-            for (path, _), pred in zip(chunk, preds_device.cpu().numpy()):
+            preds = preds_device.cpu().numpy().astype(np.int32, copy=False)
+            for (path, _), pred in zip(chunk, preds):
                 host_post(path, pred)
 
         with ThreadPoolExecutor(max_workers=8) as pool:
             futures = []
-            for size, items in by_size.items():
+            for items in by_size.values():
                 for i in range(0, len(items), self.batch_size):
                     chunk = items[i:i + self.batch_size]
                     batch = np.stack([a for _, a in chunk])
                     # the device->host copy and post-processing overlap the
                     # next batch's forward
-                    futures.append(pool.submit(post_chunk, chunk, self._forward(batch, size)))
+                    futures.append(pool.submit(post_chunk, chunk, self._predict_device(batch)))
             for f in futures:
                 f.result()
         return results

@@ -16,9 +16,10 @@ new state, the port updates the model and the optimizer in place.
 * checkpoints every ``checkpoint_every`` epochs past ``checkpoint_after_frac``
   of the run, and the final ``model_epoch{N}.npz``, with the optimizer state.
 
-Single device only: data and spatial parallelism, rematerialisation, the
-bilinear UNet, the binary loss and the connected-component penalty raise
-``NotImplementedError`` until they are ported.  tqdm, PIL and cv2 are
+Single device only: data and spatial parallelism, rematerialisation,
+training the bilinear UNet or unet_sa (both serve), the binary loss and the
+connected-component penalty raise ``NotImplementedError`` until they are
+ported.  tqdm, PIL and cv2 are
 imported only on the paths that use them (progress bars, prediction dumps,
 post-processed Dice).
 """
@@ -103,6 +104,7 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         "classes == 1 (the binary BCE + Dice + boundary loss)": cfg.classes == 1,
         "remat (activation checkpointing)": cfg.remat,
         "bilinear (the bilinear UNet)": cfg.bilinear,
+        "model unet_sa (the attention UNet)": cfg.model == "unet_sa",
     }
     asked = [what for what, on in unported.items() if on]
     if asked:

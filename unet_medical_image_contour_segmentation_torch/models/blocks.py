@@ -1,14 +1,18 @@
 """UNet building blocks as ``nn.Module``s over NHWC activations.
 
 The blocks of the JAX package's ``models/blocks.py``: DoubleConv ((3x3 conv
-without bias -> BN -> ReLU) x 2), Down (2x2 max pool then DoubleConv), Up
-(ConvTranspose k2 s2, asymmetric pad to the skip's size, concat
+without bias -> BN -> ReLU) x 2, optional mid width), Down (2x2 max pool then
+DoubleConv), SpatialAttention (channel mean and max -> 7x7 conv without bias
+-> sigmoid), Up (ConvTranspose k2 s2, or a x2 bilinear upsample with
+``align_corners=True`` and a DoubleConv with mid = in // 2; asymmetric pad to
+the skip's size, the attention gate on the skip when asked, concat
 ``[skip, up]``, DoubleConv) and OutConv (1x1 conv with bias).
 
 Parameters sit in ``nn.Conv2d`` / ``nn.BatchNorm2d`` / ``nn.ConvTranspose2d``
 holders named like the reference model, so its state_dict keys
 (``inc.double_conv.{0,1,3,4}``, ``down{i}.maxpool_conv.1.double_conv``,
-``up{i}.up``, ``up{i}.conv.double_conv``, ``outc.conv``) load with a plain
+``up{i}.up``, ``up{i}.attention.conv1``, ``up{i}.conv.double_conv``,
+``outc.conv``) load with a plain
 ``load_state_dict``; their torch default initialisers are the JAX package's.
 The forward passes go through ``ops.nn`` on NHWC tensors, never through the
 holders' own NCHW ``forward``.
@@ -23,8 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nn import batch_norm, conv2d, conv_transpose2d, max_pool2d
+from ..ops.resize import upsample_x2_align_corners
 
-__all__ = ["DoubleConv", "Down", "Up", "OutConv"]
+__all__ = ["DoubleConv", "Down", "SpatialAttention", "Up", "OutConv"]
 
 
 def _conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -81,22 +86,51 @@ def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
 
 
-class Up(nn.Module):
-    """x2 ConvTranspose upsample of x1, concat with the skip x2, DoubleConv."""
+class SpatialAttention(nn.Module):
+    """A gate in (0, 1) per pixel from the channel mean and max (JAX
+    ``blocks.py:spatial_attention_apply``): both in f32, a 7x7 conv without
+    bias in the compute dtype, the sigmoid in f32, cast to x's dtype."""
 
-    def __init__(self, cin: int, cout: int, bilinear: bool = False):
+    def __init__(self, kernel_size: int = 7):
         super().__init__()
+        self.conv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+        xf = x.float()
+        feats = torch.cat([xf.mean(dim=-1, keepdim=True), xf.amax(dim=-1, keepdim=True)],
+                          dim=-1).to(x.dtype)
+        att = conv2d(feats, _conv_hwio(self.conv1), padding=self.conv1.padding[0],
+                     compute_dtype=compute_dtype)
+        return torch.sigmoid(att.float()).to(x.dtype)
+
+
+class Up(nn.Module):
+    """x2 upsample of x1 (ConvTranspose, or bilinear with ``align_corners=True``),
+    the attention gate on the skip x2 if asked, concat ``[x2, x1]``, DoubleConv."""
+
+    def __init__(self, cin: int, cout: int, bilinear: bool = False,
+                 attention: bool = False):
+        super().__init__()
+        self.bilinear = bilinear
         if bilinear:
-            raise NotImplementedError("the bilinear Up block is not ported yet")
-        self.up = nn.ConvTranspose2d(cin, cin // 2, kernel_size=2, stride=2)
-        self.conv = DoubleConv(cin, cout)
+            self.conv = DoubleConv(cin, cout, cin // 2)
+        else:
+            self.up = nn.ConvTranspose2d(cin, cin // 2, kernel_size=2, stride=2)
+            self.conv = DoubleConv(cin, cout)
+        if attention:
+            self.attention = SpatialAttention()
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None):
-        # (in, out, kh, kw) -> HWIO with I = in
-        x1 = conv_transpose2d(x1, self.up.weight.permute(2, 3, 0, 1), self.up.bias,
-                              stride=2, compute_dtype=compute_dtype)
+        if self.bilinear:
+            x1 = upsample_x2_align_corners(x1)
+        else:
+            # (in, out, kh, kw) -> HWIO with I = in
+            x1 = conv_transpose2d(x1, self.up.weight.permute(2, 3, 0, 1), self.up.bias,
+                                  stride=2, compute_dtype=compute_dtype)
         x1 = _pad_to_match(x1, x2)
+        if hasattr(self, "attention"):
+            x2 = x2 * self.attention(x2, compute_dtype)
         return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype)
 
 

@@ -5,7 +5,8 @@ beta``; folding it into the conv before it (w' = w * s, b' = beta - mu * s,
 with s = gamma / sqrt(var + eps)) gives conv + bias -> ReLU, as the JAX
 package's ``models/fold_bn.py:fold_params``.  The folded weights are stored
 once, contiguous HWIO in the compute dtype, which is the packed form the
-3x3 kernel reads without a copy.
+3x3 kernel reads without a copy.  The attention conv of unet_sa has no BN
+after it and stays as it is, as in the JAX package (``fold_bn.py:43``).
 """
 
 from __future__ import annotations

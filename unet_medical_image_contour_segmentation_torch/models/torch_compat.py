@@ -9,7 +9,9 @@ JAX package's ``models/torch_compat.py``, which it may not import):
     inc.double_conv.{1,4}.{weight,bias,     <-> inc/bn{1,2}/{scale,bias}
                            running_mean,var}    + state inc/bn{1,2}/{mean,var}
     down{i}.maxpool_conv.1.double_conv....  <-> down{i}/...
-    up{i}.up.{weight,bias}                  <-> up{i}/upconv/{w,b}     ((in,out,kh,kw) <-> HWIO)
+    up{i}.up.{weight,bias}                  <-> up{i}/upconv/{w,b}     ((in,out,kh,kw) <-> HWIO;
+                                                                        absent in bilinear UNets)
+    up{i}.attention.conv1.weight            <-> up{i}/att/conv/w       (OIHW <-> HWIO; unet_sa)
     up{i}.conv.double_conv....              <-> up{i}/conv/...
     outc.conv.{weight,bias}                 <-> outc/{w,b}
 
@@ -64,10 +66,14 @@ def params_from_state_dict(sd: Dict[str, Any]) -> Tuple[dict, dict, Optional[lis
         params[f"down{i}"], state[f"down{i}"] = _take_double_conv(
             sd, f"down{i}.maxpool_conv.1.double_conv")
     for i in range(1, 5):
-        p: dict = {"upconv": {"w": _convT_w(sd[f"up{i}.up.weight"])}}
-        if f"up{i}.up.bias" in sd:
-            p["upconv"]["b"] = np.asarray(sd[f"up{i}.up.bias"])
+        p: dict = {}
+        if f"up{i}.up.weight" in sd:
+            p["upconv"] = {"w": _convT_w(sd[f"up{i}.up.weight"])}
+            if f"up{i}.up.bias" in sd:
+                p["upconv"]["b"] = np.asarray(sd[f"up{i}.up.bias"])
         p["conv"], conv_s = _take_double_conv(sd, f"up{i}.conv.double_conv")
+        if f"up{i}.attention.conv1.weight" in sd:
+            p["att"] = {"conv": {"w": _conv_w(sd[f"up{i}.attention.conv1.weight"])}}
         params[f"up{i}"] = p
         state[f"up{i}"] = {"conv": conv_s}
     params["outc"] = {"w": _conv_w(sd["outc.conv.weight"]), "b": np.asarray(sd["outc.conv.bias"])}
@@ -88,8 +94,6 @@ def _put_double_conv(out: Dict[str, np.ndarray], key: str, params, state) -> Non
 def state_dict_from_jax(params, bn_state) -> Dict[str, torch.Tensor]:
     """The JAX package's ``(params, bn_state)`` numpy pytrees -> the port's
     state_dict (the reference model's keys), ready for ``UNet.load_state_dict``."""
-    if any("att" in params[f"up{i}"] for i in range(1, 5)):
-        raise NotImplementedError("attention UNets (unet_sa) are not ported yet")
     out: Dict[str, np.ndarray] = {}
     _put_double_conv(out, "inc.double_conv", params["inc"], bn_state["inc"])
     for i in range(1, 5):
@@ -97,11 +101,13 @@ def state_dict_from_jax(params, bn_state) -> Dict[str, torch.Tensor]:
                          params[f"down{i}"], bn_state[f"down{i}"])
     for i in range(1, 5):
         p = params[f"up{i}"]
-        if "upconv" not in p:
-            raise NotImplementedError("bilinear UNets are not ported yet")
-        out[f"up{i}.up.weight"] = np.asarray(p["upconv"]["w"]).transpose(2, 3, 0, 1)
-        if "b" in p["upconv"]:
-            out[f"up{i}.up.bias"] = np.asarray(p["upconv"]["b"])
+        if "upconv" in p:
+            out[f"up{i}.up.weight"] = np.asarray(p["upconv"]["w"]).transpose(2, 3, 0, 1)
+            if "b" in p["upconv"]:
+                out[f"up{i}.up.bias"] = np.asarray(p["upconv"]["b"])
+        if "att" in p:
+            out[f"up{i}.attention.conv1.weight"] = np.asarray(
+                p["att"]["conv"]["w"]).transpose(3, 2, 0, 1)
         _put_double_conv(out, f"up{i}.conv.double_conv", p["conv"],
                          bn_state[f"up{i}"]["conv"])
     out["outc.conv.weight"] = np.asarray(params["outc"]["w"]).transpose(3, 2, 0, 1)

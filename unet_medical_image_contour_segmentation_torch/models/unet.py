@@ -1,7 +1,10 @@
 """The UNet family as one width-parameterised ``nn.Module``.
 
 The JAX package's ``models/unet.py`` with its presets ``unet`` (64..1024),
-``unet_t`` (8..128) and ``unet_s`` (16..256, the default).  Input is NHWC
+``unet_t`` (8..128), ``unet_s`` (16..256, the default) and ``unet_sa``
+(unet_s widths with spatial attention on every Up); ``bilinear=True`` swaps
+the ConvTranspose ups for x2 bilinear upsamples and halves the widths that
+feed them, as the JAX ``UNet.init`` does.  Input is NHWC
 (B, H, W, C), or (B, H, W) read as C = 1; logits come back f32 NHWC.
 ``compute_dtype`` (e.g. ``torch.bfloat16``) is the dtype every conv runs in.
 """
@@ -15,26 +18,27 @@ from torch import nn
 
 from .blocks import DoubleConv, Down, OutConv, Up
 
-__all__ = ["UNet", "unet", "unet_t", "unet_s", "MODEL_REGISTRY", "get_model"]
+__all__ = ["UNet", "unet", "unet_t", "unet_s", "unet_sa", "MODEL_REGISTRY", "get_model"]
 
 
 class UNet(nn.Module):
-    """4-down / 4-up UNet with ConvTranspose upsampling."""
+    """4-down / 4-up UNet, optionally with bilinear ups and spatial attention."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 3, bilinear: bool = False,
                  widths: Tuple[int, int, int, int, int] = (16, 32, 64, 128, 256),
-                 compute_dtype: Optional[torch.dtype] = None, name: str = "unet_s"):
+                 use_attention: bool = False, compute_dtype: Optional[torch.dtype] = None,
+                 name: str = "unet_s"):
         super().__init__()
-        if bilinear:
-            raise NotImplementedError("bilinear=True is not ported yet")
         self.n_channels, self.n_classes, self.bilinear = n_channels, n_classes, bilinear
-        self.widths, self.compute_dtype, self.name = tuple(widths), compute_dtype, name
-        w = self.widths
+        self.widths, self.use_attention = tuple(widths), use_attention
+        self.compute_dtype, self.name = compute_dtype, name
+        w, f = self.widths, 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, w[0])
         self.down1, self.down2 = Down(w[0], w[1]), Down(w[1], w[2])
-        self.down3, self.down4 = Down(w[2], w[3]), Down(w[3], w[4])
-        self.up1, self.up2 = Up(w[4], w[3]), Up(w[3], w[2])
-        self.up3, self.up4 = Up(w[2], w[1]), Up(w[1], w[0])
+        self.down3, self.down4 = Down(w[2], w[3]), Down(w[3], w[4] // f)
+        up = [(w[4], w[3] // f), (w[3], w[2] // f), (w[2], w[1] // f), (w[1], w[0])]
+        self.up1, self.up2, self.up3, self.up4 = (Up(cin, cout, bilinear, use_attention)
+                                                  for cin, cout in up)
         self.outc = OutConv(w[0], n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +76,13 @@ def unet_s(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
                 name="unet_s", **kw)
 
 
-MODEL_REGISTRY = {"unet": unet, "unet_t": unet_t, "unet_s": unet_s}
+def unet_sa(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
+    """unet_s widths with spatial attention on every Up."""
+    return UNet(n_channels, n_classes, bilinear, widths=(16, 32, 64, 128, 256),
+                use_attention=True, name="unet_sa", **kw)
+
+
+MODEL_REGISTRY = {"unet": unet, "unet_t": unet_t, "unet_s": unet_s, "unet_sa": unet_sa}
 
 
 def get_model(name: str, **kw) -> UNet:
