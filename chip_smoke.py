@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of
-                                          # the bf16 predict forward and train step
+                                          # the bf16 and int8 predict forwards and
+                                          # the train step
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device: a CUDA card is required; prints its name and power limit;
@@ -44,7 +45,19 @@ Phases, in order; any failure exits nonzero before the last line:
      16 synthetic 1536x1024 RAW scans with an injected unet_s Predictor and
      with the default full unet from a saved .npz (stage directories, labelme
      JSON, seconds per stage, launches); if not, stage 3's device work alone;
- 10. a JSON ``kernels`` line (with per-shape rows), then the device line and
+ 10. int8 kernel vs plain: the int8 conv with its requant / dequant epilogue
+     at the 18 unet_s convs at (8, 512, 512) and at 16 windows of 704²,
+     exactly equal to its plain version; kernel / plain / bf16-path times
+     and the bound (bytes, or operations at the int8 peak);
+ 11. main path, int8 predict: unet_s int8 (bf16 compute) at (8, 512, 512),
+     first-batch calibration, 18 int8 launches and no bf16-kernel launch per
+     forward, masks >= 99% equal to f32, device and host times beside bf16;
+ 12. the INT8_MIN_BATCH sweep: int8 / bf16 device time at b = 1, 2, 4, 8,
+     unet_s and unet_sa;
+ 13. tiled int8: (2, 2048, 2048), launches, >= 99% agreement with bf16 tiled;
+ 14. the int8 pipeline: run_pipeline --int8 twice on one scales JSON (the
+     second run loads it), stage-3 masks equal;
+ 15. a JSON ``kernels`` line (with per-shape rows), then the device line and
      the result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
@@ -96,13 +109,28 @@ from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # n
     launch_geometry,
     rotate_weight,
 )
+from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
+    conv3x3_int8,
+    conv3x3_int8_reference,
+)
+from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
+    pack_weight as pack_int8_weight,
+)
 from unet_medical_image_contour_segmentation_torch.losses.compound import (  # noqa: E402
     LossConfig,
 )
 from unet_medical_image_contour_segmentation_torch.models.torch_compat import (  # noqa: E402
     state_dict_from_jax,
 )
-from unet_medical_image_contour_segmentation_torch.models.unet import unet, unet_s  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.models.quantize import (  # noqa: E402
+    apply_int8,
+)
+from unet_medical_image_contour_segmentation_torch.models.unet import (  # noqa: E402
+    unet,
+    unet_s,
+    unet_sa,
+)
+from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.pipeline.post_process import (  # noqa: E402
     postprocess_mask,
 )
@@ -114,7 +142,7 @@ from unet_medical_image_contour_segmentation_torch.pipeline.seg_main import (  #
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 BATCH, HW = 8, 512
 # the 3x3 convs of unet_s that the dispatch rule sends to the kernel, at
@@ -129,6 +157,20 @@ MAIN_CONVS = [
     ("up4.conv2", 16, 16, 1),
 ]
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
+# the 18 DoubleConv convs of unet_s, every one int8 on the int8 path: name,
+# Cin, Cout, downsampling of the level, and the epilogue's output (int8
+# requantises; "float" dequantises to the compute dtype)
+INT8_CONVS = [
+    ("inc.conv1", 1, 16, 1, "int8"), ("inc.conv2", 16, 16, 1, "int8"),
+    ("down1.conv1", 16, 32, 2, "int8"), ("down1.conv2", 32, 32, 2, "int8"),
+    ("down2.conv1", 32, 64, 4, "int8"), ("down2.conv2", 64, 64, 4, "int8"),
+    ("down3.conv1", 64, 128, 8, "int8"), ("down3.conv2", 128, 128, 8, "int8"),
+    ("down4.conv1", 128, 256, 16, "int8"), ("down4.conv2", 256, 256, 16, "float"),
+    ("up1.conv1", 256, 128, 8, "int8"), ("up1.conv2", 128, 128, 8, "float"),
+    ("up2.conv1", 128, 64, 4, "int8"), ("up2.conv2", 64, 64, 4, "float"),
+    ("up3.conv1", 64, 32, 2, "int8"), ("up3.conv2", 32, 32, 2, "float"),
+    ("up4.conv1", 32, 16, 1, "int8"), ("up4.conv2", 16, 16, 1, "float"),
+]
 # the tiled unet_s forwards hand the kernel tpb * n windows of tile + 2 * 96
 # pixels: 16 of 704² (tile 512 at (2, 2048, 2048)) and 8 of 1216² (tile 1024
 # at (1, 4096, 4096)); MAIN_CONVS at each window's levels
@@ -200,6 +242,21 @@ def copies(t: torch.Tensor) -> list:
     return [t] + [t.clone() for _ in range(n - 1)]
 
 
+def int8_operands(seed: int, b: int, h: int, w: int, cin: int, cout: int, device) -> tuple:
+    """Seeded operands of conv3x3_int8: int8 x (b, h, w, cin) and packed
+    weight over [-127, 127], and f32 mul / badd that give the epilogue's
+    f32 values a spread of about 70 around 0, so the requant clips at both
+    ends."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8))
+    wt = torch.from_numpy(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+    mul = rng.uniform(0.5, 1.5, cout) * 60.0 / (np.sqrt(9 * cin) * 73.0 ** 2)
+    badd = rng.normal(0.0, 30.0, cout)
+    return (x.to(device), pack_int8_weight(wt).to(device),
+            torch.from_numpy(mul.astype(np.float32)).to(device),
+            torch.from_numpy(badd.astype(np.float32)).to(device))
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -214,9 +271,9 @@ def phase_device() -> str:
 
 def phase_build() -> dict:
     """Build every source; -> ptxas's {kernel: "R registers, S/L bytes spill
-    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>")."""
+    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", "int8<NT,OUT>")."""
     t0 = time.perf_counter()
-    results = _build.build(["conv3x3"])
+    results = _build.build(["conv3x3", "conv3x3_int8"])
     log(f"[build] {len(results)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
     usage, name, spills = {}, None, ""
     for r in results.values():
@@ -224,9 +281,11 @@ def phase_build() -> dict:
         for line in r.log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
                 log(f"[build]   {line.strip()}")
-            m = re.search(r"conv3x3_mma_kernelILi(\d+)E|conv3x3_kernelIfE", line)
+            m = re.search(r"conv3x3_int8_kernelILi(\d+)ELi(\d+)E|conv3x3_mma_kernelILi(\d+)E"
+                          r"|conv3x3_kernelIfE", line)
             if m and "Compiling" in line:
-                name = f"mma<{m.group(1)}>" if m.group(1) else "f32"
+                name = (f"int8<{m.group(1)},{m.group(2)}>" if m.group(1)
+                        else f"mma<{m.group(3)}>" if m.group(3) else "f32")
             elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
                 spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
             elif (m := re.search(r"Used (\d+) registers", line)) and name:
@@ -400,6 +459,75 @@ def phase_backward(usage: dict):
     return rows, max_err
 
 
+def int8_bound_ms(b, h, w, cin, cout, out_dtype):
+    """(ms, "bytes" | "operations") of one int8 conv: x, the packed weight,
+    mul and badd read once, y written once (int8, or 2-byte bf16 when it
+    dequantises), against 2*9*Cin*Cout operations per pixel at the int8
+    tensor-core peak."""
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = b * h * w * (cin + cout * out_bytes) + 9 * cin * cout + 8 * cout
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * h * w * 9 * cin * cout / PEAK_FLOPS[torch.int8] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_int8_kernels(usage: dict):
+    """The int8 kernel against its plain version, exactly, at the 18 unet_s
+    convs at (BATCH, HW, HW) and at the tiled path's 16 windows of 704²,
+    each with its main-path epilogue (int8, or bf16 dequant); at the dense
+    shapes its time, the plain version's, and the bf16 path's conv at the
+    same shape (``ops.nn.conv2d``: the bf16 kernel where 8 <= Cin <= 32,
+    cuDNN otherwise), inputs rotated past the L2, calls queued."""
+    b704, w704 = TILED_WINDOWS[0]
+    shapes = [(name, BATCH, HW // s, HW // s, cin, cout, out, "dense")
+              for name, cin, cout, s, out in INT8_CONVS]
+    shapes += [(f"{name}@{w704}", b704, w704 // s, w704 // s, cin, cout, out, f"tiled{w704}")
+               for name, cin, cout, s, out in INT8_CONVS]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, max_err = [], 0.0
+    for i, (name, b, h, w, cin, cout, out, path) in enumerate(shapes):
+        out_dtype = torch.int8 if out == "int8" else torch.bfloat16
+        x, wp, mul, badd = int8_operands(70 + i, b, h, w, cin, cout, "cuda")
+        got = conv3x3_int8(x, wp, mul, badd, out_dtype)
+        want = conv3x3_int8_reference(x, wp, mul, badd, out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"conv3x3_int8 differs from its plain version at {name} "
+                               f"{(b, h, w, cin, cout)} -> {out_dtype}: max abs err {err}")
+        max_err = max(max_err, err)
+        if path != "dense":
+            log(f"[int8-kernels] {name:18s} {str((b, h, w, cin, cout)):27s} -> {out:5s} equal")
+            continue
+        xs = copies(x)
+        ms, host_ms = time_ms(lambda i: conv3x3_int8(xs[i % len(xs)], wp, mul, badd, out_dtype),
+                              reps=20)
+        plain_ms, _ = time_ms(lambda i: conv3x3_int8_reference(xs[i % len(xs)], wp, mul, badd,
+                                                               out_dtype), reps=2, warmup=1)
+        del xs
+        xb = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(torch.bfloat16)
+        wb = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+              / (3 * cin ** 0.5)).to(torch.bfloat16)
+        xbs = copies(xb)
+        with torch.inference_mode():
+            bf16_ms, _ = time_ms(lambda i: conv2d(xbs[i % len(xbs)], wb, padding=1), reps=20)
+        del xbs, xb
+        bound_ms, bound_by = int8_bound_ms(b, h, w, cin, cout, out_dtype)
+        share = roofline(bound_ms, kernel=ms)
+        nt = next(n for n in (1, 2, 4, 8) if 8 * n >= min(cout, 64))
+        key = f"int8<{nt},{0 if out == 'int8' else 2}>"
+        rows.append(dict(name=name, path=path, shape=[b, h, w, cin, cout], out=out, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bf16_path_ms=bf16_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, roofline=share,
+                         max_abs_err=err, host_ms=host_ms, kernel=key,
+                         ptxas=usage.get(key, "not printed")))
+        log(f"[int8-kernels] {name:12s} {str((b, h, w, cin, cout)):26s} -> {out:5s} equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 path {bf16_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), roofline {share:.1%}, host issue "
+            f"{host_ms * 1e3:.1f} us; {key}: {usage.get(key, 'not printed')}")
+    return rows, max_err
+
+
 def random_unet_params(seed: int, widths=(16, 32, 64, 128, 256), n_channels=1, n_classes=3,
                        bilinear=False, attention=False):
     """UNet weights in the JAX package's layout (numpy pytrees), from a seed:
@@ -450,7 +578,8 @@ def build_model(seed: int, factory=unet_s, class2_share=None):
     ``class2_share``, class 2 is then raised until it wins on that share of
     the noise image's pixels (the pipeline needs class-2 regions to trace)."""
     model = factory()
-    params, state = random_unet_params(seed, model.widths)
+    params, state = random_unet_params(seed, model.widths, bilinear=model.bilinear,
+                                       attention=model.use_attention)
     model.load_state_dict(state_dict_from_jax(params, state))
     probe = np.random.default_rng(seed + 1).random((1, 128, 128), dtype=np.float32)
     with torch.inference_mode():
@@ -515,6 +644,12 @@ def write_raw_scans(directory, seed: int, n: int, width: int, height: int) -> No
 def reset_launches() -> None:
     for fn in (conv3x3_nhwc, conv3x3_nhwc_dx):
         fn.launches = fn.tensor_core_launches = 0
+    conv3x3_int8.launches = 0
+
+
+def int8_counts() -> dict:
+    """The int8 kernel's launches beside the bf16 kernel's, since the last reset."""
+    return {"conv3x3_int8": conv3x3_int8.launches, "conv3x3_nhwc": conv3x3_nhwc.launches}
 
 
 def read_launches() -> dict:
@@ -595,28 +730,29 @@ def phase_main_path(model, profile_dir=None):
         f"p50 {lat_p50:.3f} ms, p80 {lat_p80:.3f} ms (50 calls); device forward+argmax "
         f"{fwd_ms:.3f} ms per batch (CUDA events); peak memory {peak / 2**20:.1f} MiB")
     if profile_dir:
-        profile_forward(pred, x, Path(profile_dir))
+        profile_forward(lambda: pred.model(x).argmax(-1), Path(profile_dir))
     return launches, dict(slices_per_s=BATCH * reps / dt, batch_ms=dt / reps * 1e3,
                           latency_p50_ms=lat_p50, latency_p80_ms=lat_p80,
                           forward_ms=fwd_ms, peak_mib=peak / 2**20,
                           agreement=min(agree, agree_u8))
 
 
-def profile_forward(pred, x, out_dir: Path) -> None:
+def profile_forward(forward, out_dir: Path, name: str = "predict") -> None:
+    """torch.profiler table of 5 calls of ``forward()`` (after 3 warm-ups)."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
     with torch.inference_mode():
         for _ in range(3):
-            pred.model(x).argmax(-1)
+            forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
-                pred.model(x).argmax(-1)
+                forward()
             torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out_dir / "predict_profile.txt").write_text(table)
-    log(f"[profile] 5 bf16 forwards at (8, 512, 512); table in {out_dir}/predict_profile.txt")
+    (out_dir / f"{name}_profile.txt").write_text(table)
+    log(f"[profile] 5 {name} forwards at (8, 512, 512); table in {out_dir}/{name}_profile.txt")
     log("\n".join(table.splitlines()[:25]))
 
 
@@ -702,7 +838,8 @@ def phase_train_reference() -> None:
 
 def phase_train(profile_dir=None):
     """make_train_step on the seeded unet_s at (BATCH, HW, HW), bf16 compute,
-    one resident batch: launches per step, the loss curve, step time."""
+    one resident batch: launches per step, the loss curve, step time.
+    -> (launches, numbers, the trained model)."""
     model = seeded_unet_s(torch.bfloat16).cuda()
     step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=TRAIN_LR))
     batch = {k: torch.from_numpy(v).cuda() for k, v in rect_batch(6, BATCH, HW, HW).items()}
@@ -743,7 +880,8 @@ def phase_train(profile_dir=None):
     if profile_dir:
         profile_train(step, batch, Path(profile_dir))
     return launches, dict(step_ms=step_ms, slices_per_s=BATCH * 1e3 / step_ms,
-                          peak_mib=peak / 2**20, loss_first=curve[0], loss_last=curve[-1])
+                          peak_mib=peak / 2**20, loss_first=curve[0],
+                          loss_last=curve[-1]), model
 
 
 def profile_train(step, batch, out_dir: Path) -> None:
@@ -1183,16 +1321,300 @@ def stage3_breakdown(model_path: str, root: Path) -> dict:
     return dict(parts, contours=contours)
 
 
+INT8_PER_FORWARD = len(INT8_CONVS)
+SWEEP_BATCHES = (1, 2, 4, 8)
+# whole forwards queued behind one sleep: a forward issues ~100 kernels, and
+# the host blocks once about a thousand wait in the launch queue (10 queued
+# forwards of unet_sa blocked it on the H100)
+FORWARD_REPS = 4
+
+
+def host_rate(pred, images, reps: int = 20) -> tuple:
+    """(slices/s, ms per call) of ``pred.predict_array(images)``, host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.predict_array(images)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    return len(images) / dt, dt * 1e3
+
+
+def int8_agreement(model, images) -> dict:
+    """Masks of an int8 Predictor (bf16 compute, calibrated on the first 4
+    images) and of a bf16 one, each against an f32 Predictor (TF32 off)."""
+    q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+    bf16 = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    with exact_f32():
+        ref = Predictor(model, device="cuda").predict_array(images)
+    masks = q.predict_array(images)
+    check_masks(masks, images.shape[:3])
+    return dict(int8=float((masks == ref).mean()),
+                bf16=float((bf16.predict_array(images) == ref).mean()),
+                shares=(np.bincount(masks.ravel(), minlength=3) / masks.size).tolist())
+
+
+def int8_card_vs_cpu(model, amax: dict, images) -> float:
+    """Share of pixels where an int8 Predictor in f32 on the card (TF32 off)
+    and one on the CPU, both built from the calibration ``amax``, agree."""
+    masks = []
+    for device in ("cuda", "cpu"):
+        pred = Predictor(model, device=device, quantize=True)
+        pred._set_amax(amax)
+        with exact_f32():
+            masks.append(pred.predict_array(images))
+    return float((masks[0] == masks[1]).mean())
+
+
+def phase_int8_main(model, trained, profile_dir=None):
+    """int8 serving of unet_s at (BATCH, HW, HW), bf16 compute: the first
+    predict_array calibrates (on 4 images, the float fold's forward); then 18
+    int8 launches and no bf16-kernel launch per forward, float and uint8
+    images; device forward ms and host slices/s beside the bf16 Predictor's,
+    batch-1 p50 / p80, peak memory.  The card's int8 masks (f32 compute,
+    TF32 off) agree with the CPU's int8 masks (the kernel's plain version)
+    on the same calibration on >= MIN_AGREEMENT of the pixels of 2 slices.
+    Reported, not gated: int8 and bf16 masks against f32, for the random
+    ``model`` on smooth noise and the ``trained`` unet_s of the train phase
+    on unseen rectangle slices (the JAX scheme's own agreement there; see
+    PERF.md)."""
+    images = smooth_images(1, BATCH, HW)
+    images_u8 = np.round(images * 255).astype(np.uint8)
+    q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+    bf16 = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    reset_launches()
+    t0 = time.perf_counter()
+    q.predict_array(images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    calib = int8_counts()
+    if calib != {"conv3x3_int8": INT8_PER_FORWARD, "conv3x3_nhwc": len(MAIN_CONVS)}:
+        raise RuntimeError(f"the calibrating first call launched {calib}, want "
+                           f"{len(MAIN_CONVS)} bf16 (calibration) and {INT8_PER_FORWARD} int8")
+    bf16.predict_array(images)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    masks, masks_u8 = q.predict_array(images), q.predict_array(images_u8)
+    launches = int8_counts()
+    if launches != {"conv3x3_int8": 2 * INT8_PER_FORWARD, "conv3x3_nhwc": 0}:
+        raise RuntimeError(f"two int8 forwards launched {launches}, want "
+                           f"{INT8_PER_FORWARD} int8 launches each and no bf16 kernel launch")
+    check_masks(masks, (BATCH, HW, HW))
+    check_masks(masks_u8, (BATCH, HW, HW))
+    with exact_f32():
+        ref = Predictor(model, device="cuda")
+        ref_masks, ref_u8 = ref.predict_array(images), ref.predict_array(images_u8)
+    bf16_masks = bf16.predict_array(images)
+    agree = float((masks == ref_masks).mean())
+    agree_u8 = float((masks_u8 == ref_u8).mean())
+    agree_bf16 = float((masks == bf16_masks).mean())
+    bf16_vs_f32 = float((bf16_masks == ref_masks).mean())
+    log(f"[int8-main] unet_s int8 predict_array ({BATCH}, {HW}, {HW}) bf16 compute: first call "
+        f"(calibration + forward) {first_s:.3f} s, launches {calib}; then {launches} in two "
+        f"forwards ({INT8_PER_FORWARD} int8 each, no bf16 kernel); random weights, smooth "
+        f"noise: masks vs f32 (TF32 off) {agree:.4%} (float) / {agree_u8:.4%} (uint8); vs "
+        f"bf16 {agree_bf16:.4%} (bf16 vs f32 {bf16_vs_f32:.4%})")
+    rects = rect_batch(9, BATCH, HW, HW)["image"]
+    trained_agree = int8_agreement(trained, rects)
+    log(f"[int8-main] the trained unet_s on {BATCH} unseen rectangle slices: int8 vs f32 masks "
+        f"{trained_agree['int8']:.4%}, bf16 vs f32 {trained_agree['bf16']:.4%}; int8 class "
+        f"shares {trained_agree['shares']}")
+    card_vs_cpu = int8_card_vs_cpu(model, q._amax, images[:2])
+    log(f"[int8-main] int8 masks (f32 compute, TF32 off, one calibration) of 2 slices: card vs "
+        f"CPU (the plain version) {card_vs_cpu:.4%}")
+    if card_vs_cpu < MIN_AGREEMENT:
+        raise RuntimeError(f"the card's int8 masks agree with the CPU's on {card_vs_cpu:.4%} < "
+                           f"{MIN_AGREEMENT:.0%} of pixels")
+
+    x = torch.from_numpy(images).cuda()
+    result = dict(first_call_s=first_s, card_vs_cpu=card_vs_cpu,
+                  random_agreement_f32=min(agree, agree_u8),
+                  random_agreement_bf16=agree_bf16, random_bf16_agreement_f32=bf16_vs_f32,
+                  trained_agreement_f32=trained_agree["int8"],
+                  trained_bf16_agreement_f32=trained_agree["bf16"])
+    # device forward + argmax, batch resident, queued behind a sleep (the
+    # device alone): bf16, int8, int8, bf16
+    with torch.inference_mode():
+        fwd = {"bf16": lambda i: bf16.model(x).argmax(-1),
+               "int8": lambda i: apply_int8(q._qparams, x, torch.bfloat16).argmax(-1)}
+        dev = {k: [] for k in fwd}
+        for k in ("bf16", "int8", "int8", "bf16"):
+            dev[k].append(time_ms(fwd[k], reps=FORWARD_REPS, warmup=2)[0])
+    for pred in (bf16, q):  # warm-up of the host-clock runs
+        host_rate(pred, images, reps=3)
+    rates = {k: [] for k in fwd}
+    for k in ("bf16", "int8", "int8", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        rates[k].append(host_rate(bf16 if k == "bf16" else q, images)[0])
+        result[f"{k}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    lat = []
+    one = images[:1]
+    for _ in range(3):
+        q.predict_array(one)
+    for _ in range(50):
+        t1 = time.perf_counter()
+        q.predict_array(one)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    p50, p80 = np.percentile(lat, [50, 80])
+    if profile_dir:
+        profile_forward(lambda: apply_int8(q._qparams, x, torch.bfloat16).argmax(-1),
+                        Path(profile_dir), "int8_predict")
+    for k in ("bf16", "int8"):
+        result[f"{k}_forward_ms"] = float(np.mean(dev[k]))
+        result[f"{k}_slices_per_s"] = float(np.mean(rates[k]))
+    result.update(int8_forward_ms_runs=dev["int8"], bf16_forward_ms_runs=dev["bf16"],
+                  int8_slices_per_s_runs=rates["int8"], bf16_slices_per_s_runs=rates["bf16"],
+                  int8_latency_p50_ms=p50, int8_latency_p80_ms=p80)
+    log(f"[int8-main] device forward+argmax per batch of {BATCH} (CUDA events, batch resident, "
+        f"{FORWARD_REPS} calls queued behind a sleep): "
+        f"int8 {dev['int8']} ms, bf16 {dev['bf16']} ms (int8 / bf16 "
+        f"{result['int8_forward_ms'] / result['bf16_forward_ms']:.3f}); host slices/s int8 "
+        f"{rates['int8']}, bf16 {rates['bf16']}; int8 batch-1 latency p50 {p50:.3f} ms, p80 "
+        f"{p80:.3f} ms (50 calls); peak memory int8 {result['int8_peak_mib']:.1f} MiB, bf16 "
+        f"{result['bf16_peak_mib']:.1f} MiB")
+    return launches, result
+
+
+def phase_int8_sweep():
+    """INT8_MIN_BATCH on the card: device forward ms (CUDA events, calls
+    queued behind a sleep, batch resident) of the int8 and the bf16 forward
+    of unet_s and unet_sa at b = 1, 2, 4, 8 at 512²."""
+    out = {}
+    for name, factory in (("unet_s", unet_s), ("unet_sa", unet_sa)):
+        model = build_model(MODEL_SEED, factory)
+        q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+        q.calibrate(smooth_images(1, 4, HW))
+        rows = {}
+        with torch.inference_mode():
+            for b in SWEEP_BATCHES:
+                x = torch.from_numpy(smooth_images(2, b, HW)).cuda()
+                int8_ms, _ = time_ms(lambda i: apply_int8(q._qparams, x, torch.bfloat16),
+                                     reps=FORWARD_REPS, warmup=2)
+                bf16_ms, _ = time_ms(lambda i: q.model(x), reps=FORWARD_REPS, warmup=2)
+                rows[b] = dict(int8_ms=int8_ms, bf16_ms=bf16_ms, ratio=int8_ms / bf16_ms)
+        out[name] = rows
+        log(f"[int8-sweep] {name} (b, int8 ms, bf16 ms, int8 / bf16): "
+            + "; ".join(f"{b}: {r['int8_ms']:.3f}, {r['bf16_ms']:.3f}, {r['ratio']:.3f}"
+                        for b, r in rows.items())
+            + f"; INT8_MIN_BATCH {Predictor.INT8_MIN_BATCH.get(name, 1)}")
+    return out
+
+
+def phase_int8_tiled(model):
+    """Tiled int8 serving of unet_s at (2, 2048, 2048), bf16 compute, auto
+    tile 512, halo HALO: the first call calibrates (dense, on both images);
+    then 18 int8 launches per window-group forward and no bf16-kernel launch;
+    the tiled int8 masks agree with the dense int8 ones (one calibration) on
+    >= MIN_AGREEMENT of the interior (>= HALO from the border); against the
+    bf16 tiled masks reported; host slices/s and device ms per image beside
+    bf16 tiled."""
+    n, s = TILED_SIZES[0]
+    images = smooth_images(21, n, s, cells=s // 32)
+    q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_halo=HALO,
+                  quantize=True)
+    bf16 = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_halo=HALO)
+    q.predict_array(images)
+    want = bf16.predict_array(images)
+    torch.cuda.synchronize()
+    reset_launches()
+    masks = q.predict_array(images)
+    launches = int8_counts()
+    forwards = group_forwards(q, n, s, s)
+    if launches != {"conv3x3_int8": INT8_PER_FORWARD * forwards, "conv3x3_nhwc": 0}:
+        raise RuntimeError(f"{forwards} tiled int8 group forwards launched {launches}, want "
+                           f"{INT8_PER_FORWARD} int8 each and no bf16 kernel launch")
+    check_masks(masks, (n, s, s))
+    dense = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_threshold=0,
+                      quantize=True)
+    dense._set_amax(q._amax)
+    inner = float((interior(masks) == interior(dense.predict_array(images))).mean())
+    agree = float((masks == want).mean())
+    if inner < MIN_AGREEMENT:
+        raise RuntimeError(f"tiled int8 masks agree with dense int8 on {inner:.4%} < "
+                           f"{MIN_AGREEMENT:.0%} of the interior")
+    x = torch.from_numpy(images[..., None]).cuda()
+    tile = q._auto_tile(s, s)
+    result = dict(interior_agreement_dense=inner, agreement_bf16=agree, forwards=forwards)
+    for k, pred in (("bf16", bf16), ("int8", q), ("int8", q), ("bf16", bf16)):
+        dev_ms, _ = time_ms(lambda i: pred._tile_grid(x, tile, HALO), reps=TILED_REPS,
+                            warmup=2, queued=False)
+        rate, _ = host_rate(pred, images, reps=TILED_REPS)
+        result.setdefault(f"{k}_device_ms_per_image", []).append(dev_ms / n)
+        result.setdefault(f"{k}_slices_per_s", []).append(rate)
+    log(f"[int8-tiled] unet_s ({n}, {s}, {s}) tile {tile}: {forwards} window-group forwards, "
+        f"{launches}; masks vs dense int8 (interior) {inner:.4%}, vs bf16 tiled {agree:.4%}; "
+        f"device ms per image int8 "
+        f"{result['int8_device_ms_per_image']}, bf16 {result['bf16_device_ms_per_image']}; "
+        f"host slices/s int8 {result['int8_slices_per_s']}, bf16 {result['bf16_slices_per_s']}")
+    return launches, result
+
+
+def phase_int8_pipeline():
+    """run_pipeline with cfg.int8 on the PIPE_SCANS RAW scans, injected unet_s
+    (a fresh quantize=True Predictor each run), twice into one int8_scales
+    JSON: run A calibrates (one bf16 calibration forward) and writes it,
+    run B loads it (no bf16 launch); the stage-3 masks of the two runs are
+    equal.  Needs PIL and cv2 (phase 9 says whether they import)."""
+    if None in host_libraries().values():
+        log("[int8-pipeline] PIL or cv2 is missing on this machine: not run")
+        return {}, {}
+    from PIL import Image
+
+    model = build_model(MODEL_SEED, unet_s, class2_share=0.6)
+    result, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "raws").mkdir()
+        write_raw_scans(tmp / "raws", 31, PIPE_SCANS, PIPE_W, PIPE_H)
+        scales = tmp / "scales.json"
+        batches = -(-PIPE_SCANS // 8)
+        for run, calib in (("a", len(MAIN_CONVS)), ("b", 0)):
+            pred = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+            cfg = PipelineConfig(input_raw=str(tmp / "raws"), output_root=str(tmp / run),
+                                 width=PIPE_W, height=PIPE_H, target_size=PIPE_TARGET,
+                                 int8=True, int8_scales=str(scales), **PIPE_WINDOW)
+            reset_launches()
+            _, stages, seconds = run_timed(cfg, pred)
+            launches = int8_counts()
+            want = {"conv3x3_int8": batches * INT8_PER_FORWARD, "conv3x3_nhwc": calib}
+            if launches != want or not scales.exists():
+                raise RuntimeError(f"int8 pipeline run {run} launched {launches}, want {want}; "
+                                   f"scales written: {scales.exists()}")
+            n_json, n_poly = check_results(tmp / run)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            result[run] = dict(seconds=seconds, stage_seconds=stages, json_files=n_json,
+                               polygons=n_poly, launches=launches)
+            log(f"[int8-pipeline] run {run}: {n_json} labelme JSON files, {n_poly} polygons, "
+                f"{seconds:.3f} s (stage seconds "
+                f"{' '.join(f'{k}: {v:.3f}' for k, v in sorted(stages.items()))}); {launches}")
+        masks = [{p.name: np.asarray(Image.open(p)) for p in (tmp / r / STAGES["pred_masks"])
+                  .glob("*.png")} for r in ("a", "b")]
+        if masks[0].keys() != masks[1].keys() or any(
+                not np.array_equal(masks[0][k], masks[1][k]) for k in masks[0]):
+            raise RuntimeError("the int8 pipeline's second run (scales loaded) wrote other "
+                               "stage-3 masks than the first (scales calibrated)")
+    log(f"[int8-pipeline] run b loaded run a's scales; its {len(masks[0])} stage-3 masks "
+        f"equal run a's")
+    return total, result
+
+
+def shape_row(r) -> dict:
+    return {k: r[k] for k in ("name", "path", "shape", "ms", "bound_ms", "library_ms",
+                              "roofline")}
+
+
 def shape_rows(rows) -> list:
     """The per-shape numbers of the ``kernels`` line."""
-    return [{k: r[k] for k in ("name", "path", "shape", "ms", "bound_ms", "library_ms",
-                               "roofline")} for r in rows]
+    return [shape_row(r) for r in rows]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="write torch.profiler tables of the bf16 forward and train step to DIR")
+                    help="write torch.profiler tables of the bf16 and int8 forwards and "
+                         "the train step to DIR")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -1203,10 +1625,15 @@ def main(argv=None) -> int:
     phase_small_reference(model)
     launches, main = phase_main_path(model, args.profile)
     phase_train_reference()
-    train_launches, train = phase_train(args.profile)
+    train_launches, train, trained = phase_train(args.profile)
     train["epoch"] = phase_train_model()
     tiled_launches, tiled = phase_tiled(model)
     pipeline_launches, pipeline = phase_pipeline()
+    int8_rows, int8_err = phase_int8_kernels(usage)
+    int8_launches, int8_main = phase_int8_main(model, trained, args.profile)
+    int8_main["sweep"] = phase_int8_sweep()
+    int8_tiled_launches, int8_main["tiled"] = phase_int8_tiled(model)
+    int8_pipe_launches, int8_main["pipeline"] = phase_int8_pipeline()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
@@ -1214,7 +1641,11 @@ def main(argv=None) -> int:
                     "tiled": tiled_launches["conv3x3_nhwc"],
                     "pipeline": pipeline_launches.get("conv3x3_nhwc", 0)}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
-    pallas = "unet_medical_image_contour_segmentation_tpu/ops/pallas_conv.py"
+    tpu = "unet_medical_image_contour_segmentation_tpu"
+    pallas = f"{tpu}/ops/pallas_conv.py"
+    int8_by_path = {"int8_predict": int8_launches["conv3x3_int8"],
+                    "int8_tiled": int8_tiled_launches["conv3x3_int8"],
+                    "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0)}
     kernels = [{
         "name": "conv3x3_nhwc",
         "route": "cuda",
@@ -1238,6 +1669,25 @@ def main(argv=None) -> int:
                   for b, win in TILED_WINDOWS},
         "tiled_shapes": shape_rows(tiled_rows),
     }, {
+        # the int8 conv with its epilogue, per unet_s int8 forward (8, 512², 18 convs)
+        "name": "conv3x3_int8",
+        "route": "cuda",
+        "source": "unet_medical_image_contour_segmentation_torch/csrc/conv3x3_int8.cu",
+        "replaces": f"{tpu}/ops/wide.py:255 and {tpu}/models/quantize.py:65",
+        "launches": sum(int8_by_path.values()),
+        "launches_by_path": int8_by_path,
+        "max_abs_err": int8_err,
+        "ms": sum(r["ms"] for r in int8_rows),
+        "plain_ms": sum(r["plain_ms"] for r in int8_rows),
+        "bound_ms": sum(r["bound_ms"] for r in int8_rows),
+        "bound_by": max(("bytes", "operations"), key=lambda k: sum(
+            r["bound_ms"] for r in int8_rows if r["bound_by"] == k)),
+        # no PyTorch call computes an int8 convolution on CUDA
+        "library_ms": None,
+        "bf16_path_ms": sum(r["bf16_path_ms"] for r in int8_rows),
+        "shapes": [dict(shape_row(r), out=r["out"], bf16_path_ms=r["bf16_path_ms"],
+                        bound_by=r["bound_by"]) for r in int8_rows],
+    }, {
         # the same kernel as the input gradient in the train step's backward
         "name": "conv3x3_nhwc_dx",
         "route": "cuda",
@@ -1253,13 +1703,17 @@ def main(argv=None) -> int:
         "library_ms": sum(r["library_ms"] for r in bwd_rows),
         "shapes": shape_rows(bwd_rows),
     }]
-    fwd = kernels[0]
+    fwd, k8 = kernels[0], kernels[1]
+    log(f"[int8-kernels] per int8 forward: kernel {k8['ms']:.4f} ms, bound {k8['bound_ms']:.4f} "
+        f"ms ({k8['bound_by']}; roofline {k8['bound_ms'] / k8['ms']:.1%}), bf16 path "
+        f"{k8['bf16_path_ms']:.4f} ms, kernel / bf16 path {k8['ms'] / k8['bf16_path_ms']:.3f}")
     log(f"[kernels] per forward: kernel {fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
         f"(roofline {fwd['bound_ms'] / fwd['ms']:.1%}), F.conv2d {fwd['library_ms']:.4f} ms, "
         f"kernel / library {fwd['ms'] / fwd['library_ms']:.3f}")
-    log(f"[backward] per train step: dx kernel {kernels[1]['ms']:.4f} ms, bound "
-        f"{kernels[1]['bound_ms']:.4f} ms, cuDNN dgrad {kernels[1]['library_ms']:.4f} ms, "
-        f"kernel / library {kernels[1]['ms'] / kernels[1]['library_ms']:.3f}; dw (cuDNN "
+    dx = kernels[2]
+    log(f"[backward] per train step: dx kernel {dx['ms']:.4f} ms, bound "
+        f"{dx['bound_ms']:.4f} ms, cuDNN dgrad {dx['library_ms']:.4f} ms, "
+        f"kernel / library {dx['ms'] / dx['library_ms']:.3f}; dw (cuDNN "
         f"wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms, bound "
         f"{sum(r['dw_bound_ms'] for r in bwd_rows):.4f} ms")
     for win, t in fwd["tiled"].items():
@@ -1270,6 +1724,7 @@ def main(argv=None) -> int:
     log(f"[train] {json.dumps(train)}")
     log(f"[tiled] {json.dumps(tiled)}")
     log(f"[pipeline] {json.dumps(pipeline)}")
+    log(f"[int8-main] {json.dumps(int8_main)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """The port on the card: each hand kernel (and the 3x3 conv's gradients)
-against its plain version, and the predict and train paths' launches.  Every test carries the ``gpu`` marker and skips where
+against its plain version, and the predict, int8 predict and train paths'
+launches.  Every test carries the ``gpu`` marker and skips where
 there is no CUDA device.
 
 This file imports no JAX (the machine with the card has none), so on the
@@ -14,8 +15,10 @@ import pytest
 import torch
 
 from chip_smoke import (
+    INT8_CONVS,
     MODEL_SEED,
     build_model,
+    int8_operands,
     rect_batch,
     seeded_unet_s,
     smooth_images,
@@ -27,6 +30,7 @@ from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropCo
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor
 from unet_medical_image_contour_segmentation_torch.engine.train import make_train_step
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3 as K
+from unet_medical_image_contour_segmentation_torch.kernels import conv3x3_int8 as K8
 from unet_medical_image_contour_segmentation_torch.losses.compound import LossConfig
 from unet_medical_image_contour_segmentation_torch.models.unet import unet_s
 from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d
@@ -304,3 +308,84 @@ def test_tiled_interior_matches_dense_on_card(cuda, seeded_model):
     ok = (dense_margin > 1e-3) & (tiled_margin > 1e-3)
     np.testing.assert_array_equal(got[inner][ok[inner]], want[inner][ok[inner]])
     assert (got != want).mean() > 0  # the border band differs: another function
+
+
+def _int8_check(cuda, seed, b, h, w, cin, cout, out_dtype):
+    """The int8 kernel against its plain version on the card: equal outputs
+    (int32 sums are exact; the epilogue rounds as the plain one does)."""
+    ops = int8_operands(seed, b, h, w, cin, cout, cuda)
+    before = K8.conv3x3_int8.launches
+    got = K8.conv3x3_int8(*ops, out_dtype)
+    want = K8.conv3x3_int8_reference(*ops, out_dtype)
+    torch.cuda.synchronize()
+    assert K8.conv3x3_int8.launches == before + 1
+    assert got.dtype == want.dtype == out_dtype and got.shape == (b, h, w, cout)
+    assert torch.equal(got, want)
+    if out_dtype == torch.int8 and got.numel() > 4096:  # the requant clips at both ends
+        assert (got == 0).any() and (got == 127).any()
+
+
+@pytest.mark.parametrize("name,cin,cout,s,out", INT8_CONVS)
+def test_int8_kernel_at_unet_s_shapes(cuda, name, cin, cout, s, out):
+    """The 18 convs of unet_s at (2, 256 / s, 256 / s), each with its own
+    epilogue (int8, or dequant to bf16 as on the main path)."""
+    out_dtype = torch.int8 if out == "int8" else torch.bfloat16
+    _int8_check(cuda, 60, 2, 256 // s, 256 // s, cin, cout, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 37, 53), 1, 16),      # inc.conv1: one channel, padded to 16 by the wrapper
+    ((1, 37, 53), 24, 40),     # Cin not a multiple of 16, Cout not of 64
+    ((1, 32, 32), 1024, 512),  # unet's up1.conv1: 32 K chunks, 8 Cout chunks
+    ((3, 9, 70), 48, 72),      # Cout: one chunk of 64 and a ragged one
+    ((1, 5, 3), 16, 1),
+    ((1, 37, 53), 8, 8),
+])
+def test_int8_kernel_edge_shapes(cuda, shape, cin, cout, out_dtype):
+    """Cin 1, 24 and 1024, Cout off 64, H and W off the 8x32 pixel tile, and
+    all three epilogues."""
+    _int8_check(cuda, 61, *shape, cin, cout, out_dtype)
+
+
+def test_int8_kernel_takes_a_misaligned_input(cuda):
+    """A contiguous int8 view off a 16-byte boundary is copied to an aligned
+    one before the launch (the kernel stages 16-byte pieces)."""
+    x, wp, mul, badd = int8_operands(64, 2, 9, 33, 16, 24, cuda)
+    buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    torch.testing.assert_close(K8.conv3x3_int8(xv, wp, mul, badd),
+                               K8.conv3x3_int8_reference(x, wp, mul, badd, torch.int8),
+                               rtol=0, atol=0)
+
+
+def test_int8_kernel_raises_on_misuse(cuda):
+    x, wp, mul, badd = int8_operands(62, 1, 8, 8, 16, 16, cuda)
+    with pytest.raises(ValueError):
+        K8.conv3x3_int8(x.float(), wp, mul, badd)          # not int8
+    with pytest.raises(ValueError):  # Cin 48 against a weight packed for Cin 16
+        K8.conv3x3_int8(int8_operands(62, 1, 8, 8, 48, 16, cuda)[0], wp, mul, badd)
+    with pytest.raises(ValueError):
+        K8.conv3x3_int8(x, wp, mul.cpu(), badd)            # two devices
+
+
+def test_int8_predictor_on_card_matches_cpu(cuda, seeded_model, tmp_path):
+    """An int8 Predictor in f32 (TF32 off) on the card against the same one
+    on the CPU, on one calibration (calibrated on the card, loaded on the
+    CPU): masks >= 99.9% equal; every conv ran int8 (18 launches)."""
+    images = smooth_images(63, 2, 128)[:, :, :96]
+    with exact_f32():
+        card = Predictor(seeded_model, device=cuda, quantize=True)
+        card.calibrate(images)
+        card.save_calibration(str(tmp_path / "s.json"))
+        before = (K8.conv3x3_int8.launches, K.conv3x3_nhwc.launches)
+        got = card.predict_array(images)
+        assert (K8.conv3x3_int8.launches - before[0], K.conv3x3_nhwc.launches - before[1]) == (
+            18, 0)
+    cpu = Predictor(seeded_model, device="cpu", quantize=True)
+    cpu.load_calibration(str(tmp_path / "s.json"))
+    want = cpu.predict_array(images)
+    assert got.shape == want.shape == (2, 128, 96)
+    assert (got == want).mean() >= 0.999

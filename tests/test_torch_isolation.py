@@ -29,6 +29,12 @@ def test_no_forbidden_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+@pytest.mark.parametrize("module", ["models/quantize.py", "kernels/conv3x3_int8.py"])
+def test_int8_modules_are_checked(module):
+    """The int8 serving modules are among the sources checked above."""
+    assert PORT / module in _sources()
+
+
 def test_importing_everything_loads_no_jax():
     code = f"""
 import importlib, pkgutil, sys

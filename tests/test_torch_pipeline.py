@@ -257,8 +257,21 @@ def test_run_pipeline_with_models_matches_jax(raw_dir, tmp_path):
 
 
 def test_run_pipeline_refuses_int8_and_empty_stages(raw_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="int8"):
-        TP.run_pipeline(pipeline_cfg(TCFG, raw_dir, tmp_path / "a", int8=True))
+    """cfg.int8 with a float predictor is refused; with int8_scales, run A
+    calibrates and writes the JSON, run B loads it (JAX
+    test_pipeline_int8_scales_roundtrip), and the stage-3 masks are equal.
+    An empty RAW directory fails stage 1."""
+    model = build_model(7, unet_t, class2_share=0.6)
+    with pytest.raises(ValueError, match="quantize=True"):
+        TP.run_pipeline(pipeline_cfg(TCFG, raw_dir, tmp_path / "f", int8=True),
+                        predictor=Predictor(model, device="cpu"))
+    scales = tmp_path / "scales.json"
+    for run in ("qa", "qb"):
+        pred = Predictor(model, device="cpu", quantize=True)
+        TP.run_pipeline(pipeline_cfg(TCFG, raw_dir, tmp_path / run, int8=True,
+                                     int8_scales=str(scales)), predictor=pred)
+        assert scales.exists() and pred._amax == json.loads(scales.read_text())
+    assert_same_files(tmp_path / "qa" / "3_pred_masks", tmp_path / "qb" / "3_pred_masks")
     empty = tmp_path / "empty"
     empty.mkdir()
     with pytest.raises(RuntimeError, match="stage 1"):
@@ -306,15 +319,20 @@ def test_seg_main_cli_matches_jax(raw_dir, full_unet_npz, tmp_path, monkeypatch)
     assert any(n.endswith(".json") for n in os.listdir(port5))
 
 
-def test_seg_main_cli_refuses_int8_and_reports_failure(raw_dir, tmp_path, monkeypatch, capsys):
+def test_seg_main_cli_refuses_int8_and_reports_failure(raw_dir, full_unet_npz, tmp_path,
+                                                       monkeypatch):
+    """--int8 --int8-scales are accepted and write the calibration JSON (the
+    default full unet at a 128x128 letterbox); a missing checkpoint exits 1."""
     monkeypatch.chdir(tmp_path)
     base = ["--input-raw", str(raw_dir), "--width", "160", "--height", "112", "-ww", "30000",
-            "-wl", "35000", "-m", "missing.npz", "--device", "cpu"]
-    for extra in (["--int8"], ["--int8-scales", "s.json"]):
-        with pytest.raises(SystemExit) as exc:
-            seg_cli.main(base + extra)
-        assert exc.value.code == 2 and extra[0] in capsys.readouterr().err
-    assert seg_cli.main(base + ["-o", str(tmp_path / "out")]) == 1  # no such checkpoint
+            "-wl", "35000", "--device", "cpu"]
+    args = seg_cli.get_args(base + ["-m", "x.npz", "--int8", "--int8-scales", "s.json"])
+    assert args.int8 and args.int8_scales == "s.json"
+    rc = seg_cli.main(base + ["-m", str(full_unet_npz), "-o", str(tmp_path / "q"),
+                              "--target-size", "128", "--int8", "--int8-scales", "s.json"])
+    assert rc == 0 and set(json.loads((tmp_path / "s.json").read_text())) >= {"x", "up4.c2"}
+    assert os.listdir(tmp_path / "q" / "3_pred_masks")
+    assert seg_cli.main(base + ["-m", "missing.npz", "-o", str(tmp_path / "out")]) == 1
 
 
 def test_seg_main_cli_runs_as_a_module(tmp_path):
@@ -324,4 +342,4 @@ def test_seg_main_cli_runs_as_a_module(tmp_path):
                         "unet_medical_image_contour_segmentation_torch.cli.seg_main", "--help"],
                        capture_output=True, text=True, timeout=120,
                        cwd=Path(__file__).resolve().parent.parent)
-    assert r.returncode == 0 and "--device" in r.stdout and "--int8" not in r.stdout
+    assert r.returncode == 0 and "--device" in r.stdout and "--int8" in r.stdout

@@ -173,7 +173,8 @@ def test_cli_predicts_a_directory(model, png_dir, tmp_path):
         np.testing.assert_array_equal(saved, np.asarray(mask_to_image(mask)))
 
 
-@pytest.mark.parametrize("extra", [["--viz"], ["--int8"], ["--int8-scales", "s.json"],
+@pytest.mark.parametrize("extra", [["--viz"], ["--model", "m.stablehlo"],
+                                   ["--arch", "yolov8_seg_s"],
                                    ["--num-devices", "2"], ["--arch", "unet_pp"]])
 def test_cli_rejects_what_is_not_ported(extra, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -181,3 +182,28 @@ def test_cli_rejects_what_is_not_ported(extra, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert extra[0] in err or "invalid choice" in err
+
+
+def test_cli_int8_calibrates_saves_and_reloads(model, png_dir, tmp_path):
+    """--int8 --int8-scales on the CPU: the first run calibrates on its first
+    batch and writes the JSON, the second loads it; both write the masks of
+    an int8 Predictor on that calibration."""
+    ck, scales = str(tmp_path / "ck.npz"), tmp_path / "s.json"
+    save_checkpoint(ck, model)
+    outs = []
+    for run in ("a", "b"):
+        out = tmp_path / run
+        rc = cli.main(["-m", ck, "-i", str(png_dir), "-o", str(out), "--arch", "unet_s",
+                       "--device", "cpu", "--no-postprocess", "--int8",
+                       "--int8-scales", str(scales)])
+        assert rc == 0 and scales.exists()
+        outs.append({p.name: np.asarray(Image.open(p)) for p in sorted(out.iterdir())})
+    assert outs[0].keys() == outs[1].keys() == {"a.png", "b.png", "c.png"}
+    for name in outs[0]:
+        np.testing.assert_array_equal(outs[0][name], outs[1][name])
+    pq = Predictor(model, device="cpu", quantize=True)
+    pq.load_calibration(str(scales))
+    want = pq.predict_paths(collect_image_files(str(png_dir)), postprocess=False, save=False)
+    for path, mask in want.items():
+        np.testing.assert_array_equal(outs[1][os.path.basename(path)],
+                                      np.asarray(mask_to_image(mask)))

@@ -9,9 +9,11 @@ The flags of the JAX package's ``cli/predict.py`` that this port supports:
 ``--bilinear`` for bilinear ups), a file or a recursively walked directory,
 post-processing on by default, masks saved as {0,128,255} PNGs (next to the
 inputs when ``-o`` is omitted), batches grouped by image size, and tiled
-serving of images above ``--tile-threshold`` pixels.  Its other flags (int8,
-data parallelism, exported programs, visualisation) are rejected with an
-error until they are ported.
+serving of images above ``--tile-threshold`` pixels, and int8 serving
+(``--int8``, with ``--int8-scales s.json``: load the calibration if the file
+exists, else calibrate on the first batch and save it there).  Its other
+flags (data parallelism, exported programs, visualisation) are rejected with
+an error until they are ported.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import sys
 # flags of the JAX CLI that the port does not serve yet
 _NOT_PORTED = {
     "--viz": "visualisation", "--num-devices": "data-parallel serving",
-    "--int8": "int8 serving", "--int8-scales": "int8 serving",
 }
 
 
@@ -53,6 +54,13 @@ def get_args(argv=None):
                         help="The weights are of a UNet with bilinear ups")
     parser.add_argument("--fast-transfer", action="store_true", default=False,
                         help="Upload raw uint8 pixels and normalise on the device")
+    parser.add_argument("--int8", action="store_true", default=False,
+                        help="int8 serving: per-channel weight quantisation and "
+                             "first-batch activation calibration")
+    parser.add_argument("--int8-scales", default=None, metavar="JSON",
+                        help="With --int8: load the activation-scale calibration from this "
+                             "JSON if it exists, else calibrate on the first batch and save "
+                             "it there")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
     for flag, what in _NOT_PORTED.items():
@@ -98,12 +106,19 @@ def main(argv=None) -> int:
     model.load_state_dict(state_dict)
     predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
                           tile=args.tile, tile_halo=args.tile_halo,
-                          tile_threshold=args.tile_threshold)
+                          tile_threshold=args.tile_threshold, quantize=args.int8)
     logging.info("Model loaded on %s", predictor.device)
+    scales = args.int8_scales if args.int8 else None
+    if scales and os.path.exists(scales):
+        predictor.load_calibration(scales)
+        logging.info("Loaded int8 calibration from %s", scales)
     results = predictor.predict_paths(in_files, output_dir=args.output,
                                       postprocess=args.postprocess, save=not args.no_save,
                                       fast_transfer=args.fast_transfer)
     logging.info("Predicted %d/%d images", len(results), len(in_files))
+    if scales and not os.path.exists(scales) and predictor._amax is not None:
+        predictor.save_calibration(scales)
+        logging.info("Saved int8 calibration to %s", scales)
     return 0
 
 

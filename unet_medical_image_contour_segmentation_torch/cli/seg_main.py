@@ -7,8 +7,9 @@
 
 The flags, the ``seg_process.log`` handler and the exit codes (0, or 1 when
 a stage fails) of the JAX package's ``cli/seg_main.py``; the five stages run
-in-process through ``pipeline.seg_main.run_pipeline``.  ``--int8`` and
-``--int8-scales`` are rejected until int8 serving is ported.
+in-process through ``pipeline.seg_main.run_pipeline``; ``--int8`` serves
+stage 3 in int8, and ``--int8-scales s.json`` loads its calibration if the
+file exists, else saves the first batch's there.
 """
 
 from __future__ import annotations
@@ -16,9 +17,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-# flags of the JAX CLI that the port does not serve yet
-_NOT_PORTED = {"--int8": "int8 serving", "--int8-scales": "int8 serving"}
 
 
 def setup_logging() -> None:
@@ -41,15 +39,12 @@ def get_args(argv=None):
     parser.add_argument("--target-size", type=int, default=512)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
-                            dest=f"not_ported_{flag[2:].replace('-', '_')}")
-    args = parser.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
-            parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
-                         "use the JAX package's umics-seg-main")
-    return args
+    parser.add_argument("--int8", action="store_true", default=False,
+                        help="int8 serving for stage 3 (first-batch calibration)")
+    parser.add_argument("--int8-scales", default=None, metavar="JSON",
+                        help="With --int8: load the activation-scale calibration from this "
+                             "JSON if it exists, else save the first batch's there")
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -62,7 +57,8 @@ def main(argv=None) -> int:
     cfg = PipelineConfig(input_raw=args.input_raw, output_root=args.output_root,
                          width=args.width, height=args.height,
                          window_width=args.window_width, window_length=args.window_length,
-                         model=args.model, target_size=args.target_size)
+                         model=args.model, target_size=args.target_size, int8=args.int8,
+                         int8_scales=args.int8_scales)
     try:
         result_dir = run_pipeline(cfg, device=args.device)
         logging.info("===== pipeline finished =====")

@@ -3,8 +3,7 @@ package's ``config.py`` (``TrainConfig``, ``PostProcessConfig``,
 ``PipelineConfig``, ``add_dataclass_args``, ``dataclass_from_args``), field
 for field, so one config drives either package.  ``amp`` is bf16 compute
 with f32 master weights and no loss scaling.  Which fields the port's
-``train_model`` does not serve yet is said there: it raises for them, as
-``run_pipeline`` does for ``int8``.
+``train_model`` does not serve yet is said there: it raises for them.
 """
 
 from __future__ import annotations
@@ -88,8 +87,8 @@ class PipelineConfig:
     window_length: int = 0
     model: str = ""
     target_size: int = 512
-    int8: bool = False                     # int8 serving of stage 3: not ported, raises
-    int8_scales: Optional[str] = None      # its calibration JSON
+    int8: bool = False                     # int8 serving of stage 3
+    int8_scales: Optional[str] = None      # its calibration JSON (load, else save)
 
 
 def add_dataclass_args(parser, cls, defaults=None):

@@ -19,12 +19,22 @@ zero-pads the image and computes the halo, so within about a receptive field
 of the border the two can differ (in the interior they agree).  The port
 follows the JAX package here, tile for tile.
 
-int8 serving, data-parallel serving and exported-program serving are not
-ported yet.
+``quantize=True`` serves in int8 (``models/quantize.py``): the activation
+scales calibrate on the first batch predicted (at most 4 images, H and W cut
+to multiples of 16; a batch whose cut is under 32 pixels serves in float and
+waits for the next) or explicitly (:meth:`Predictor.calibrate`,
+:meth:`Predictor.load_calibration`), the weights quantise per output channel
+from an f32 BN fold, and every DoubleConv conv runs on the int8 kernel
+(``kernels/conv3x3_int8.py``).  A batch goes to the float program instead
+where the JAX package's rules send it there: H or W not a multiple of 16, or
+a dense batch smaller than ``INT8_MIN_BATCH`` of its architecture.
+
+Data-parallel serving and exported-program serving are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +48,7 @@ from torch import nn
 from ..data.dataset import BasicDataset
 from ..device import resolve_device
 from ..models.fold_bn import fold_bn
+from ..models.quantize import apply_int8, build_qparams, calibrate_amax, folded_tree
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
 
@@ -82,6 +93,9 @@ class Predictor:
     ``tile_halo`` and ``tile_threshold`` set the tiled path (see the module
     docstring): ``tile=None`` picks the tile per image (:meth:`_auto_tile`),
     ``tile_threshold=None`` takes ``TILE_THRESHOLD`` and 0 never tiles.
+    ``quantize=True`` serves in int8 (see the module docstring); the
+    calibration is a small JSON of per-tap amax floats, in the JAX package's
+    format (:meth:`save_calibration`, :meth:`load_calibration`).
     """
 
     # dense-path pixel budget: above it, predict tiles the image; 0 = never
@@ -99,11 +113,18 @@ class Predictor:
     # False: one forward per tile, stitched on the host (the reference the
     # device grid is tested against)
     tile_on_device = True
+    # the smallest dense batch served in int8, per architecture (the JAX
+    # package's map); smaller batches serve the float program.  The tiled
+    # path is not gated: it runs tile_batch windows a forward.  The card's
+    # int8 / bf16 times at b = 1..8 are in PERF.md (chip_smoke.py's sweep).
+    INT8_MIN_BATCH: Dict[str, int] = {"unet_sa": 4}
+    # the spatial divisor of the int8 program and of the calibration crop
+    INT8_DIVISOR = 16
 
     def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
                  compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
                  tile: Optional[int] = None, tile_halo: int = 96,
-                 tile_threshold: Optional[int] = None):
+                 tile_threshold: Optional[int] = None, quantize: bool = False):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.n_classes = model.n_classes
@@ -114,6 +135,75 @@ class Predictor:
         net = fold_bn(model, cd)
         net.compute_dtype = cd
         self.model = net.to(self.device)
+        self.compute_dtype = cd
+        self.arch = getattr(model, "name", "")
+        self.quantize = quantize
+        self._qparams: Optional[dict] = None
+        self._amax: Optional[Dict[str, float]] = None
+        # quantisation reads an f32 fold (the JAX package quantises f32
+        # folded params), never self.model's fold in the compute dtype
+        self._qfolded = folded_tree(fold_bn(model, torch.float32)) if quantize else None
+
+    # -- int8 serving (models/quantize.py) ----------------------------------
+
+    def calibrate(self, images: np.ndarray) -> None:
+        """Calibrate the int8 activation scales on (B, H, W[, C]) float or
+        uint8 images, cut to multiples of 16 (per-tensor scales do not depend
+        on the cut): the float fold's forward in the compute dtype."""
+        x = torch.from_numpy(np.ascontiguousarray(images))
+        x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
+        div = self.INT8_DIVISOR
+        hc, wc = x.shape[1] // div * div, x.shape[2] // div * div
+        if hc < div or wc < div:
+            raise ValueError(f"calibration images too small: {tuple(x.shape)}")
+        x = x[:, :hc, :wc].contiguous().to(self.device)
+        self._set_amax(calibrate_amax(folded_tree(self.model), x, self.compute_dtype))
+
+    def _set_amax(self, amax: Dict[str, float]) -> None:
+        """Build the int8 qparams on the device from calibration amaxes."""
+        if self._qfolded is None:
+            raise ValueError("int8 serving needs a Predictor built with quantize=True")
+        self._qparams = build_qparams(self._qfolded, amax, self.device)
+        self._amax = dict(amax)
+
+    def save_calibration(self, path: str) -> None:
+        """Write the calibration as JSON ({tap: amax}); the int8 weights
+        rebuild from it deterministically."""
+        if self._amax is None:
+            raise ValueError("not calibrated yet: call calibrate() or predict one batch first")
+        with open(path, "w") as f:
+            json.dump(self._amax, f, indent=1, sort_keys=True)
+
+    def load_calibration(self, path: str) -> None:
+        """Load a calibration written by :meth:`save_calibration` (or by the
+        JAX package's)."""
+        with open(path) as f:
+            self._set_amax(json.load(f))
+
+    def _ensure_quantized(self, images: np.ndarray) -> None:
+        """First-batch auto-calibration on at most 4 images; a batch whose
+        16-multiple cut is under 32 pixels (the bottleneck would vanish) is
+        skipped and serves in float."""
+        if not self.quantize or self._qparams is not None:
+            return
+        div = self.INT8_DIVISOR
+        if min(images.shape[1] // div, images.shape[2] // div) * div >= 32:
+            self.calibrate(images[:4])
+
+    def _int8_min_batch(self) -> int:
+        return self.INT8_MIN_BATCH.get(self.arch, 1)
+
+    def _int8_ok(self, h: int, w: int) -> bool:
+        """Calibrated, and H and W multiples of 16 (else the float program)."""
+        return (self._qparams is not None and h % self.INT8_DIVISOR == 0
+                and w % self.INT8_DIVISOR == 0)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) float on the device -> f32 logits, int8 where
+        :meth:`_int8_ok`, else the float fold."""
+        if self._int8_ok(x.shape[1], x.shape[2]):
+            return apply_int8(self._qparams, x, self.compute_dtype)
+        return self.model(x)
 
     def _classes(self, logits: torch.Tensor) -> torch.Tensor:
         """(B, H, W, n_classes) logits -> (B, H, W) int32 classes."""
@@ -126,7 +216,10 @@ class Predictor:
         """One batch -> (B, outH, outW) int32 class map, left on the device."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        logits = self.model(x)
+        if x.shape[0] >= self._int8_min_batch():
+            logits = self._logits(x)
+        else:
+            logits = self.model(x)
         if tuple(logits.shape[1:3]) != tuple(out_hw):
             logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
         return self._classes(logits)
@@ -146,8 +239,8 @@ class Predictor:
 
     def _tile_core(self, windows: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
         """(N, win, win, C) float windows -> (N, tile, tile) int32 classes of
-        their central cores."""
-        logits = self.model(windows)
+        their central cores (int8 where :meth:`_int8_ok`, at any batch)."""
+        logits = self._logits(windows)
         return self._classes(logits[:, halo:halo + tile, halo:halo + tile])
 
     @torch.inference_mode()
@@ -223,6 +316,7 @@ class Predictor:
         dense, left where it was computed."""
         in_hw = tuple(images.shape[1:3])
         out_hw = tuple(out_hw or in_hw)
+        self._ensure_quantized(images)
         if self._use_tiling(in_hw, out_hw):
             return self._tiled_predict(images)
         return self._forward(images, out_hw)

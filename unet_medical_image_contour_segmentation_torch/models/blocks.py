@@ -86,22 +86,29 @@ def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
 
 
+def attention_gate(x: torch.Tensor, w: torch.Tensor,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The spatial attention gate of x for the HWIO (k, k, 2, 1) weight ``w``
+    (JAX ``blocks.py:spatial_attention_apply``): channel mean and max in
+    f32, a kxk SAME conv without bias in the compute dtype, the sigmoid in
+    f32, cast to x's dtype."""
+    xf = x.float()
+    feats = torch.cat([xf.mean(dim=-1, keepdim=True), xf.amax(dim=-1, keepdim=True)],
+                      dim=-1).to(x.dtype)
+    att = conv2d(feats, w, padding=w.shape[0] // 2, compute_dtype=compute_dtype)
+    return torch.sigmoid(att.float()).to(x.dtype)
+
+
 class SpatialAttention(nn.Module):
-    """A gate in (0, 1) per pixel from the channel mean and max (JAX
-    ``blocks.py:spatial_attention_apply``): both in f32, a 7x7 conv without
-    bias in the compute dtype, the sigmoid in f32, cast to x's dtype."""
+    """A gate in (0, 1) per pixel from the channel mean and max
+    (:func:`attention_gate`)."""
 
     def __init__(self, kernel_size: int = 7):
         super().__init__()
         self.conv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        xf = x.float()
-        feats = torch.cat([xf.mean(dim=-1, keepdim=True), xf.amax(dim=-1, keepdim=True)],
-                          dim=-1).to(x.dtype)
-        att = conv2d(feats, _conv_hwio(self.conv1), padding=self.conv1.padding[0],
-                     compute_dtype=compute_dtype)
-        return torch.sigmoid(att.float()).to(x.dtype)
+        return attention_gate(x, _conv_hwio(self.conv1), compute_dtype)
 
 
 class Up(nn.Module):

@@ -17,7 +17,9 @@ JAX package's ``models/torch_compat.py``, which it may not import):
 
 Per-parameter tensors that are not weights (gradients, the optimizer's
 ``square_avg`` / ``momentum_buffer``) cross with the same transpositions
-through :func:`params_tree_from_tensors` and :func:`tensors_from_params_tree`.
+through :func:`params_tree_from_tensors` and :func:`tensors_from_params_tree`;
+the int8 parameters of the JAX package's ``models/quantize.py:build_qparams``
+cross through :func:`qparams_from_jax`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from torch import nn
 
 __all__ = ["state_dict_from_jax", "params_from_state_dict", "load_pth",
-           "params_tree_from_tensors", "tensors_from_params_tree"]
+           "params_tree_from_tensors", "tensors_from_params_tree", "qparams_from_jax"]
 
 
 def _conv_w(t) -> np.ndarray:  # OIHW -> HWIO
@@ -131,6 +133,27 @@ def tensors_from_params_tree(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
     _, bn_state, _ = params_from_state_dict(model.state_dict())
     sd = state_dict_from_jax(tree, bn_state)
     return {name: sd[name] for name, _ in model.named_parameters()}
+
+
+def qparams_from_jax(tree, device="cpu") -> dict:
+    """The JAX package's ``build_qparams`` output (the UNet family's int8
+    tree, numpy or jax arrays) -> the port's qparams on ``device``: the same
+    keys, each int8 conv entry ``{w, mul, badd}`` with its HWIO weight packed
+    for the kernel (``kernels/conv3x3_int8.py:pack_weight``), every other
+    array (scales, ConvT, attention, head) an f32 tensor.  Both packages
+    then serve from identical int8 weights and scales."""
+    from ..kernels.conv3x3_int8 import pack_weight
+
+    def convert(t):
+        if isinstance(t, dict):
+            if {"w", "mul", "badd"} <= set(t):
+                return {"w": pack_weight(torch.from_numpy(np.array(t["w"], np.int8))).to(device),
+                        "mul": torch.tensor(np.asarray(t["mul"], np.float32), device=device),
+                        "badd": torch.tensor(np.asarray(t["badd"], np.float32), device=device)}
+            return {k: convert(v) for k, v in t.items()}
+        return torch.tensor(np.asarray(t, np.float32), device=device)
+
+    return convert(tree)
 
 
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:

@@ -56,12 +56,14 @@ def run_pipeline(cfg: PipelineConfig, predictor=None,
 
     ``predictor``: an ``engine.predict.Predictor``; when omitted one is built
     from ``cfg.model`` (a ``.pth``/``.npz`` checkpoint of ``unet(1, 3)``) on
-    ``device`` (``cuda`` by default).  ``cfg.int8`` raises: int8 serving is
-    not ported yet.
+    ``device`` (``cuda`` by default).  ``cfg.int8`` serves stage 3 in int8
+    (an injected predictor must then be built with ``quantize=True``); with
+    ``cfg.int8_scales`` the calibration is loaded from that JSON if it
+    exists, else the first batch's is saved there, so reruns serve the same
+    int8 weights.
     """
-    if cfg.int8:
-        raise NotImplementedError("int8 serving (cfg.int8) is not ported to the PyTorch "
-                                  "package yet")
+    if cfg.int8 and predictor is not None and not predictor.quantize:
+        raise ValueError("cfg.int8 needs a Predictor built with quantize=True")
     dirs = create_work_dirs(cfg.output_root)
     sizes_json = os.path.join(dirs["normalized_png"], "original_sizes.json")
 
@@ -85,12 +87,19 @@ def run_pipeline(cfg: PipelineConfig, predictor=None,
     log.info("===== stage 3: contour prediction =====")
     t0 = time.perf_counter()
     if predictor is None:
-        predictor = _build_predictor(cfg.model, device)
+        predictor = _build_predictor(cfg.model, device, int8=cfg.int8)
+    scales = cfg.int8_scales if cfg.int8 else None
+    if scales and os.path.exists(scales):
+        predictor.load_calibration(scales)
+        log.info("loaded int8 calibration from %s", scales)
     norm_pngs = [os.path.join(dirs["normalized_png"], f)
                  for f in sorted(os.listdir(dirs["normalized_png"])) if f.endswith(".png")]
     if not norm_pngs:
         raise RuntimeError("stage 3 found no normalized PNGs, aborting pipeline")
     predictor.predict_paths(norm_pngs, output_dir=dirs["pred_masks"], postprocess=True)
+    if scales and not os.path.exists(scales) and predictor._amax is not None:
+        predictor.save_calibration(scales)
+        log.info("saved int8 calibration to %s", scales)
     log.info("stage 3: %.3f s", time.perf_counter() - t0)
     _check_nonempty("stage 3 (predict)", dirs["pred_masks"])
 
@@ -112,10 +121,12 @@ def run_pipeline(cfg: PipelineConfig, predictor=None,
     return dirs["json_results"]
 
 
-def _build_predictor(model_path: str, device: Optional[Union[str, torch.device]] = None):
+def _build_predictor(model_path: str, device: Optional[Union[str, torch.device]] = None,
+                     int8: bool = False):
     """The reference's default model, ``unet(1, 3, bilinear=False)``, from a
-    ``.pth``/``.npz`` checkpoint: bf16 on the card, f32 on the CPU.  Stage 2
-    letterboxes every slice to 512x512, so the tiled path never runs here."""
+    ``.pth``/``.npz`` checkpoint: bf16 on the card, f32 on the CPU, int8
+    when asked.  Stage 2 letterboxes every slice to 512x512, so the tiled
+    path never runs here."""
     from ..device import resolve_device
     from ..engine.checkpoint import load_weights
     from ..engine.predict import Predictor
@@ -126,4 +137,4 @@ def _build_predictor(model_path: str, device: Optional[Union[str, torch.device]]
     model = unet(n_channels=1, n_classes=3, bilinear=False,
                  compute_dtype=torch.bfloat16 if device.type == "cuda" else None)
     model.load_state_dict(state_dict)
-    return Predictor(model, device=device)
+    return Predictor(model, device=device, quantize=int8)
