@@ -46,8 +46,10 @@ Phases, in order; any failure exits nonzero before the last line:
      with the default full unet from a saved .npz (stage directories, labelme
      JSON, seconds per stage, launches); if not, stage 3's device work alone;
  10. int8 kernel vs plain: the int8 conv with its requant / dequant epilogue
-     at the 18 unet_s convs at (8, 512, 512) and at 16 windows of 704²,
-     exactly equal to its plain version; kernel / plain / bf16-path times
+     at the 18 unet_s convs at (8, 512, 512), at 16 windows of 704², and at
+     the four Up conv1s as split (skip, upsample) inputs at both sizes,
+     exactly equal to its plain version, launch geometry equal to the
+     Python mirror's; kernel / plain / bf16-path / torch._int_mm times
      and the bound (bytes, or operations at the int8 peak);
  11. main path, int8 predict: unet_s int8 (bf16 compute) at (8, 512, 512),
      first-batch calibration, 18 int8 launches and no bf16-kernel launch per
@@ -101,6 +103,7 @@ from unet_medical_image_contour_segmentation_torch.engine.train import (  # noqa
 )
 from unet_medical_image_contour_segmentation_torch.kernels import _build  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # noqa: E402
+    _patches,
     conv3x3_nhwc,
     conv3x3_nhwc_dw,
     conv3x3_nhwc_dx,
@@ -112,6 +115,13 @@ from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # n
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
     conv3x3_int8,
     conv3x3_int8_reference,
+    kernel_geometry,
+)
+from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
+    launch_geometry as launch_int8_geometry,
+)
+from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
+    weight_matrix as int8_weight_matrix,
 )
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
     pack_weight as pack_int8_weight,
@@ -171,6 +181,9 @@ INT8_CONVS = [
     ("up3.conv1", 64, 32, 2, "int8"), ("up3.conv2", 32, 32, 2, "float"),
     ("up4.conv1", 32, 16, 1, "int8"), ("up4.conv2", 16, 16, 1, "float"),
 ]
+# the Up convs whose input is the decoder's (skip, upsample) pair: the int8
+# forward hands them the two parts as a split input
+SPLIT_CONVS = ("up1.conv1", "up2.conv1", "up3.conv1", "up4.conv1")
 # the tiled unet_s forwards hand the kernel tpb * n windows of tile + 2 * 96
 # pixels: 16 of 704² (tile 512 at (2, 2048, 2048)) and 8 of 1216² (tile 1024
 # at (1, 4096, 4096)); MAIN_CONVS at each window's levels
@@ -271,7 +284,9 @@ def phase_device() -> str:
 
 def phase_build() -> dict:
     """Build every source; -> ptxas's {kernel: "R registers, S/L bytes spill
-    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", "int8<NT,OUT>")."""
+    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", and the int8
+    kernels "int8_tma<N,OUT>" / "int8_im2col<N,OUT>").  An int8 kernel that
+    spills fails the run (its wgmma accumulators must stay in registers)."""
     t0 = time.perf_counter()
     results = _build.build(["conv3x3", "conv3x3_int8"])
     log(f"[build] {len(results)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
@@ -279,18 +294,22 @@ def phase_build() -> dict:
     for r in results.values():
         log(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.library.name}")
         for line in r.log.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling", "arning")):
                 log(f"[build]   {line.strip()}")
-            m = re.search(r"conv3x3_int8_kernelILi(\d+)ELi(\d+)E|conv3x3_mma_kernelILi(\d+)E"
-                          r"|conv3x3_kernelIfE", line)
+            m = re.search(r"conv3x3_int8_(tma|im2col)_kernelILi(\d+)ELi(\d+)E"
+                          r"|conv3x3_mma_kernelILi(\d+)E|conv3x3_kernelIfE", line)
             if m and "Compiling" in line:
-                name = (f"int8<{m.group(1)},{m.group(2)}>" if m.group(1)
-                        else f"mma<{m.group(3)}>" if m.group(3) else "f32")
+                name = (f"int8_{m.group(1)}<{m.group(2)},{m.group(3)}>" if m.group(1)
+                        else f"mma<{m.group(4)}>" if m.group(4) else "f32")
             elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
                 spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
             elif (m := re.search(r"Used (\d+) registers", line)) and name:
                 usage[name] = f"{m.group(1)} registers, {spills}"
                 name = None
+    spilled = {k: v for k, v in usage.items() if k.startswith("int8") and not v.endswith(
+        "0/0 bytes spill stores/loads")}
+    if spilled or not any(k.startswith("int8_tma") for k in usage):
+        raise RuntimeError(f"int8 kernels spill, or ptxas printed none of them: {spilled}")
     return usage
 
 
@@ -471,60 +490,103 @@ def int8_bound_ms(b, h, w, cin, cout, out_dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def int_mm_ms(x: torch.Tensor, wp: torch.Tensor, cout: int):
+    """``torch._int_mm`` of the im2col patch matrix (B*H*W, 9*Cin_p) by the
+    packed weight's (9*Cin_p, Cout) -> int32, the patch built beforehand
+    (not timed), inputs rotated past the L2: a yardstick for the int8
+    kernel's main loop, not the same function (no halo, no epilogue).  None
+    where its shape rules refuse the shape."""
+    wm = int8_weight_matrix(wp, cout).t()
+    cin_p = wm.shape[0] // 9
+    patch = _patches(F.pad(x, (0, cin_p - x.shape[3]))).reshape(-1, 9 * cin_p)
+    try:
+        torch._int_mm(patch[:64], wm)
+        ps = copies(patch)
+        return time_ms(lambda i: torch._int_mm(ps[i % len(ps)], wm), reps=20)[0]
+    except RuntimeError as exc:
+        log(f"[int8-kernels]   torch._int_mm refuses {tuple(patch.shape)} x "
+            f"{tuple(wp.t().shape)}: {str(exc).splitlines()[0]}")
+        return None
+
+
 def phase_int8_kernels(usage: dict):
     """The int8 kernel against its plain version, exactly, at the 18 unet_s
     convs at (BATCH, HW, HW) and at the tiled path's 16 windows of 704²,
-    each with its main-path epilogue (int8, or bf16 dequant); at the dense
-    shapes its time, the plain version's, and the bf16 path's conv at the
-    same shape (``ops.nn.conv2d``: the bf16 kernel where 8 <= Cin <= 32,
-    cuDNN otherwise), inputs rotated past the L2, calls queued."""
+    each with its main-path epilogue (int8, or bf16 dequant), and at the
+    four Up conv1s as the int8 forward runs them, split (skip, upsample)
+    inputs, at both sizes; at the dense shapes its time, the plain
+    version's, the bf16 path's conv at the same shape (``ops.nn.conv2d``:
+    the bf16 kernel where 8 <= Cin <= 32, cuDNN otherwise) and
+    ``torch._int_mm`` on the im2col patch (:func:`int_mm_ms`), inputs
+    rotated past the L2, calls queued.  The kernel label, grid, tile and
+    stages of a row are the built kernel's own (:func:`kernel_geometry`),
+    and the run fails where ``launch_geometry``, its Python mirror, differs."""
     b704, w704 = TILED_WINDOWS[0]
-    shapes = [(name, BATCH, HW // s, HW // s, cin, cout, out, "dense")
+    shapes = [(name, BATCH, HW // s, HW // s, cin, cout, out, "dense", 0)
               for name, cin, cout, s, out in INT8_CONVS]
-    shapes += [(f"{name}@{w704}", b704, w704 // s, w704 // s, cin, cout, out, f"tiled{w704}")
+    shapes += [(f"{name}@{w704}", b704, w704 // s, w704 // s, cin, cout, out, f"tiled{w704}", 0)
                for name, cin, cout, s, out in INT8_CONVS]
+    shapes += [(f"{name} split", BATCH, HW // s, HW // s, cin // 2, cout, out, "split", cin // 2)
+               for name, cin, cout, s, out in INT8_CONVS if name in SPLIT_CONVS]
+    shapes += [(f"{name} split@{w704}", b704, w704 // s, w704 // s, cin // 2, cout, out,
+                f"tiled{w704}", cin // 2)
+               for name, cin, cout, s, out in INT8_CONVS if name in SPLIT_CONVS]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
-    for i, (name, b, h, w, cin, cout, out, path) in enumerate(shapes):
+    for i, (name, b, h, w, cin, cout, out, path, cin2) in enumerate(shapes):
         out_dtype = torch.int8 if out == "int8" else torch.bfloat16
-        x, wp, mul, badd = int8_operands(70 + i, b, h, w, cin, cout, "cuda")
-        got = conv3x3_int8(x, wp, mul, badd, out_dtype)
-        want = conv3x3_int8_reference(x, wp, mul, badd, out_dtype)
+        x, wp, mul, badd = int8_operands(70 + i, b, h, w, cin + cin2, cout, "cuda")
+        x, x2 = (x[..., :cin].contiguous(), x[..., cin:].contiguous()) if cin2 else (x, None)
+        got = conv3x3_int8(x, wp, mul, badd, out_dtype, x2)
+        want = conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not torch.equal(got, want):
             raise RuntimeError(f"conv3x3_int8 differs from its plain version at {name} "
-                               f"{(b, h, w, cin, cout)} -> {out_dtype}: max abs err {err}")
+                               f"{(b, h, w, cin, cin2, cout)} -> {out_dtype}: max abs err {err}")
         max_err = max(max_err, err)
-        if path != "dense":
-            log(f"[int8-kernels] {name:18s} {str((b, h, w, cin, cout)):27s} -> {out:5s} equal")
+        # the channels the kernel gets: Cin >= 16 padded to a multiple of 16
+        cin_k = cin + -cin % 16 if cin >= 16 else cin
+        geo = kernel_geometry(b, h, w, cin_k, cout, cin2)
+        if geo != launch_int8_geometry(b, h, w, cin_k, cout, cin2):
+            raise RuntimeError(f"launch_geometry differs from the built kernel's at {name}: "
+                               f"{launch_int8_geometry(b, h, w, cin_k, cout, cin2)} against {geo}")
+        if path.startswith("tiled"):
+            log(f"[int8-kernels] {name:20s} {str((b, h, w, cin, cin2, cout)):30s} -> {out:5s} "
+                f"equal; grid {geo.grid}, tile {geo.tile}")
             continue
-        xs = copies(x)
-        ms, host_ms = time_ms(lambda i: conv3x3_int8(xs[i % len(xs)], wp, mul, badd, out_dtype),
+        xs, x2s = copies(x), copies(x2) if cin2 else None
+        ms, host_ms = time_ms(lambda i: conv3x3_int8(xs[i % len(xs)], wp, mul, badd, out_dtype,
+                                                     x2s[i % len(x2s)] if cin2 else None),
                               reps=20)
-        plain_ms, _ = time_ms(lambda i: conv3x3_int8_reference(xs[i % len(xs)], wp, mul, badd,
-                                                               out_dtype), reps=2, warmup=1)
-        del xs
-        xb = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(torch.bfloat16)
-        wb = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
-              / (3 * cin ** 0.5)).to(torch.bfloat16)
+        plain_ms, _ = time_ms(lambda i: conv3x3_int8_reference(
+            xs[i % len(xs)], wp, mul, badd, out_dtype, x2s[i % len(x2s)] if cin2 else None),
+            reps=2, warmup=1)
+        del xs, x2s
+        cin_all = cin + cin2
+        mm_ms = int_mm_ms(x if x2 is None else torch.cat([x, x2], dim=-1), wp, cout)
+        xb = torch.randn(b, h, w, cin_all, device="cuda", generator=gen).to(torch.bfloat16)
+        wb = (torch.randn(3, 3, cin_all, cout, device="cuda", generator=gen)
+              / (3 * cin_all ** 0.5)).to(torch.bfloat16)
         xbs = copies(xb)
         with torch.inference_mode():
             bf16_ms, _ = time_ms(lambda i: conv2d(xbs[i % len(xbs)], wb, padding=1), reps=20)
         del xbs, xb
-        bound_ms, bound_by = int8_bound_ms(b, h, w, cin, cout, out_dtype)
+        bound_ms, bound_by = int8_bound_ms(b, h, w, cin_all, cout, out_dtype)
         share = roofline(bound_ms, kernel=ms)
-        nt = next(n for n in (1, 2, 4, 8) if 8 * n >= min(cout, 64))
-        key = f"int8<{nt},{0 if out == 'int8' else 2}>"
-        rows.append(dict(name=name, path=path, shape=[b, h, w, cin, cout], out=out, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bf16_path_ms=bf16_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, roofline=share,
-                         max_abs_err=err, host_ms=host_ms, kernel=key,
-                         ptxas=usage.get(key, "not printed")))
-        log(f"[int8-kernels] {name:12s} {str((b, h, w, cin, cout)):26s} -> {out:5s} equal; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 path {bf16_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), roofline {share:.1%}, host issue "
-            f"{host_ms * 1e3:.1f} us; {key}: {usage.get(key, 'not printed')}")
+        key = f"int8_{geo.route}<{geo.n},{0 if out == 'int8' else 2}>"
+        rows.append(dict(name=name, path=path, shape=[b, h, w, cin_all, cout], cin2=cin2,
+                         out=out, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         int_mm_ms=mm_ms, bf16_path_ms=bf16_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, roofline=share, max_abs_err=err, host_ms=host_ms,
+                         kernel=key, ptxas=usage.get(key, "not printed"), grid=geo.grid,
+                         tile=list(geo.tile), stages=geo.stages, smem_bytes=geo.smem_bytes))
+        mm = "refused" if mm_ms is None else f"{mm_ms:.4f} ms"
+        log(f"[int8-kernels] {name:16s} {str((b, h, w, cin_all, cout)):26s} -> {out:5s} equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 path {bf16_ms:.4f} ms, "
+            f"_int_mm {mm}, bound {bound_ms:.4f} ms ({bound_by}), roofline {share:.1%}, "
+            f"host issue {host_ms * 1e3:.1f} us; {key}: {usage.get(key, 'not printed')}, "
+            f"grid {geo.grid}, tile {geo.tile}, {geo.stages} stages, {geo.smem_bytes} B")
     return rows, max_err
 
 
@@ -1643,6 +1705,10 @@ def main(argv=None) -> int:
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
     pallas = f"{tpu}/ops/pallas_conv.py"
+    # the main path's 18 convs as the int8 forward runs them: the Up conv1s split
+    dense8 = [r for r in int8_rows if r["path"] == "dense"]
+    split8 = {r["name"].split()[0]: r for r in int8_rows if r["path"] == "split"}
+    fwd8 = [split8.get(r["name"], r) for r in dense8]
     int8_by_path = {"int8_predict": int8_launches["conv3x3_int8"],
                     "int8_tiled": int8_tiled_launches["conv3x3_int8"],
                     "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0)}
@@ -1677,16 +1743,24 @@ def main(argv=None) -> int:
         "launches": sum(int8_by_path.values()),
         "launches_by_path": int8_by_path,
         "max_abs_err": int8_err,
-        "ms": sum(r["ms"] for r in int8_rows),
-        "plain_ms": sum(r["plain_ms"] for r in int8_rows),
-        "bound_ms": sum(r["bound_ms"] for r in int8_rows),
+        # per int8 forward: the 18 convs as the main path runs them (Up conv1 split)
+        "ms": sum(r["ms"] for r in fwd8),
+        "plain_ms": sum(r["plain_ms"] for r in fwd8),
+        "bound_ms": sum(r["bound_ms"] for r in fwd8),
         "bound_by": max(("bytes", "operations"), key=lambda k: sum(
-            r["bound_ms"] for r in int8_rows if r["bound_by"] == k)),
-        # no PyTorch call computes an int8 convolution on CUDA
+            r["bound_ms"] for r in fwd8 if r["bound_by"] == k)),
+        # no PyTorch call computes an int8 convolution on CUDA; torch._int_mm
+        # on the im2col patch times a GEMM of the same K and N (no halo, no
+        # epilogue), a yardstick for the main loop only
         "library_ms": None,
-        "bf16_path_ms": sum(r["bf16_path_ms"] for r in int8_rows),
-        "shapes": [dict(shape_row(r), out=r["out"], bf16_path_ms=r["bf16_path_ms"],
-                        bound_by=r["bound_by"]) for r in int8_rows],
+        "ms_one_input": sum(r["ms"] for r in dense8),
+        "int_mm_ms": (sum(r["int_mm_ms"] for r in fwd8)
+                      if all(r["int_mm_ms"] is not None for r in fwd8) else None),
+        "bf16_path_ms": sum(r["bf16_path_ms"] for r in fwd8),
+        "shapes": [dict(shape_row(r), out=r["out"], cin2=r["cin2"],
+                        bf16_path_ms=r["bf16_path_ms"], int_mm_ms=r["int_mm_ms"],
+                        bound_by=r["bound_by"], kernel=r["kernel"], ptxas=r["ptxas"])
+                   for r in dense8 + list(split8.values())],
     }, {
         # the same kernel as the input gradient in the train step's backward
         "name": "conv3x3_nhwc_dx",
@@ -1704,9 +1778,11 @@ def main(argv=None) -> int:
         "shapes": shape_rows(bwd_rows),
     }]
     fwd, k8 = kernels[0], kernels[1]
-    log(f"[int8-kernels] per int8 forward: kernel {k8['ms']:.4f} ms, bound {k8['bound_ms']:.4f} "
-        f"ms ({k8['bound_by']}; roofline {k8['bound_ms'] / k8['ms']:.1%}), bf16 path "
-        f"{k8['bf16_path_ms']:.4f} ms, kernel / bf16 path {k8['ms'] / k8['bf16_path_ms']:.3f}")
+    int_mm = "refused" if k8["int_mm_ms"] is None else f"{k8['int_mm_ms']:.4f} ms"
+    log(f"[int8-kernels] per int8 forward (Up conv1 split): kernel {k8['ms']:.4f} ms (all 18 "
+        f"one-input {k8['ms_one_input']:.4f}), bound {k8['bound_ms']:.4f} ms ({k8['bound_by']}; "
+        f"roofline {k8['bound_ms'] / k8['ms']:.1%}), bf16 path {k8['bf16_path_ms']:.4f} ms, "
+        f"kernel / bf16 path {k8['ms'] / k8['bf16_path_ms']:.3f}, torch._int_mm {int_mm}")
     log(f"[kernels] per forward: kernel {fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
         f"(roofline {fwd['bound_ms'] / fwd['ms']:.1%}), F.conv2d {fwd['library_ms']:.4f} ms, "
         f"kernel / library {fwd['ms'] / fwd['library_ms']:.3f}")

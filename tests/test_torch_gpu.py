@@ -310,13 +310,15 @@ def test_tiled_interior_matches_dense_on_card(cuda, seeded_model):
     assert (got != want).mean() > 0  # the border band differs: another function
 
 
-def _int8_check(cuda, seed, b, h, w, cin, cout, out_dtype):
+def _int8_check(cuda, seed, b, h, w, cin, cout, out_dtype, cin2=0):
     """The int8 kernel against its plain version on the card: equal outputs
-    (int32 sums are exact; the epilogue rounds as the plain one does)."""
-    ops = int8_operands(seed, b, h, w, cin, cout, cuda)
+    (int32 sums are exact; the epilogue rounds as the plain one does).  With
+    cin2, x's last cin2 channels go in as the split input's second part."""
+    x, *ops = int8_operands(seed, b, h, w, cin + cin2, cout, cuda)
+    x, x2 = (x[..., :cin].contiguous(), x[..., cin:].contiguous()) if cin2 else (x, None)
     before = K8.conv3x3_int8.launches
-    got = K8.conv3x3_int8(*ops, out_dtype)
-    want = K8.conv3x3_int8_reference(*ops, out_dtype)
+    got = K8.conv3x3_int8(x, *ops, out_dtype, x2)
+    want = K8.conv3x3_int8_reference(x, *ops, out_dtype, x2)
     torch.cuda.synchronize()
     assert K8.conv3x3_int8.launches == before + 1
     assert got.dtype == want.dtype == out_dtype and got.shape == (b, h, w, cout)
@@ -335,22 +337,57 @@ def test_int8_kernel_at_unet_s_shapes(cuda, name, cin, cout, s, out):
 
 @pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cin,cout", [
-    ((2, 37, 53), 1, 16),      # inc.conv1: one channel, padded to 16 by the wrapper
-    ((1, 37, 53), 24, 40),     # Cin not a multiple of 16, Cout not of 64
-    ((1, 32, 32), 1024, 512),  # unet's up1.conv1: 32 K chunks, 8 Cout chunks
-    ((3, 9, 70), 48, 72),      # Cout: one chunk of 64 and a ragged one
+    ((2, 37, 53), 1, 16),      # inc.conv1: one channel, read as it is (im2col kernel)
+    ((1, 37, 53), 24, 40),     # Cin padded to 32 by the wrapper, Cout not a wgmma N
+    ((1, 32, 32), 1024, 512),  # unet's up1.conv1: 32 K chunks, 2 Cout pieces of 256
+    ((3, 9, 70), 48, 72),      # N = 128 for 72 channels, W off the 64-column tile
     ((1, 5, 3), 16, 1),
-    ((1, 37, 53), 8, 8),
+    ((1, 37, 53), 8, 8),       # im2col, K = 72 in 3 steps of 32
 ])
 def test_int8_kernel_edge_shapes(cuda, shape, cin, cout, out_dtype):
-    """Cin 1, 24 and 1024, Cout off 64, H and W off the 8x32 pixel tile, and
-    all three epilogues."""
+    """Cin 1, 8, 24 and 1024, Cout off the wgmma Ns, H and W off the
+    tile, and all three epilogues."""
     _int8_check(cuda, 61, *shape, cin, cout, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout,cin2", [
+    ((1, 19, 45), 1, 16, 0),      # Cin 1 at a W that is not a multiple of 16
+    ((2, 9, 130), 3, 32, 0),      # im2col, one K step, N = 32
+    ((1, 11, 21), 15, 16, 0),     # im2col, K = 135 in 5 steps
+    ((2, 21, 67), 32, 1, 0),      # Cout 1
+    ((1, 37, 53), 16, 8, 0),      # Cout 8
+    ((1, 16, 16), 64, 1024, 0),   # Cout 1024: 4 pieces of 256
+    ((1, 8, 64), 32, 16, 0),      # one tile
+    ((1, 16, 64), 64, 64, 0),     # 2 tiles on 132 SMs
+    ((16, 256, 256), 16, 16, 0),  # 1024 tiles, ~8 per block
+    ((2, 64, 64), 16, 16, 16),    # split inputs: unet_s up4.conv1's parts
+    ((2, 32, 32), 128, 128, 128),  # up1.conv1's
+    ((1, 37, 53), 16, 40, 32),    # ragged, parts of 16 and 32
+    ((1, 20, 20), 8, 16, 8),      # parts not multiples of 16: concatenated first
+])
+def test_int8_kernel_new_paths(cuda, shape, cin, cout, cin2, out_dtype):
+    """The paths of the wgmma / TMA redesign: Cin < 16 through the im2col
+    kernel, Cout 1 to 1024, fewer and many more tiles than SMs, one tile,
+    and the split input."""
+    _int8_check(cuda, 65, *shape, cin, cout, out_dtype, cin2)
+
+
+@pytest.mark.parametrize("shape,cin,cout,cin2", [
+    ((8, 512, 512), 1, 16, 0), ((8, 512, 512), 16, 16, 0), ((8, 32, 32), 128, 256, 0),
+    ((8, 64, 64), 128, 128, 128), ((1, 32, 32), 1024, 512, 0), ((1, 37, 53), 8, 8, 0),
+    ((16, 44, 44), 256, 256, 0), ((1, 5, 3), 16, 1, 0),
+])
+def test_int8_launch_geometry_matches_the_kernel(cuda, shape, cin, cout, cin2):
+    """The pure-Python geometry is the one the built kernel takes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (K8.launch_geometry(*shape, cin, cout, cin2, sms=sms)
+            == K8.kernel_geometry(*shape, cin, cout, cin2))
 
 
 def test_int8_kernel_takes_a_misaligned_input(cuda):
     """A contiguous int8 view off a 16-byte boundary is copied to an aligned
-    one before the launch (the kernel stages 16-byte pieces)."""
+    one before the launch (TMA reads from a 16-byte aligned base)."""
     x, wp, mul, badd = int8_operands(64, 2, 9, 33, 16, 24, cuda)
     buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
     xv = buf[1:].view(x.shape)

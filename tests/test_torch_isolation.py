@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package, and chip_smoke.py neither."""
+"""The port imports neither JAX nor the JAX package, and chip_smoke.py and
+int8_kernel_ab.py neither."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "unet_medical_image_contour_segmentation_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "int8_kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

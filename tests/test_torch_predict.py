@@ -207,3 +207,26 @@ def test_cli_int8_calibrates_saves_and_reloads(model, png_dir, tmp_path):
     for path, mask in want.items():
         np.testing.assert_array_equal(outs[1][os.path.basename(path)],
                                       np.asarray(mask_to_image(mask)))
+
+
+@pytest.mark.parametrize("flags", [["-p"], ["--postprocess"], ["-p", "--no-postprocess"], []])
+def test_cli_parses_the_jax_postprocess_flags(flags, monkeypatch):
+    """-p / --postprocess (a no-op that keeps the default on) parse in both
+    packages' predict CLIs to the same postprocess value."""
+    from unet_medical_image_contour_segmentation_tpu.cli import predict as jax_cli
+
+    argv = ["-m", "a.npz", "-i", "x", *flags]
+    monkeypatch.setattr("sys.argv", ["predict", *argv])
+    want = jax_cli.get_args().postprocess
+    assert cli.get_args(argv).postprocess == want == (flags != ["-p", "--no-postprocess"])
+
+
+@pytest.mark.parametrize("flag", ["-v", "--viz"])
+def test_cli_viz_short_form_is_not_ported(flag, capsys):
+    """JAX's -v (--viz) exits 2 with the not-ported message, not as an
+    unknown argument."""
+    with pytest.raises(SystemExit) as exc:
+        cli.get_args(["-m", "a.npz", "-i", "x", flag])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--viz: visualisation is not ported" in err and "unrecognized" not in err

@@ -54,7 +54,7 @@ def test_int8_sums_equal_jax_conv_wide_int8(shape, cin, cout):
     rng = np.random.default_rng(0)
     x, w = _int8(rng, (*shape, cin)), _int8(rng, (3, 3, cin, cout))
     want = np.asarray(W.conv_wide_int8(jnp.asarray(x), jnp.asarray(w), 1))
-    got = K8.conv3x3_int8_sums(torch.from_numpy(x), K8.pack_weight(torch.from_numpy(w)))
+    got = K8.conv3x3_int8_sums(torch.from_numpy(x), K8.pack_weight(torch.from_numpy(w)), cout)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -69,7 +69,7 @@ def test_int8_sums_of_a_concat_equal_jax_split_conv():
     want = W.unpack(W.conv_wide_split_int8([W.pack(jnp.asarray(x), bw) for x in xs], [c1, c2],
                                            jnp.asarray(w), bw), bw)
     cat = torch.from_numpy(np.concatenate(xs, axis=-1))
-    got = K8.conv3x3_int8_sums(cat, K8.pack_weight(torch.from_numpy(w)))
+    got = K8.conv3x3_int8_sums(cat, K8.pack_weight(torch.from_numpy(w)), cout)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -223,6 +223,28 @@ def test_int8_min_batch_gate(monkeypatch):
     pq.predict_array(_images(12, 4, 64))
     assert calls == [(4, 64, 64, 1)]
     assert Predictor(_model(), device="cpu", quantize=True)._int8_min_batch() == 1
+
+
+def test_predict_array_gates_int8_on_the_whole_array(monkeypatch):
+    """As JAX's ``predict_array``: the whole array's B decides the program.
+    unet_sa, 5 images at batch_size 4: both chunks serve int8 (calibrated on
+    the first 4 images); 3 images at batch_size 2 serve no int8 at all."""
+    calls = []
+    monkeypatch.setattr(TPRED, "apply_int8", lambda *a: calls.append(a[1].shape) or
+                        TQ.apply_int8(*a))
+    model = _model("unet_sa", seed=11)
+    x = _images(15, 5, 64)
+    pq = Predictor(model, device="cpu", quantize=True, batch_size=4)
+    pq.predict_array(x)
+    assert calls == [(4, 64, 64, 1), (1, 64, 64, 1)]
+    ref = Predictor(model, device="cpu", quantize=True)
+    ref.calibrate(x[:4])
+    assert pq._amax == ref._amax
+    calls.clear()
+    small = Predictor(model, device="cpu", quantize=True, batch_size=2)
+    np.testing.assert_array_equal(small.predict_array(x[:3]),
+                                  Predictor(model, device="cpu").predict_array(x[:3]))
+    assert calls == [] and small._qparams is not None
 
 
 def test_binary_head():

@@ -23,9 +23,9 @@ import logging
 import os
 import sys
 
-# flags of the JAX CLI that the port does not serve yet
+# flags of the JAX CLI that the port does not serve yet (with their aliases)
 _NOT_PORTED = {
-    "--viz": "visualisation", "--num-devices": "data-parallel serving",
+    ("--viz", "-v"): "visualisation", ("--num-devices",): "data-parallel serving",
 }
 
 
@@ -36,6 +36,8 @@ def get_args(argv=None):
     parser.add_argument("--input", "-i", required=True, help="Input image file or directory")
     parser.add_argument("--output", "-o", help="Output directory (default: next to the input)")
     parser.add_argument("--no-save", "-n", action="store_true", default=False)
+    parser.add_argument("--postprocess", "-p", action="store_true", default=True,
+                        help="Clean up the masks with cv2 (the default; the JAX CLI's flag)")
     parser.add_argument("--no-postprocess", dest="postprocess", action="store_false",
                         default=True, help="Skip the cv2 mask clean-up")
     parser.add_argument("--batch-size", type=int, default=8)
@@ -63,13 +65,13 @@ def get_args(argv=None):
                              "it there")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
-    for flag, what in _NOT_PORTED.items():
-        parser.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
-                            dest=f"not_ported_{flag[2:].replace('-', '_')}")
+    for flags, what in _NOT_PORTED.items():
+        parser.add_argument(*flags, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
+                            dest=f"not_ported_{flags[0][2:].replace('-', '_')}")
     args = parser.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
-            parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
+    for flags, what in _NOT_PORTED.items():
+        if getattr(args, f"not_ported_{flags[0][2:].replace('-', '_')}") is not None:
+            parser.error(f"{flags[0]}: {what} is not ported to the PyTorch package yet; "
                          "use the JAX package's umics-predict")
     if args.model.endswith(".stablehlo"):
         parser.error("--model: exported .stablehlo programs are not served by the "

@@ -212,11 +212,13 @@ class Predictor:
         return logits.argmax(dim=-1).int()
 
     @torch.inference_mode()
-    def _forward(self, images: np.ndarray, out_hw: Tuple[int, int]) -> torch.Tensor:
-        """One batch -> (B, outH, outW) int32 class map, left on the device."""
+    def _forward(self, images: np.ndarray, out_hw: Tuple[int, int],
+                 gate_batch: int) -> torch.Tensor:
+        """One batch -> (B, outH, outW) int32 class map, left on the device;
+        int8 when ``gate_batch`` reaches ``INT8_MIN_BATCH``."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        if x.shape[0] >= self._int8_min_batch():
+        if gate_batch >= self._int8_min_batch():
             logits = self._logits(x)
         else:
             logits = self.model(x)
@@ -310,23 +312,31 @@ class Predictor:
             out[:, i:i + tile, j:j + tile] = core.cpu().numpy()
         return torch.from_numpy(out[:, :h, :w])
 
-    def _predict_device(self, images: np.ndarray,
-                        out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    def _predict_device(self, images: np.ndarray, out_hw: Optional[Tuple[int, int]] = None,
+                        gate_batch: Optional[int] = None) -> torch.Tensor:
         """One batch of one size -> its class map (B, outH, outW), tiled or
-        dense, left where it was computed."""
+        dense, left where it was computed.  The dense path serves int8 when
+        ``gate_batch`` (this batch's size when None) reaches ``INT8_MIN_BATCH``."""
         in_hw = tuple(images.shape[1:3])
         out_hw = tuple(out_hw or in_hw)
         self._ensure_quantized(images)
         if self._use_tiling(in_hw, out_hw):
             return self._tiled_predict(images)
-        return self._forward(images, out_hw)
+        return self._forward(images, out_hw, len(images) if gate_batch is None else gate_batch)
 
     def predict_array(self, images: np.ndarray,
                       out_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
-        """images (B, H, W[, C]) float or uint8 -> (B, outH, outW) int32 classes."""
+        """images (B, H, W[, C]) float or uint8 -> (B, outH, outW) int32 classes.
+
+        As the JAX package's ``predict_array``, the whole array decides once
+        whether the int8 program serves (its B against ``INT8_MIN_BATCH``)
+        and calibrates on its first 4 images; it runs in chunks of
+        ``batch_size`` only to bound device memory, each chunk on that one
+        program.  (``predict_paths`` gates each batch, as JAX's does.)"""
         images = np.asarray(images)
-        preds = [self._predict_device(images[i:i + self.batch_size], out_hw).cpu().numpy()
-                 for i in range(0, len(images), self.batch_size)]
+        self._ensure_quantized(images)
+        preds = [self._predict_device(images[i:i + self.batch_size], out_hw, len(images))
+                 .cpu().numpy() for i in range(0, len(images), self.batch_size)]
         return np.concatenate(preds).astype(np.int32, copy=False)
 
     def predict_image(self, img, postprocess: bool = True) -> np.ndarray:

@@ -15,7 +15,8 @@ through it.  The scheme is JAX's:
   float forward with amax taps on every quantised conv's input and output;
   per-tensor, so one calibration serves every input size.
 * **Placement**, by position: every 3x3 DoubleConv conv runs int8 on the
-  kernel.  inc and down1..down3 requantise both convs to int8 (the max pool
+  kernel; each Up's conv1 takes the int8 skip and upsample as the two parts
+  of a split input, as JAX's ``conv_wide_split_int8`` does.  inc and down1..down3 requantise both convs to int8 (the max pool
   and the skips are scale-preserving); down4's conv2 and every Up's conv2
   dequantise straight to the compute dtype; every Up's conv1 requantises.
   ConvTranspose, the bilinear upsample, the attention gate (on the
@@ -63,10 +64,13 @@ def _max_pool_int8(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
-def _qconv(x: torch.Tensor, entry: dict, out_dtype: torch.dtype) -> torch.Tensor:
+def _qconv(x: torch.Tensor, entry: dict, out_dtype: torch.dtype,
+           x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv and its epilogue (JAX ``_qconv``): ``out_dtype`` int8
-    requantises, a float dtype dequantises."""
-    return conv3x3_int8(x.contiguous(), entry["w"], entry["mul"], entry["badd"], out_dtype)
+    requantises, a float dtype dequantises.  ``x2``: the second part of a
+    split input (JAX ``conv_wide_split_int8``), summed with x in one conv."""
+    return conv3x3_int8(x.contiguous(), entry["w"], entry["mul"], entry["badd"], out_dtype,
+                        None if x2 is None else x2.contiguous())
 
 
 def folded_tree(net: nn.Module) -> dict:
@@ -104,9 +108,9 @@ def _forward(p: dict, x: torch.Tensor, cd: torch.dtype, *, quant: bool,
     if x.dim() == 3:
         x = x.unsqueeze(-1)
 
-    def dc(name, sub, xin, *, requant):
+    def dc(name, sub, xin, *, requant, x2=None):
         if quant:
-            y = _qconv(xin, sub["conv1"], torch.int8)
+            y = _qconv(xin, sub["conv1"], torch.int8, x2)
             return _qconv(y, sub["conv2"], torch.int8 if requant else cd)
         y = torch.relu(conv2d(xin, sub["conv1"]["w"], sub["conv1"]["b"], padding=1,
                               compute_dtype=cd))
@@ -130,7 +134,8 @@ def _forward(p: dict, x: torch.Tensor, cd: torch.dtype, *, quant: bool,
         if i < 4:
             feats.append(cur)
 
-    # -- decoder: float upsample, quantised with its own scale; int8 concat
+    # -- decoder: float upsample, quantised with its own scale; the int8
+    # [skip, up] input as two parts of one split conv (no concatenated copy)
     y = cur
     for i in range(1, 5):
         skip, up = feats[4 - i], p[f"up{i}"]
@@ -150,8 +155,11 @@ def _forward(p: dict, x: torch.Tensor, cd: torch.dtype, *, quant: bool,
                 skip = _quant_sym(skip_f * attention_gate(skip_f, w_att, cd), up["s_skip"])
             else:
                 skip = skip * attention_gate(skip, w_att, cd)
-        cat = torch.cat([skip, y.to(skip.dtype)], dim=-1)
-        y = dc(f"up{i}", up["conv"], cat, requant=False)
+        if quant:
+            y = dc(f"up{i}", up["conv"], skip, requant=False, x2=y)
+        else:
+            y = dc(f"up{i}", up["conv"], torch.cat([skip, y.to(skip.dtype)], dim=-1),
+                   requant=False)
 
     # -- head (1x1 conv, float)
     return conv2d(y.to(cd), p["outc"]["w"], p["outc"].get("b"), compute_dtype=cd).float()
