@@ -11,16 +11,20 @@ Phases, in order; any failure exits nonzero before the last line:
   2. build: compiles every kernel source with nvcc (all at once) and prints
      the build seconds and ptxas's registers / shared memory / spills;
   3. kernels vs plain: each kernel at the shapes the main paths give it (the
-     dense forward's, the tiled forward's windows of 704² and 1216², and a
-     ragged one), bf16 (the tensor-core kernel) and f32 (the CUDA-core
+     dense forward's, the tiled forward's windows of 704² and 1216², a
+     ragged one, and, checked but not timed, the train variants' own convs,
+     tile 512's groups of 8 windows on one 4096² image, the int8
+     calibration forward's batch of 4 and the exported program's 1024x768
+     image), bf16 (the tensor-core kernel) and f32 (the CUDA-core
      kernel), against its plain PyTorch version, with kernel / plain (dense
      shapes) / library times and the bound from the bytes and operations;
      every timed call takes the next of enough copies of its input to
      exceed the 50 MB L2, and a roofline share above 105% fails the run;
   4. backward vs plain: the 3x3 conv's dx (the same kernel on the output
      gradient with the rotated weight) and dw (cuDNN's weight gradient) at
-     the training shapes, bf16 and f32, against autograd through the plain
-     version, with dx kernel / plain / cuDNN dgrad / dw times;
+     the training shapes of every trained model (the bilinear unet_s's
+     up3.conv2 is 32->16), bf16 and f32, against autograd through the plain
+     version, with dx kernel / plain / cuDNN dgrad / dw times at unet_s's;
   5. main path, predict: unet_s (widths 16..256) with seeded random weights,
      loaded through the JAX-layout weight carrier, served by
      Predictor.predict_array at (8, 512, 512) in bf16 from float and from
@@ -34,6 +38,17 @@ Phases, in order; any failure exits nonzero before the last line:
      kernel, a finite falling loss,
      step time, slices/s and peak memory; then one epoch of train_model on
      an in-memory dataset of 512x512 slices, without tqdm, PIL or cv2;
+     then the rest of the reference's training, each at (8, 512, 512) bf16:
+     A1 the binary criterion (BCE + Dice + 0.25 * boundary) on unet_s with
+     one output channel: phase 6's f32 card-vs-CPU step, 7 + 7 launches a
+     step, a falling loss, the boundary term's device ms and share of the
+     step; A2 unet_sa and the bilinear unet_s (launches from the dispatch
+     rule over each model's convs, 7 + 7); A3 a remat step against a plain
+     one from the same weights and batch (the same loss, gradients within
+     phase 6's bounds, bit-equal BN running stats and num_batches_tracked,
+     14 forward + 7 dx launches), peak memory of both and of the full unet;
+     A4 train_model with --cc-loss (every logged loss = device loss + host
+     penalty) and the penalty's host ms;
   8. main path, tiled predict: unet_s bf16 at (2, 2048, 2048) float and
      uint8 (auto tile 512) and (1, 4096, 4096) (auto tile 1024, and 512):
      7 launches per window-group forward, all on the tensor cores; masks
@@ -59,7 +74,17 @@ Phases, in order; any failure exits nonzero before the last line:
  13. tiled int8: (2, 2048, 2048), launches, >= 99% agreement with bf16 tiled;
  14. the int8 pipeline: run_pipeline --int8 twice on one scales JSON (the
      second run loads it), stage-3 masks equal;
- 15. a JSON ``kernels`` line (with per-shape rows), then the device line and
+ 15. export: B1 unet_s bf16 as a torch.export program (dynamic batch, H and
+     W), saved as .pt2, loaded and served by ExportedPredictor at (8, 512,
+     512) and at 1024x768 from one program: 7 launches a forward through
+     the custom op, masks >= 99.9% equal to the live Predictor's, host
+     slices/s beside it; B2 the int8 program at 512² from a calibration
+     JSON: 18 int8 and no bf16 launch a forward, masks 100% equal to the
+     live int8 Predictor's on the same qparams;
+ 16. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
+     window of phases 5-15 launched the conv3x3 kernel must be one that
+     phase 3 or 4 held against the plain version;
+ 17. a JSON ``kernels`` line (with per-shape rows), then the device line and
      the result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
@@ -102,8 +127,12 @@ from unet_medical_image_contour_segmentation_torch.engine.train import (  # noqa
     train_model,
 )
 from unet_medical_image_contour_segmentation_torch.kernels import _build  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
+    conv3x3 as conv3x3_module,
+)
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # noqa: E402
     _patches,
+    supported,
     conv3x3_nhwc,
     conv3x3_nhwc_dw,
     conv3x3_nhwc_dx,
@@ -125,6 +154,9 @@ from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (
 )
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3_int8 import (  # noqa: E402
     pack_weight as pack_int8_weight,
+)
+from unet_medical_image_contour_segmentation_torch.losses.boundary import (  # noqa: E402
+    boundary_loss,
 )
 from unet_medical_image_contour_segmentation_torch.losses.compound import (  # noqa: E402
     LossConfig,
@@ -167,6 +199,14 @@ MAIN_CONVS = [
     ("up4.conv2", 16, 16, 1),
 ]
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
+# the downsampling of each UNet block's level, for the shapes its convs see
+LEVELS = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
+          "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+# the int8 paths calibrate on the first 4 images of a batch: a bf16 forward
+# of MAIN_CONVS at (CALIB_BATCH, HW, HW)
+CALIB_BATCH = 4
+# the exported program serves one image of this size besides (BATCH, HW, HW)
+EXPORT_WIDE = (1024, 768)
 # the 18 DoubleConv convs of unet_s, every one int8 on the int8 path: name,
 # Cin, Cout, downsampling of the level, and the epilogue's output (int8
 # requantises; "float" dequantises to the compute dtype)
@@ -189,6 +229,8 @@ SPLIT_CONVS = ("up1.conv1", "up2.conv1", "up3.conv1", "up4.conv1")
 # at (1, 4096, 4096)); MAIN_CONVS at each window's levels
 HALO = 96
 TILED_WINDOWS = [(16, 512 + 2 * HALO), (8, 1024 + 2 * HALO)]
+# tile 512 on one 4096² image: groups of 8 windows of 704² (checked, not timed)
+TILED_ONE_IMAGE = (8, 512 + 2 * HALO)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # each timed call reads the next of enough input copies to exceed the L2
 ROTATE_BYTES = 64 * 2**20
@@ -202,6 +244,8 @@ MIN_AGREEMENT = 0.99
 # near-ties, as between 8 and 2 windows of one size (tests/test_torch_gpu.py);
 # bf16 is held to MIN_AGREEMENT there, like bf16 against f32
 MIN_INTERIOR_AGREEMENT = 0.999
+# exported program vs the live Predictor, the same function in bf16
+MIN_EXPORT_AGREEMENT = 0.999
 # bf16 rounding moves the logits of this random unet_s by ~1.5% of their
 # spread, so pixels near a class boundary flip; on the CPU, seeds 0..5 with
 # smooth_images agree on 99.03..99.36% of pixels, and seed 4 (99.35%,
@@ -343,16 +387,84 @@ def roofline(bound_ms: float, **timed_ms) -> float:
     return bound_ms / timed_ms["kernel"]
 
 
+# (B, H, W, Cin, Cout, dtype) of every conv3x3 launch held against the plain
+# version by phases 3 and 4, and of every launch inside a counted window of
+# the main paths (reset_launches .. read_launches / int8_counts): the run
+# fails unless the second set lies in the first (phase_launched_shapes)
+CHECKED, LAUNCHED = set(), set()
+RECORDING = [False]
+
+
+def record_launches() -> None:
+    """Wrap the kernel module's launch so that each launch made while a
+    counted window is open records its shape (the counts stay the
+    wrappers')."""
+    launch = conv3x3_module._launch
+
+    def recorded(x, w):
+        if RECORDING[0]:
+            LAUNCHED.add((*x.shape, w.shape[3], str(x.dtype)))
+        return launch(x, w)
+
+    conv3x3_module._launch = recorded
+
+
+def routed_convs(model) -> list:
+    """(name, Cin, Cout, downsampling) of each 3x3 conv of ``model`` that the
+    dispatch rule sends to the kernel (``kernels/conv3x3.py:supported``; each
+    is called at stride 1, pad 1), named as in MAIN_CONVS."""
+    rows = []
+    for path, m in model.named_modules():
+        if not (isinstance(m, torch.nn.Conv2d) and m.padding == (1, 1)):
+            continue
+        cout, cin, kh, kw = m.weight.shape
+        if supported((kh, kw, cin, cout), 1, 1):
+            block = path.split(".")[0]
+            rows.append((f"{block}.conv{1 if path.endswith('.0') else 2}", cin, cout,
+                         LEVELS[block]))
+    return rows
+
+
+def train_shapes() -> list:
+    """(label, Cin, Cout, downsampling) of the routed convs of the models the
+    train phases run (unet_s multiclass and binary, unet_sa, the bilinear
+    unet_s), one per shape, MAIN_CONVS first; fails where unet_s's own are
+    not MAIN_CONVS."""
+    if routed_convs(unet_s()) != MAIN_CONVS:
+        raise RuntimeError(f"unet_s routes {routed_convs(unet_s())}, not MAIN_CONVS")
+    out, seen = list(MAIN_CONVS), {c[1:] for c in MAIN_CONVS}
+    for label, model in (("binary", unet_s(n_classes=1)), ("unet_sa", unet_sa()),
+                         ("bilinear", unet_s(bilinear=True))):
+        for name, cin, cout, s in routed_convs(model):
+            if (cin, cout, s) not in seen:
+                seen.add((cin, cout, s))
+                out.append((f"{label} {name}", cin, cout, s))
+    return out
+
+
 def phase_kernels(usage: dict):
-    """Kernel vs plain at every shape, both dtypes; bf16 timings.  The plain
-    version is timed at the dense shapes only (it is no yardstick of speed,
-    and at the tiled shapes its im2col patch takes seconds)."""
+    """Kernel vs plain at every shape that a main path gives it, both dtypes;
+    bf16 timings at the dense, ragged and tiled shapes.  The plain version
+    is timed at the dense shapes only (it is no yardstick of speed, and at
+    the tiled shapes its im2col patch takes seconds).  The other paths'
+    shapes (the train variants' own convs, the int8 calibration forward,
+    the exported program's wide image) are checked, not timed."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(name, BATCH, HW // s, HW // s, cin, cout, "dense")
               for name, cin, cout, s in MAIN_CONVS]
     shapes.append((*RAGGED, "ragged"))
     shapes += [(f"{name}@{win}", b, win // s, win // s, cin, cout, f"tiled{win}")
                for b, win in TILED_WINDOWS for name, cin, cout, s in MAIN_CONVS]
+    shapes += [(name, BATCH, HW // s, HW // s, cin, cout, "train")
+               for name, cin, cout, s in train_shapes()[len(MAIN_CONVS):]]
+    b1, win1 = TILED_ONE_IMAGE
+    shapes += [(f"{name}@{b1}x{win1}", b1, win1 // s, win1 // s, cin, cout, "one-image tiled")
+               for name, cin, cout, s in MAIN_CONVS]
+    shapes += [(f"{name}@calib", CALIB_BATCH, HW // s, HW // s, cin, cout, "calibrate")
+               for name, cin, cout, s in MAIN_CONVS]
+    eh, ew = EXPORT_WIDE
+    shapes += [(f"{name}@{eh}x{ew}", 1, eh // s, ew // s, cin, cout, "export")
+               for name, cin, cout, s in MAIN_CONVS]
     rows, max_err = [], 0.0
     for name, b, h, w, cin, cout, path in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -370,9 +482,12 @@ def phase_kernels(usage: dict):
                 raise RuntimeError(f"conv3x3_nhwc disagrees with its plain version at "
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: max abs err {err}")
             max_err = max(max_err, err)
-            if dtype != torch.bfloat16:
-                log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} f32  "
-                    f"max_abs_err {err:.3g} ok")
+            CHECKED.add((b, h, w, cin, cout, str(dtype)))
+            timed = path in ("dense", "ragged") or path.startswith("tiled")
+            if dtype != torch.bfloat16 or not timed:
+                log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} "
+                    f"{'f32 ' if dtype == torch.float32 else 'bf16'} max_abs_err {err:.3g} ok"
+                    f"{'' if timed else f' ({path} path)'}")
                 continue
             xs = copies(x)
             w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -411,10 +526,13 @@ def phase_backward(usage: dict):
     dx sums 9*Cout products per element and takes the forward's tolerances.
     dw sums B*H*W (up to 2M) products per element, so its absolute tolerance
     is taken relative to its largest element (the rounding error of so long
-    a sum does not shrink with the element it lands in)."""
+    a sum does not shrink with the element it lands in).
+
+    The train variants' own shapes (train_shapes beyond MAIN_CONVS) are
+    checked, not timed."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, max_err = [], 0.0
-    for name, cin, cout, s in MAIN_CONVS:
+    for i, (name, cin, cout, s) in enumerate(train_shapes()):
         b, h, w = BATCH, HW // s, HW // s
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
@@ -440,8 +558,10 @@ def phase_backward(usage: dict):
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: dx max abs err "
                                    f"{dx_err}, dw max abs err {dw_err} (atol {dw_atol})")
             max_err = max(max_err, dx_err)
-            if dtype != torch.bfloat16:
-                log(f"[backward] {name:12s} {str((b, h, w, cin, cout)):26s} f32  dx max_abs_err "
+            CHECKED.add((b, h, w, cout, cin, str(dtype)))  # dx launches Cout -> Cin
+            if dtype != torch.bfloat16 or i >= len(MAIN_CONVS):
+                log(f"[backward] {name:12s} {str((b, h, w, cin, cout)):26s} "
+                    f"{'f32 ' if dtype == torch.float32 else 'bf16'} dx max_abs_err "
                     f"{dx_err:.3g}, dw max_abs_err {dw_err:.3g} ok")
                 continue
             w_rot = rotate_weight(wt)
@@ -704,17 +824,22 @@ def write_raw_scans(directory, seed: int, n: int, width: int, height: int) -> No
 
 
 def reset_launches() -> None:
+    """Set every count to 0 and open a counted window (its launches' shapes
+    are recorded until the counts are read)."""
     for fn in (conv3x3_nhwc, conv3x3_nhwc_dx):
         fn.launches = fn.tensor_core_launches = 0
     conv3x3_int8.launches = 0
+    RECORDING[0] = True
 
 
 def int8_counts() -> dict:
     """The int8 kernel's launches beside the bf16 kernel's, since the last reset."""
+    RECORDING[0] = False
     return {"conv3x3_int8": conv3x3_int8.launches, "conv3x3_nhwc": conv3x3_nhwc.launches}
 
 
 def read_launches() -> dict:
+    RECORDING[0] = False
     return {key: getattr(fn, attr)
             for fn in (conv3x3_nhwc, conv3x3_nhwc_dx)
             for key, attr in ((fn.__name__, "launches"),
@@ -834,19 +959,23 @@ def rect_batch(seed: int, n: int, h: int, w: int) -> dict:
     return {"image": np.clip(images, 0, 1), "mask": masks}
 
 
-def seeded_unet_s(compute_dtype=None):
-    """unet_s with the seeded JAX-layout weights, unfolded, for training."""
-    params, state = random_unet_params(MODEL_SEED)
-    model = unet_s(compute_dtype=compute_dtype)
+def seeded_unet_s(compute_dtype=None, n_classes=3, factory=unet_s, **kw):
+    """unet_s (or ``factory``'s UNet) with the seeded JAX-layout weights,
+    unfolded, for training; ``kw`` goes to the factory (bilinear, remat)."""
+    model = factory(n_classes=n_classes, compute_dtype=compute_dtype, **kw)
+    params, state = random_unet_params(MODEL_SEED, model.widths, n_classes=n_classes,
+                                       bilinear=model.bilinear, attention=model.use_attention)
     model.load_state_dict(state_dict_from_jax(params, state))
     return model
 
 
-def one_train_step(device: str, data: dict):
+def one_train_step(device: str, data: dict, n_classes: int = 3):
     """One f32 step of the seeded unet_s on ``device`` -> host (metrics,
-    clipped grads, new params, buffers)."""
-    model = seeded_unet_s().to(device)
-    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=TRAIN_LR))
+    clipped grads, new params, buffers); ``n_classes=1`` takes the binary
+    criterion."""
+    model = seeded_unet_s(n_classes=n_classes).to(device)
+    step = make_train_step(model, LossConfig(n_classes=n_classes),
+                           RMSpropConfig(learning_rate=TRAIN_LR))
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
     with exact_f32():
         metrics = step(batch, TRAIN_LR)
@@ -859,8 +988,9 @@ def one_train_step(device: str, data: dict):
             host(model.named_parameters()), host(model.named_buffers()))
 
 
-def phase_train_reference() -> None:
-    """One f32 train step (TF32 off) on the card against the CPU's.
+def phase_train_reference(n_classes: int = 3) -> None:
+    """One f32 train step (TF32 off) on the card against the CPU's, with the
+    multiclass criterion, or the binary one for ``n_classes=1``.
 
     The loss agrees to 1e-4 relative, every gradient to 1e-3 of the model's
     largest gradient (sums in another order; a tensor whose gradient nearly
@@ -873,7 +1003,7 @@ def phase_train_reference() -> None:
     other way."""
     data = rect_batch(5, 2, 64, 96)
     (m_card, g_card, p_card, b_card), (m_cpu, g_cpu, p_cpu, b_cpu) = (
-        one_train_step("cuda", data), one_train_step("cpu", data))
+        one_train_step("cuda", data, n_classes), one_train_step("cpu", data, n_classes))
     loss_err = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     norm_err = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
     g_max = max(g.abs().max().item() for g in g_cpu.values())
@@ -889,7 +1019,8 @@ def phase_train_reference() -> None:
         raise RuntimeError(f"card train step differs from the CPU's: loss rel {loss_err:.3g}, "
                            f"grad norm rel {norm_err:.3g}, grads {grad_err:.3g} of the max, params "
                            f"max {param_diff.max().item():.3g}, buffers ok {buffers_ok}")
-    log(f"[train-reference] (2, 64, 96) f32 step, card vs CPU: loss {m_card['loss']:.6f} "
+    label = "train-reference" if n_classes == 3 else "A1 binary train-reference"
+    log(f"[{label}] (2, 64, 96) f32 step, card vs CPU: loss {m_card['loss']:.6f} "
         f"(rel {loss_err:.3g}), grad norm {m_card['grad_norm']:.6f} (rel {norm_err:.3g}), "
         f"grads max abs diff {grad_err:.3g} of the largest gradient {g_max:.3g} (relative "
         f"to its own max, worst {worst}: {grad_diff[worst]:.3g} of "
@@ -898,20 +1029,21 @@ def phase_train_reference() -> None:
         f"of elements over 1e-6), BN buffers within 1e-4")
 
 
-def phase_train(profile_dir=None):
-    """make_train_step on the seeded unet_s at (BATCH, HW, HW), bf16 compute,
-    one resident batch: launches per step, the loss curve, step time.
-    -> (launches, numbers, the trained model)."""
-    model = seeded_unet_s(torch.bfloat16).cuda()
-    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=TRAIN_LR))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in rect_batch(6, BATCH, HW, HW).items()}
-    per_step = len(MAIN_CONVS)
+def train_steps(model, loss_cfg, batch, label: str, per_step: int,
+                per_step_fwd: int = None):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of ``model`` on one resident batch:
+    gates ``per_step_fwd`` (default ``per_step``) forward and ``per_step``
+    dx launches a step, all on the tensor cores, and a finite falling loss;
+    -> (launches, numbers, the step)."""
+    per_step_fwd = per_step if per_step_fwd is None else per_step_fwd
+    step = make_train_step(model, loss_cfg, RMSpropConfig(learning_rate=TRAIN_LR))
+    want = {"conv3x3_nhwc": per_step_fwd, "conv3x3_nhwc tensor_core": per_step_fwd,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
 
     reset_launches()
     losses = [step(batch, TRAIN_LR)["loss"]]
-    if set(read_launches().values()) != {per_step}:
-        raise RuntimeError(f"one train step launched {read_launches()}, want {per_step} "
-                           f"forward and {per_step} dx launches, all on the tensor cores")
+    if read_launches() != want:
+        raise RuntimeError(f"[{label}] one train step launched {read_launches()}, want {want}")
     for _ in range(TRAIN_WARMUP - 1):
         losses.append(step(batch, TRAIN_LR)["loss"])
     torch.cuda.synchronize()
@@ -926,27 +1058,218 @@ def phase_train(profile_dir=None):
     peak = torch.cuda.max_memory_allocated()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     launches = read_launches()
-    if set(launches.values()) != {per_step * n_steps}:
-        raise RuntimeError(f"{n_steps} train steps launched {launches}, want "
-                           f"{per_step * n_steps} of each, all on the tensor cores")
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise RuntimeError(f"[{label}] {n_steps} train steps launched {launches}, want "
+                           f"{want} a step")
     curve = torch.stack(losses).tolist()
     if not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]:
-        raise RuntimeError(f"the train loss is not finite and falling: {curve}")
-    log(f"[train] unet_s bf16 make_train_step ({BATCH}, {HW}, {HW}): {2 * per_step} kernel "
-        f"launches per step ({per_step} forward + {per_step} dx, all on the tensor-core "
-        f"kernel), {launches} in {n_steps} "
-        f"steps; loss {' '.join(f'{v:.4f}' for v in curve)}")
-    log(f"[train] step {step_ms:.3f} ms (CUDA events, {TRAIN_STEPS} steps after "
+        raise RuntimeError(f"[{label}] the train loss is not finite and falling: {curve}")
+    log(f"[{label}] {model.name} bf16 make_train_step ({BATCH}, {HW}, {HW}): "
+        f"{per_step_fwd + per_step} kernel launches per step ({per_step_fwd} forward + "
+        f"{per_step} dx, all on the tensor-core kernel), {launches} in {n_steps} steps; "
+        f"loss {' '.join(f'{v:.4f}' for v in curve)}")
+    log(f"[{label}] step {step_ms:.3f} ms (CUDA events, {TRAIN_STEPS} steps after "
         f"{TRAIN_WARMUP} warm-ups, batch resident), {BATCH * 1e3 / step_ms:.1f} slices/s, "
         f"peak memory {peak / 2**20:.1f} MiB")
-    if profile_dir:
-        profile_train(step, batch, Path(profile_dir))
     return launches, dict(step_ms=step_ms, slices_per_s=BATCH * 1e3 / step_ms,
                           peak_mib=peak / 2**20, loss_first=curve[0],
-                          loss_last=curve[-1]), model
+                          loss_last=curve[-1]), step
 
 
-def profile_train(step, batch, out_dir: Path) -> None:
+def device_batch(seed: int) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in rect_batch(seed, BATCH, HW, HW).items()}
+
+
+def phase_train(profile_dir=None):
+    """make_train_step on the seeded unet_s at (BATCH, HW, HW), bf16 compute,
+    one resident batch: launches per step, the loss curve, step time.
+    -> (launches, numbers, the trained model)."""
+    model = seeded_unet_s(torch.bfloat16).cuda()
+    batch = device_batch(6)
+    launches, numbers, step = train_steps(model, LossConfig(), batch, "train", len(MAIN_CONVS))
+    if profile_dir:
+        profile_train(step, batch, Path(profile_dir))
+    return launches, numbers, model
+
+
+def phase_train_binary(multiclass: dict):
+    """A1: the binary criterion (BCE + Dice + 0.25 * boundary, edge 51 and
+    15) on the seeded unet_s with one output channel, as phase 7 trains the
+    multiclass one; then the boundary term's own device time at those
+    logits and its share of the step."""
+    model = seeded_unet_s(torch.bfloat16, n_classes=1).cuda()
+    batch = device_batch(6)
+    cfg = LossConfig(n_classes=1)
+    launches, numbers, _ = train_steps(model, cfg, batch, "A1 binary train",
+                                       len(MAIN_CONVS))
+    with torch.no_grad():
+        logits = model(batch["image"])
+    t = torch.div(batch["mask"], 2, rounding_mode="floor").float()
+    bl_ms, _ = time_ms(lambda i: boundary_loss(logits, t, edge_width=cfg.boundary_edge_width,
+                                               edge_weight=cfg.boundary_edge_weight),
+                       reps=20, queued=False)
+    numbers.update(boundary_ms=bl_ms, boundary_share=bl_ms / numbers["step_ms"])
+    log(f"[A1 binary train] step {numbers['step_ms']:.3f} ms, {numbers['slices_per_s']:.1f} "
+        f"slices/s, peak {numbers['peak_mib']:.1f} MiB, beside the multiclass step's "
+        f"{multiclass['step_ms']:.3f} ms, {multiclass['slices_per_s']:.1f} slices/s, "
+        f"{multiclass['peak_mib']:.1f} MiB (binary / multiclass step "
+        f"{numbers['step_ms'] / multiclass['step_ms']:.3f}); the boundary term "
+        f"{bl_ms:.3f} ms a call (CUDA events, issued as the step issues it), "
+        f"{numbers['boundary_share']:.1%} of the step")
+    return launches, numbers
+
+
+def phase_train_variants() -> dict:
+    """A2: unet_sa and the bilinear unet_s train as phase 7 does; each must
+    launch the kernel once a step (forward and dx) for every conv the
+    dispatch rule routes."""
+    out, launches = {}, {}
+    for name, kw in (("unet_sa", dict(factory=unet_sa)), ("unet_s_bilinear",
+                                                          dict(bilinear=True))):
+        model = seeded_unet_s(torch.bfloat16, **kw).cuda()
+        per_step = len(routed_convs(model))
+        launches[name], out[name], _ = train_steps(model, LossConfig(), device_batch(6),
+                                                   f"A2 {name} train", per_step)
+        out[name]["routed_convs"] = per_step
+    return launches, out
+
+
+# the step of a fresh model is timed after 2 more warm-ups, over 10 steps
+# (5 steps straight after the first one timed unet_s's plain step at 30.3
+# and 46.4 ms in two runs on the same card)
+REMAT_WARMUP, REMAT_TIMED_STEPS = 2, 10
+
+
+def remat_step(model, batch, profile_dir=None):
+    """One bf16 step -> (loss, grads, BN buffers, peak memory in MiB, launches),
+    then REMAT_WARMUP + REMAT_TIMED_STEPS more -> the mean ms of the last
+    REMAT_TIMED_STEPS (CUDA events); with
+    ``profile_dir``, then a profile of 3 steps (:func:`profile_train`)."""
+    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=TRAIN_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = step(batch, TRAIN_LR)["loss"].item()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.detach().clone() for n, b in model.named_buffers()}
+    for _ in range(REMAT_WARMUP):
+        step(batch, TRAIN_LR)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REMAT_TIMED_STEPS):
+        step(batch, TRAIN_LR)
+    end.record()
+    torch.cuda.synchronize()
+    if profile_dir:
+        profile_train(step, batch, Path(profile_dir),
+                      f"{model.name}_{'remat' if model.remat else 'plain'}")
+    return loss, grads, buffers, peak, launches, start.elapsed_time(end) / REMAT_TIMED_STEPS
+
+
+def phase_remat(profile_dir=None) -> dict:
+    """A3: one remat step of unet_s and one plain step from the same weights
+    and batch: the same loss, gradients within phase 6's bounds, equal BN
+    running statistics and num_batches_tracked, 14 forward + 7 dx launches
+    (the recompute runs each routed forward again); peak memory of both,
+    and of the default full unet (64..1024, no kernel launch) beside it.
+    With ``profile_dir``, a profile of each unet_s step."""
+    batch = device_batch(9)
+    runs = {remat: remat_step(seeded_unet_s(torch.bfloat16, remat=remat).cuda(), batch,
+                              profile_dir)
+            for remat in (False, True)}
+    (loss, grads, bufs, peak, _, ms), (r_loss, r_grads, r_bufs, r_peak, r_launch, r_ms) = (
+        runs[False], runs[True])
+    n = len(MAIN_CONVS)
+    want = {"conv3x3_nhwc": 2 * n, "conv3x3_nhwc tensor_core": 2 * n,
+            "conv3x3_nhwc_dx": n, "conv3x3_nhwc_dx tensor_core": n}
+    g_max = max(g.abs().max().item() for g in grads.values())
+    grad_err = max((r_grads[k] - grads[k]).abs().max().item() for k in grads) / g_max
+    loss_err = abs(r_loss - loss) / abs(loss)
+    stats_equal = all(torch.equal(r_bufs[k], bufs[k]) for k in bufs)
+    if (r_launch != want or loss_err > 1e-6 or grad_err > 1e-3 or not stats_equal
+            or not np.isfinite(r_loss)):
+        raise RuntimeError(f"[A3 remat] launches {r_launch} (want {want}), loss {r_loss} vs "
+                           f"{loss}, grads {grad_err:.3g} of the max, BN buffers equal "
+                           f"{stats_equal}")
+    full = {}
+    for remat in (False, True):
+        model = seeded_unet_s(torch.bfloat16, factory=unet, remat=remat).cuda()
+        full[remat] = remat_step(model, batch)
+        del model
+        torch.cuda.empty_cache()
+    log(f"[A3 remat] unet_s bf16 ({BATCH}, {HW}, {HW}): remat step loss {r_loss:.6f}, plain "
+        f"{loss:.6f} (rel {loss_err:.3g}); gradients {grad_err:.3g} of the largest; BN "
+        f"running stats and num_batches_tracked bit-equal; launches {r_launch}; peak memory "
+        f"remat {r_peak:.1f} MiB, plain {peak:.1f} MiB ({r_peak / peak:.3f}x); step "
+        f"{r_ms:.3f} ms remat, {ms:.3f} ms plain (CUDA events, {REMAT_TIMED_STEPS} steps); "
+        f"full unet (64..1024) peak remat {full[True][3]:.1f} MiB, plain "
+        f"{full[False][3]:.1f} MiB ({full[True][3] / full[False][3]:.3f}x), step "
+        f"{full[True][5]:.3f} ms remat, {full[False][5]:.3f} ms plain")
+    return r_launch, dict(loss_rel=loss_err, grad_err=grad_err, peak_mib=peak, step_ms=ms,
+                          remat_step_ms=r_ms,
+                          remat_peak_mib=r_peak, unet_peak_mib=full[False][3],
+                          unet_remat_peak_mib=full[True][3], unet_step_ms=full[False][5],
+                          unet_remat_step_ms=full[True][5])
+
+
+def phase_train_model_cc(n_train: int = 32) -> dict:
+    """A4: one epoch of train_model with the binary criterion and the
+    connected-component penalty on in-memory 512x512 slices: every logged
+    loss is the device loss plus the host penalty of its step, and some
+    penalty is not 0; the penalty's host ms per fetched step."""
+    from unet_medical_image_contour_segmentation_torch.losses import connected_component
+
+    # time each call of the penalty as the loop's fetch makes it
+    penalty, cc_ms = connected_component.connected_component_loss, []
+
+    def timed_penalty(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return penalty(*args, **kw)
+        finally:
+            cc_ms.append((time.perf_counter() - t0) * 1e3)
+
+    import cv2  # noqa: F401  (imported before the timed calls)
+
+    model = seeded_unet_s(torch.bfloat16, n_classes=1)
+    records = []
+    cwd = os.getcwd()
+    connected_component.connected_component_loss = timed_penalty
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(model="unet_s", classes=1, cc_loss=True, epochs=1, batch_size=BATCH,
+                          learning_rate=TRAIN_LR, amp=True, num_workers=4,
+                          save_checkpoint=False, save_val_predictions=False,
+                          val_postprocess=False, progress=False, log_every=0)
+        os.chdir(tmp)
+        try:
+            result = train_model(cfg, model=model, train_set=ArrayDataset(rect_batch(
+                10, n_train, HW, HW)), val_set=ArrayDataset(rect_batch(11, BATCH, HW, HW)),
+                device="cuda", metric_backends=[lambda kind, rec: records.append((kind, rec))])
+        finally:
+            os.chdir(cwd)
+            connected_component.connected_component_loss = penalty
+    steps = [rec for kind, rec in records if kind == "train_step"]
+    worst = max(abs(r["loss"] - (r["ce"] + r["dice"] + cfg.boundary_weight * r["boundary"]
+                                 + r["cc"])) / abs(r["loss"]) for r in steps)
+    if (len(steps) != n_train // BATCH or result.step != len(steps) or worst > 1e-6
+            or len(cc_ms) != len(steps)
+            or not all(np.isfinite(r["loss"]) and r["cc"] >= 0 for r in steps)
+            or not any(r["cc"] > 0 for r in steps)):
+        raise RuntimeError(f"[A4 train_model cc] the logged losses are not the device loss "
+                           f"plus the host penalty (worst rel {worst:.3g}): {steps}")
+    penalties = " ".join(f"{r['cc']:.4f}" for r in steps)
+    times = " ".join(f"{t:.1f}" for t in cc_ms)
+    log(f"[A4 train_model cc] 1 epoch, {len(steps)} binary steps with --cc-loss: logged loss = "
+        f"device loss + host penalty (worst rel {worst:.3g}); penalties {penalties}; the "
+        f"penalty took {times} ms on the host per fetched step of ({BATCH}, {HW}, {HW})")
+    return dict(cc_host_ms=cc_ms, worst_rel=worst, cc=[r["cc"] for r in steps])
+
+
+def profile_train(step, batch, out_dir: Path, name: str = "train") -> None:
+    """torch.profiler table of 3 steps; logs the table's head and its host
+    and device totals (the profiler's "Self CPU/CUDA time total")."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -956,9 +1279,10 @@ def profile_train(step, batch, out_dir: Path) -> None:
             step(batch, TRAIN_LR)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-    (out_dir / "train_profile.txt").write_text(table)
-    log(f"[profile] 3 bf16 train steps at ({BATCH}, {HW}, {HW}); table in "
-        f"{out_dir}/train_profile.txt")
+    (out_dir / f"{name}_profile.txt").write_text(table)
+    totals = [line for line in table.splitlines() if line.startswith("Self ")]
+    log(f"[profile] 3 bf16 {name} steps at ({BATCH}, {HW}, {HW}); table in "
+        f"{out_dir}/{name}_profile.txt; {'; '.join(totals)}")
     log("\n".join(table.splitlines()[:30]))
 
 
@@ -1662,6 +1986,125 @@ def phase_int8_pipeline():
     return total, result
 
 
+def phase_export(model) -> tuple:
+    """B1: unet_s (bf16) as a torch.export program with a dynamic batch and
+    H, W (engine/export.py), saved as .pt2 and loaded by ExportedPredictor:
+    predict_array on (BATCH, HW, HW) and on one 1024x768 image through the
+    same program.  7 launches per forward through the custom op; masks >=
+    99.9% equal to the live Predictor's; host slices/s beside the live
+    predictor's."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import export_program
+    from unet_medical_image_contour_segmentation_torch.engine.predict import (
+        ExportedPredictor,
+    )
+
+    net = unet_s(compute_dtype=torch.bfloat16)
+    net.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    data = export_program(net.eval(), device="cuda")
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "unet_s.pt2")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        exported = ExportedPredictor.from_file(path, device="cuda")
+        load_s = time.perf_counter() - t0
+    live = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    images = smooth_images(1, BATCH, HW)
+    wide = smooth_images(13, 1, 1024)[:, :, :768]
+    exported.predict_array(images[:1])  # warm-up
+    reset_launches()
+    masks = exported.predict_array(images)
+    masks_wide = exported.predict_array(wide)
+    launches = read_launches()
+    want = {"conv3x3_nhwc": 2 * len(MAIN_CONVS), "conv3x3_nhwc tensor_core": 2 * len(MAIN_CONVS),
+            "conv3x3_nhwc_dx": 0, "conv3x3_nhwc_dx tensor_core": 0}
+    agree = float((masks == live.predict_array(images)).mean())
+    agree_wide = float((masks_wide == live.predict_array(wide)).mean())
+    check_masks(masks, (BATCH, HW, HW))
+    check_masks(masks_wide, (1, 1024, 768))
+    if launches != want or min(agree, agree_wide) < MIN_EXPORT_AGREEMENT:
+        raise RuntimeError(f"[B1 export] two program forwards launched {launches} (want "
+                           f"{want}); masks agree with the live Predictor's on {agree:.6%} "
+                           f"(8x512²) and {agree_wide:.6%} (1024x768)")
+    for pred in (exported, live):
+        for _ in range(3):
+            pred.predict_array(images)
+    rate, ms = host_rate(exported, images)
+    live_rate, live_ms = host_rate(live, images)
+    log(f"[B1 export] unet_s bf16 program: export {export_s:.1f} s, {len(data)} bytes, load "
+        f"{load_s:.2f} s; {len(MAIN_CONVS)} kernel launches per forward through "
+        f"umics::conv3x3_nhwc ({launches}); masks equal to the live Predictor's on "
+        f"{agree:.6%} of ({BATCH}, {HW}, {HW}) and {agree_wide:.6%} of one 1024x768 image "
+        f"(the same program); host {rate:.1f} slices/s ({ms:.3f} ms a batch) against the "
+        f"live Predictor's {live_rate:.1f} ({live_ms:.3f} ms)")
+    return launches, dict(export_s=export_s, load_s=load_s, bytes=len(data), agreement=agree,
+                          agreement_1024x768=agree_wide, slices_per_s=rate,
+                          live_slices_per_s=live_rate)
+
+
+def phase_export_int8(model) -> tuple:
+    """B2: the int8 program at 512² from a calibration JSON (export_program_int8):
+    18 int8 and no bf16 launch per forward; masks 100% equal to the live int8
+    Predictor's on the same qparams."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import (
+        export_program_int8,
+    )
+    from unet_medical_image_contour_segmentation_torch.engine.predict import (
+        ExportedPredictor,
+    )
+
+    images = smooth_images(1, BATCH, HW)
+    net = unet_s(compute_dtype=torch.bfloat16)
+    net.load_state_dict(model.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        scales = os.path.join(tmp, "scales.json")
+        calib = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+        calib.calibrate(images[:4])
+        calib.save_calibration(scales)
+        live = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+        live.load_calibration(scales)
+    data = export_program_int8(net.eval(), live._qparams, example_hw=(HW, HW))
+    exported = ExportedPredictor(data, device="cuda")
+    exported.predict_array(images[:1])  # warm-up
+    reset_launches()
+    masks = exported.predict_array(images)
+    launches = int8_counts()
+    want_masks = live.predict_array(images)
+    agree = float((masks == want_masks).mean())
+    check_masks(masks, (BATCH, HW, HW))
+    if launches != {"conv3x3_int8": INT8_PER_FORWARD, "conv3x3_nhwc": 0} or agree != 1.0:
+        raise RuntimeError(f"[B2 export int8] one program forward launched {launches} (want "
+                           f"{INT8_PER_FORWARD} int8, 0 bf16); masks equal to the live int8 "
+                           f"Predictor's on {agree:.6%}")
+    for pred in (exported, live):
+        pred.predict_array(images)
+    rate, _ = host_rate(exported, images)
+    live_rate, _ = host_rate(live, images)
+    log(f"[B2 export int8] unet_s int8 program at {HW}² from a scales JSON ({len(data)} "
+        f"bytes): {launches} per forward; masks equal to the live int8 Predictor's on "
+        f"{agree:.4%}; host {rate:.1f} slices/s against the live int8 Predictor's "
+        f"{live_rate:.1f}")
+    return launches, dict(bytes=len(data), agreement=agree, slices_per_s=rate,
+                          live_slices_per_s=live_rate)
+
+
+def phase_launched_shapes() -> int:
+    """Every shape at which a counted window of a main path launched the
+    conv3x3 kernel (forward or dx) was held against the plain version in
+    phase 3 or 4; -> the number of such shapes."""
+    unchecked = sorted(LAUNCHED - CHECKED)
+    if not LAUNCHED or unchecked:
+        raise RuntimeError(f"the main paths launched conv3x3 at shapes that no phase held "
+                           f"against the plain version: {unchecked} (launched: "
+                           f"{sorted(LAUNCHED)})")
+    log(f"[shapes] the main paths launched conv3x3 at {len(LAUNCHED)} (B, H, W, Cin, Cout, "
+        f"dtype) shapes, each held against the plain version in phase 3 or 4: "
+        f"{sorted(LAUNCHED)}")
+    return len(LAUNCHED)
+
+
 def shape_row(r) -> dict:
     return {k: r[k] for k in ("name", "path", "shape", "ms", "bound_ms", "library_ms",
                               "roofline")}
@@ -1681,6 +2124,7 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     usage = phase_build()
+    record_launches()
     rows, max_err = phase_kernels(usage)
     bwd_rows, bwd_err = phase_backward(usage)
     model = build_model(seed=MODEL_SEED)
@@ -1689,6 +2133,11 @@ def main(argv=None) -> int:
     phase_train_reference()
     train_launches, train, trained = phase_train(args.profile)
     train["epoch"] = phase_train_model()
+    phase_train_reference(n_classes=1)
+    binary_launches, train["binary"] = phase_train_binary(train)
+    variant_launches, train["variants"] = phase_train_variants()
+    remat_launches, train["remat"] = phase_remat(args.profile)
+    train["cc"] = phase_train_model_cc()
     tiled_launches, tiled = phase_tiled(model)
     pipeline_launches, pipeline = phase_pipeline()
     int8_rows, int8_err = phase_int8_kernels(usage)
@@ -1696,12 +2145,20 @@ def main(argv=None) -> int:
     int8_main["sweep"] = phase_int8_sweep()
     int8_tiled_launches, int8_main["tiled"] = phase_int8_tiled(model)
     int8_pipe_launches, int8_main["pipeline"] = phase_int8_pipeline()
+    export_launches, export = phase_export(model)
+    export8_launches, export["int8"] = phase_export_int8(model)
+    n_shapes = phase_launched_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
-    fwd_launches = {"predict": launches["conv3x3_nhwc"], "train": train_launches["conv3x3_nhwc"],
+    train_paths = {"train": train_launches, "train_binary": binary_launches,
+                   **{f"train_{k}": v for k, v in variant_launches.items()},
+                   "train_remat": remat_launches}
+    fwd_launches = {"predict": launches["conv3x3_nhwc"],
+                    **{k: v["conv3x3_nhwc"] for k, v in train_paths.items()},
                     "tiled": tiled_launches["conv3x3_nhwc"],
-                    "pipeline": pipeline_launches.get("conv3x3_nhwc", 0)}
+                    "pipeline": pipeline_launches.get("conv3x3_nhwc", 0),
+                    "export": export_launches["conv3x3_nhwc"]}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
     pallas = f"{tpu}/ops/pallas_conv.py"
@@ -1711,7 +2168,8 @@ def main(argv=None) -> int:
     fwd8 = [split8.get(r["name"], r) for r in dense8]
     int8_by_path = {"int8_predict": int8_launches["conv3x3_int8"],
                     "int8_tiled": int8_tiled_launches["conv3x3_int8"],
-                    "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0)}
+                    "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0),
+                    "int8_export": export8_launches["conv3x3_int8"]}
     kernels = [{
         "name": "conv3x3_nhwc",
         "route": "cuda",
@@ -1728,6 +2186,8 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
         "library_ms": sum(r["library_ms"] for r in main_rows),
         "shapes": shape_rows(main_rows),
+        # the distinct shapes launched inside the counted windows, all checked
+        "launch_shapes_checked": n_shapes,
         # per window-group forward of the tiled path, by window size
         "tiled": {f"{win}": {"batch": b, **{k: sum(r[k] for r in tiled_rows
                                                   if r["path"] == f"tiled{win}")
@@ -1767,7 +2227,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": f"{pallas}:183",
-        "launches": train_launches["conv3x3_nhwc_dx"],
+        # the launches of every train path: multiclass, binary, unet_sa,
+        # bilinear, remat
+        "launches": sum(v["conv3x3_nhwc_dx"] for v in train_paths.values()),
+        "launches_by_path": {k: v["conv3x3_nhwc_dx"] for k, v in train_paths.items()},
         "max_abs_err": bwd_err,
         # per unet_s train step: the sum over the training shapes
         "ms": sum(r["ms"] for r in bwd_rows),
@@ -1801,6 +2264,7 @@ def main(argv=None) -> int:
     log(f"[tiled] {json.dumps(tiled)}")
     log(f"[pipeline] {json.dumps(pipeline)}")
     log(f"[int8-main] {json.dumps(int8_main)}")
+    log(f"[export] {json.dumps(export)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

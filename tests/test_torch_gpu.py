@@ -426,3 +426,82 @@ def test_int8_predictor_on_card_matches_cpu(cuda, seeded_model, tmp_path):
     want = cpu.predict_array(images)
     assert got.shape == want.shape == (2, 128, 96)
     assert (got == want).mean() >= 0.999
+
+
+# -- the custom ops (torch.library) and the exported programs on the card -----
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_conv3x3_custom_op_matches_plain(cuda, dtype, tol):
+    """``umics::conv3x3_nhwc`` called as an op: one launch, the plain
+    version's values."""
+    x, w = _xw(70, (2, 48, 80), 16, 32, cuda, dtype)
+    before = K.conv3x3_nhwc.launches
+    got = torch.ops.umics.conv3x3_nhwc(x, w)
+    torch.cuda.synchronize()
+    assert K.conv3x3_nhwc.launches == before + 1
+    want = K.conv3x3_nhwc_reference(x.cpu(), w.cpu())
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("cin2", [0, 16])
+def test_conv3x3_int8_custom_op_matches_plain(cuda, out_dtype, cin2):
+    """``umics::conv3x3_int8`` with ``out_dtype`` and the optional split
+    input in its schema: one launch, exactly the plain version."""
+    x, wp, mul, badd = int8_operands(71, 2, 32, 48, 16 + cin2, 32, cuda)
+    x1, x2 = (x, None) if not cin2 else (x[..., :16].contiguous(), x[..., 16:].contiguous())
+    before = K8.conv3x3_int8.launches
+    got = torch.ops.umics.conv3x3_int8(x1, wp, mul, badd, out_dtype, x2)
+    torch.cuda.synchronize()
+    assert K8.conv3x3_int8.launches == before + 1 and got.dtype == out_dtype
+    want = K8.conv3x3_int8_reference(x1.cpu(), wp.cpu(), mul.cpu(), badd.cpu(), out_dtype,
+                                     None if x2 is None else x2.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_custom_op_fake_implementations(cuda):
+    """Under fake tensors both ops give the output's shape and dtype, and
+    launch nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    before = (K.conv3x3_nhwc.launches, K8.conv3x3_int8.launches)
+    with FakeTensorMode():
+        x = torch.empty((3, 40, 24, 16), device=cuda, dtype=torch.bfloat16)
+        w = torch.empty((3, 3, 16, 8), device=cuda, dtype=torch.bfloat16)
+        y = torch.ops.umics.conv3x3_nhwc(x, w)
+        q = torch.empty((3, 40, 24, 32), device=cuda, dtype=torch.int8)
+        wp = torch.empty((1, 1, 9, 2, 8, 16), device=cuda, dtype=torch.int8)
+        mul = torch.empty((8,), device=cuda)
+        z = torch.ops.umics.conv3x3_int8(q, wp, mul, mul, torch.float32, None)
+        assert (tuple(y.shape), y.dtype) == ((3, 40, 24, 8), torch.bfloat16)
+        assert (tuple(z.shape), z.dtype) == ((3, 40, 24, 8), torch.float32)
+    assert (K.conv3x3_nhwc.launches, K8.conv3x3_int8.launches) == before
+
+
+def test_exported_program_on_card(cuda, seeded_model):
+    """unet_s bf16 exported on the card: the program launches the kernel 7
+    times a forward through the custom op, at two sizes from one program,
+    and gives the folded eval forward's logits (bf16 tolerance: the program
+    may order the same ops' launches differently)."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import (
+        export_program,
+        load_exported,
+    )
+    from unet_medical_image_contour_segmentation_torch.models.fold_bn import fold_bn
+
+    model = unet_s(compute_dtype=torch.bfloat16)
+    model.load_state_dict(seeded_model.state_dict())
+    program = load_exported(export_program(model.eval(), example_hw=(64, 64),
+                                           device=cuda)).module()
+    live = fold_bn(model, torch.bfloat16).to(cuda)
+    live.compute_dtype = torch.bfloat16
+    for hw in ((64, 64), (96, 160)):
+        x = torch.from_numpy(smooth_images(72, 2, max(hw))[:, :hw[0], :hw[1], None]).to(cuda)
+        before = K.conv3x3_nhwc.launches
+        with torch.no_grad():
+            got = program(x)
+        assert K.conv3x3_nhwc.launches == before + 7
+        with torch.no_grad():
+            want = live(x)
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)

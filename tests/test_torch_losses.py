@@ -1,6 +1,6 @@
-"""The port's Dice and compound loss against the JAX package's, value and
-gradient, on the CPU in f32 (rtol 1e-5, atol 1e-6: the same f32 arithmetic
-summed in another order)."""
+"""The port's Dice, boundary, connected-component and compound losses against
+the JAX package's, value and gradient, on the CPU in f32 (rtol 1e-5, atol
+1e-6: the same f32 arithmetic summed in another order)."""
 
 import dataclasses
 
@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from unet_medical_image_contour_segmentation_torch.losses import boundary as TB
 from unet_medical_image_contour_segmentation_torch.losses import compound as TL
+from unet_medical_image_contour_segmentation_torch.losses import connected_component as TCC
 from unet_medical_image_contour_segmentation_torch.losses import dice as TD
+from unet_medical_image_contour_segmentation_tpu.losses import boundary as JB
 from unet_medical_image_contour_segmentation_tpu.losses import compound as JL
+from unet_medical_image_contour_segmentation_tpu.losses import connected_component as JCC
 from unet_medical_image_contour_segmentation_tpu.losses import dice as JD
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -137,9 +141,128 @@ def test_loss_config_fields_match_jax():
             == [(f.name, f.default) for f in dataclasses.fields(JL.LossConfig)])
 
 
+# the values of pred on both sides of the auto-sigmoid's |x| = 10 test
+PRED_RANGES = {"probs": (0.0, 1.0), "below_10": (-9.5, 9.5), "above_10": (-2.0, 10.5),
+               "below_minus_10": (-10.5, 2.0)}
+
+
+@pytest.mark.parametrize("edge_width", [5, 64])
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("kind", sorted(PRED_RANGES))
+def test_boundary_loss_matches_jax(kind, channels, edge_width):
+    """Probabilities and logits on both sides of |x| = 10, C = 1 (squeezed
+    and kept), 2 and 3 (channel 1), a frame narrower than the image and one
+    of edge_width >= H, targets in {0, 1, 255}."""
+    rng = np.random.default_rng(70 + channels)
+    lo, hi = PRED_RANGES[kind]
+    shape = (2, 24, 20) if channels == 1 and edge_width == 5 else (2, 24, 20, channels)
+    x = rng.uniform(lo, hi, shape).astype(np.float32)
+    t = rng.choice([0, 1, 255], (2, 24, 20)).astype(np.float32)
+    t[:, 6:16, 4:14] = 255  # a region, so that the target has a boundary
+    want = JB.boundary_loss(jnp.asarray(x), jnp.asarray(t), edge_width=edge_width,
+                            edge_weight=15.0)
+    got = TB.boundary_loss(torch.from_numpy(x), torch.from_numpy(t), edge_width=edge_width,
+                           edge_weight=15.0)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+
+
+def test_boundary_loss_has_zero_gradient():
+    """The term comes from comparisons only: it adds nothing to a gradient,
+    in bf16 as in f32, and stays out of the autograd graph."""
+    rng = np.random.default_rng(75)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16)).astype(np.float32) * 20)
+    t = torch.from_numpy(rng.choice([0.0, 255.0], (2, 16, 16)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        z = x.to(dtype).requires_grad_()
+        bl = TB.boundary_loss(z, t, edge_width=4)
+        assert not bl.requires_grad and bl.dtype == torch.float32 and bl.item() > 0
+        (g,) = torch.autograd.grad((z.float() ** 2).sum() + bl, z)
+        torch.testing.assert_close(g, (2 * z.float()).to(dtype), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("kw", [dict(n_classes=1), dict(n_classes=3, multiclass_boundary=True)])
-def test_unported_branches_raise(kw):
-    logits, targets = _probs_and_onehot(67)
-    with pytest.raises(NotImplementedError, match="boundary"):
-        TL.compute_loss(torch.from_numpy(logits), torch.from_numpy(targets),
-                        TL.LossConfig(**kw))
+def test_boundary_branches_match_jax(kw):
+    """The binary criterion (targets // 2, BCE + Dice + 0.25 * boundary at edge
+    51 / weight 15) and the multiclass boundary term (weight 7): every metric
+    and the gradient against JAX's (the boundary term adds none)."""
+    rng = np.random.default_rng(67)
+    logits = (rng.standard_normal((2, 64, 48, kw["n_classes"])) * 3).astype(np.float32)
+    targets = rng.integers(0, 3, (2, 64, 48)).astype(np.int32)
+    (want, want_m), want_g = jax.value_and_grad(
+        lambda z: JL.compute_loss(z, jnp.asarray(targets), JL.LossConfig(**kw)),
+        has_aux=True)(jnp.asarray(logits))
+    z = torch.from_numpy(logits).requires_grad_()
+    got, got_m = TL.compute_loss(z, torch.from_numpy(targets), TL.LossConfig(**kw))
+    got.backward()
+    assert set(got_m) == set(want_m) >= {"boundary", "loss"}
+    for k in want_m:
+        np.testing.assert_allclose(got_m[k].item(), float(want_m[k]), **TOL)
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(want_g), **TOL)
+
+
+def _blob_probs(seed):
+    """(3, 96, 128) probabilities with blobs of every kind the penalty scores:
+    small ones, large ones at the border and large ones in the middle."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 0.4, (3, 96, 128)).astype(np.float32)
+    p[0, 5:9, 5:12] = 0.9
+    p[0, 30:80, 40:100] = 0.8
+    p[1, 0:60, 0:40] = 0.7
+    p[1, 50:52, 120:127] = 0.95
+    p[2] = rng.uniform(0, 1, (96, 128))
+    return p
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(edge_distance=20, min_area=200,
+                                             penalty_weight=0.5)])
+def test_connected_component_loss_matches_jax(kw):
+    p = _blob_probs(76)
+    got = TCC.connected_component_loss(p, **kw)
+    assert got > 0 and got == JCC.connected_component_loss(p, **kw)
+
+
+def test_cc_penalty_joins_the_loss_value_only():
+    """With connected_component the binary loss hands out its detached
+    probabilities for the host penalty, and neither its value nor its
+    gradient changes."""
+    rng = np.random.default_rng(77)
+    logits = (rng.standard_normal((2, 32, 32, 1)) * 3).astype(np.float32)
+    targets = torch.from_numpy(rng.integers(0, 3, (2, 32, 32)).astype(np.int32))
+    grads, losses = [], []
+    for cc in (False, True):
+        z = torch.from_numpy(logits).requires_grad_()
+        cfg = TL.LossConfig(n_classes=1, connected_component=cc, cc_emit_probs=True)
+        loss, m = TL.compute_loss(z, targets, cfg)
+        loss.backward()
+        grads.append(z.grad)
+        losses.append((loss.item(), m))
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+    (plain, _), (with_cc, m) = losses
+    probs = torch.sigmoid(torch.from_numpy(logits)[..., 0]).numpy()
+    assert with_cc == plain and not m["cc_probs"].requires_grad
+    np.testing.assert_array_equal(m["cc_probs"].numpy(), probs)
+    assert TCC.connected_component_loss(m["cc_probs"].numpy()) > 0
+
+
+def test_cc_penalty_needs_emitted_probs():
+    """The penalty is scored only at train_model's delayed fetch: without
+    cc_emit_probs the loss refuses, and names that route."""
+    logits = torch.zeros((1, 16, 16, 1))
+    targets = torch.zeros((1, 16, 16), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="cc_emit_probs=True"):
+        TL.compute_loss(logits, targets, TL.LossConfig(n_classes=1, connected_component=True))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_classes=3), dict(n_classes=3, multiclass_boundary=True),
+    dict(n_classes=1), dict(n_classes=3, connected_component=True),
+    dict(n_classes=1, connected_component=True, cc_emit_probs=True),
+])
+def test_metric_keys_match_the_real_dict(kw):
+    rng = np.random.default_rng(78)
+    logits = torch.from_numpy(rng.standard_normal((1, 16, 16, kw["n_classes"]))
+                              .astype(np.float32))
+    targets = torch.from_numpy(rng.integers(0, 3, (1, 16, 16)).astype(np.int32))
+    _, metrics = TL.compute_loss(logits, targets, TL.LossConfig(**kw))
+    assert tuple(metrics) == TL.metric_keys(TL.LossConfig(**kw))

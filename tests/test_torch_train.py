@@ -5,7 +5,10 @@ the JAX layout.
 Tolerances and why:
 * BN batch statistics: JAX takes the variance one-pass, the port two-pass, so
   train-mode logits differ by ~1e-6 relative per layer; gradients then agree
-  to ~7e-4 of the largest gradient (measured), held at 2e-3.
+  to ~7e-4 of the largest gradient (measured), held at 2e-3.  That gap is
+  JAX's f32 rounding: its eager and jitted gradients differ from each other
+  by as much on some seeds, and the port's f32 gradients agree with JAX's
+  f64 ones to 1e-5 (GRAD_ATOL), which the variant steps are held to.
 * RMSprop's first step moves every parameter by ~10 * lr * sign(g) whatever
   |g| (``square_avg`` starts at 0), so a near-zero gradient whose sign the
   rounding flips moves a parameter by ~20 * lr the other way.  With momentum
@@ -36,17 +39,19 @@ from unet_medical_image_contour_segmentation_torch.models.torch_compat import (
     params_tree_from_tensors,
     state_dict_from_jax,
 )
-from unet_medical_image_contour_segmentation_torch.models.unet import unet_t
+from unet_medical_image_contour_segmentation_torch.models.unet import UNet, unet_t
 from unet_medical_image_contour_segmentation_tpu.engine import checkpoint as JC
 from unet_medical_image_contour_segmentation_tpu.engine import optim as JO
 from unet_medical_image_contour_segmentation_tpu.engine import train as JT
 from unet_medical_image_contour_segmentation_tpu.engine.evaluate import evaluate as jax_evaluate
 from unet_medical_image_contour_segmentation_tpu.losses import compound as JL
+from unet_medical_image_contour_segmentation_tpu.models.unet import UNet as JaxUNet
 from unet_medical_image_contour_segmentation_tpu.models.unet import unet_t as jax_unet_t
 
 WIDTHS_T = (8, 16, 32, 64, 128)
 LR = 1e-4
 GRAD_TOL = 2e-3   # of the largest gradient
+GRAD_ATOL = 1e-5  # against JAX's gradients computed in f64
 
 
 @pytest.fixture(autouse=True)
@@ -89,6 +94,10 @@ def _torch_batch(batch):
 
 def _leaves(tree):
     return [np.asarray(x, np.float64) for x in jax.tree.leaves(tree)]
+
+
+def _f64(tree):
+    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
 
 
 def _max_abs_diff(a, b):
@@ -280,3 +289,154 @@ def test_evaluate_writes_the_jax_prediction_dumps(trained, tmp_path):
 def test_evaluate_empty_loader_keeps_the_reference_start():
     model = unet_t()
     assert evaluate(model, [], device="cpu", postprocess=False) == (0.0, 0.0, 10.0)
+
+
+# -- the rest of the reference's training: binary, unet_sa, bilinear, remat ---
+
+BINARY = dict(n_classes=1)  # BCE + Dice + 0.25 * boundary (edge 51, weight 15)
+VARIANTS = {  # name: (port model kwargs, JAX model kwargs, weight kwargs, loss kwargs)
+    "binary": (dict(n_classes=1), dict(n_classes=1), dict(n_classes=1), BINARY),
+    "unet_sa": (dict(use_attention=True), dict(use_attention=True), dict(attention=True), {}),
+    "bilinear": (dict(bilinear=True), dict(bilinear=True), dict(bilinear=True), {}),
+    "remat": (dict(remat=True), dict(remat=True), {}, {}),
+}
+
+
+def _variant(name, seed=0):
+    """(port model, its step at LR, jitted JAX step, params, bn_state) of a
+    unet_t-width UNet variant from seeded JAX-layout weights."""
+    kw, jkw, wkw, lkw = VARIANTS[name]
+    params, bn_state = random_unet_params(seed, widths=WIDTHS_T, **wkw)
+    model = UNet(widths=WIDTHS_T, name="unet_t", **kw)
+    model.load_state_dict(state_dict_from_jax(params, bn_state))
+    step = make_train_step(model, LossConfig(**lkw), RMSpropConfig(learning_rate=LR))
+    jax_model = JaxUNet(widths=WIDTHS_T, layout="nhwc", name="unet_t", **jkw)
+    jax_step = jax.jit(JT.make_train_step(jax_model, JL.LossConfig(**lkw),
+                                          JO.RMSpropConfig(learning_rate=LR)))
+    return model, step, jax_step, params, bn_state
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_train_step_matches_jax(name):
+    """One step of the binary criterion, unet_sa, the bilinear UNet and the
+    rematerialised UNet against JAX's same step: the loss terms to 1e-5,
+    the new parameters within 20 * lr, the BN running statistics to 1e-5.
+
+    The clipped gradients are held to JAX's gradients of the same step
+    computed in f64 (``jax.enable_x64``), to GRAD_ATOL, and the grad norm to
+    1e-5.  Measured against that reference (``tests/grad_parity_report.py``),
+    the port's f32 gradients are off by at most 8e-7 (2.5e-6 of the
+    largest), and their own f64 run agrees with them to 3e-6 of the largest
+    with no ReLU input changing sign.  JAX's f32 gradients, eager or jitted,
+    are what move: by up to 9e-4 of the largest on some seeds and variants
+    and by 1e-6 on others (binary at seed 0: jitted 5e-4 from eager, which
+    the port meets to 1e-5; bilinear at seed 1: eager 9e-4 from jitted,
+    which the port meets to 1e-6).  Against JAX's f32 gradients the bound
+    would have to absorb that."""
+    model, step, jax_step, params, bn_state = _variant(name)
+    batch = rect_batch(170, 2, 64, 64)
+    jax_model = JaxUNet(widths=WIDTHS_T, layout="nhwc", name="unet_t", **VARIANTS[name][1])
+    loss_cfg = JL.LossConfig(**VARIANTS[name][3])
+
+    with jax.enable_x64():
+        def loss_fn(p):
+            logits, _ = jax_model.apply(p, _f64(bn_state), jnp.asarray(batch["image"],
+                                                                       jnp.float64), train=True)
+            return JL.compute_loss(logits, jnp.asarray(batch["mask"]), loss_cfg)[0]
+
+        want_grads, want_norm = JO.clip_by_global_norm(
+            jax.jit(jax.grad(loss_fn))(_f64(params)), 1.0)
+        want_grads, want_norm = _leaves(want_grads), float(want_norm)
+    want_state, want = jax_step(_jax_state(params, bn_state), batch, LR)
+    got = step(_torch_batch(batch), LR)
+    assert set(got) == set(want)
+    for k in set(want) - {"grad_norm"}:
+        assert got[k].item() == pytest.approx(float(want[k]), rel=1e-5), k
+    assert got["grad_norm"].item() == pytest.approx(want_norm, rel=1e-5)
+    got_grads = params_tree_from_tensors(model, {n: p.grad for n, p in model.named_parameters()})
+    assert max(np.abs(a - b).max() for a, b in zip(_leaves(got_grads), want_grads)) <= GRAD_ATOL
+    got_params, got_bn, _ = params_from_state_dict(model.state_dict())
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
+                            zip(_leaves(got_params), _leaves(want_state.params))])
+    assert diffs.max() <= 20 * LR
+    # RMSprop's first step moves a parameter by ~10 * lr * sign(g): only a
+    # gradient that JAX's f32 rounding can move across 0 (GRAD_TOL of the
+    # largest) can move it the other way
+    g_max = max(np.abs(g).max() for g in want_grads)
+    small = np.concatenate([np.abs(g).ravel() for g in want_grads]) <= GRAD_TOL * g_max
+    assert small[diffs > 1e-6].all()
+    assert _max_abs_diff(got_bn, want_state.bn_state) <= 1e-5
+
+
+def test_binary_five_step_trajectory_matches_jax():
+    """Five binary steps at the reference's lr, as the multiclass trajectory
+    test: the loss curve to 1e-3 and the parameters within 20 * lr * 15."""
+    lr = 1e-5
+    params, bn_state = random_unet_params(0, widths=WIDTHS_T, n_classes=1)
+    jax_step = jax.jit(JT.make_train_step(jax_unet_t(1, 1, layout="nhwc"),
+                                          JL.LossConfig(n_classes=1),
+                                          JO.RMSpropConfig(learning_rate=lr)))
+    state = _jax_state(params, bn_state)
+    model = unet_t(n_classes=1)
+    model.load_state_dict(state_dict_from_jax(params, bn_state))
+    step = make_train_step(model, LossConfig(n_classes=1), RMSpropConfig(learning_rate=lr))
+    want_curve, got_curve = [], []
+    for i in range(5):
+        batch = rect_batch(180 + i, 2, 64, 64)
+        state, metrics = jax_step(state, batch, lr)
+        want_curve.append(float(metrics["loss"]))
+        got_curve.append(step(_torch_batch(batch), lr)["loss"].item())
+    np.testing.assert_allclose(got_curve, want_curve, rtol=1e-3)
+    got_params, _, _ = params_from_state_dict(model.state_dict())
+    assert _max_abs_diff(got_params, state.params) <= 20 * lr * sum(range(1, 6))
+
+
+def test_remat_step_equals_the_plain_step():
+    """remat recomputes each block's forward in the backward pass; the BN
+    running statistics and num_batches_tracked still move once, so the
+    whole state after a step (and after a second) is bit-equal to the plain
+    step's."""
+    params, bn_state = random_unet_params(0, widths=WIDTHS_T)
+    states = {}
+    for remat in (False, True):
+        model = unet_t(remat=remat)
+        model.load_state_dict(state_dict_from_jax(params, bn_state))
+        step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=LR))
+        losses = [step(_torch_batch(rect_batch(190 + i, 2, 64, 64)), LR)["loss"].item()
+                  for i in range(2)]
+        states[remat] = losses, model.state_dict()
+    (plain_losses, plain), (remat_losses, remat) = states[False], states[True]
+    assert remat_losses == plain_losses
+    assert plain.keys() == remat.keys()
+    for k in plain:
+        torch.testing.assert_close(remat[k], plain[k], rtol=0, atol=0, msg=k)
+    assert int(remat["inc.double_conv.1.num_batches_tracked"]) == 2
+    assert int(remat["up4.conv.double_conv.4.num_batches_tracked"]) == 2
+
+
+@pytest.fixture(scope="module")
+def trained_binary():
+    """A binary unet_t after 12 port steps on rectangles at lr 1e-3."""
+    params, bn_state = random_unet_params(2, widths=WIDTHS_T, n_classes=1)
+    model = unet_t(n_classes=1)
+    model.load_state_dict(state_dict_from_jax(params, bn_state))
+    step = make_train_step(model, LossConfig(n_classes=1), RMSpropConfig(learning_rate=1e-3))
+    for i in range(12):
+        step(_torch_batch(rect_batch(200 + i, 2, 64, 64)), 1e-3)
+    p, s, _ = params_from_state_dict(model.state_dict())
+    return model, p, s
+
+
+@pytest.mark.parametrize("postprocess", [False, True])
+def test_binary_evaluate_matches_jax(trained_binary, postprocess):
+    """The binary branch of evaluate (targets // 2, sigmoid > 0.5, the
+    post-processed Dice as the min) against JAX's on the same weights."""
+    model, params, bn_state = trained_binary
+    batches = _val_batches(210)
+    want = jax_evaluate(jax_unet_t(1, 1), jax.tree.map(jnp.asarray, params),
+                        jax.tree.map(jnp.asarray, bn_state), iter(batches),
+                        postprocess=postprocess)
+    got = evaluate(model, batches, device="cpu", postprocess=postprocess)
+    assert got[0] > 0.05, got
+    for g, w in zip(got, want):
+        assert g == pytest.approx(w, abs=1e-3), (got, want)

@@ -166,21 +166,91 @@ def test_train_model_nan_aborts(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw,what", [
     (dict(num_devices=2), "data parallelism"),
     (dict(spatial_shards=2), "spatial parallelism"),
-    (dict(cc_loss=True), "connected-component"),
-    (dict(classes=1), "binary"),
-    (dict(remat=True), "checkpointing"),
-    (dict(bilinear=True), "bilinear"),
 ])
 def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, kw, what):
     with pytest.raises(NotImplementedError, match=what):
         train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(sample_cache_bytes=1000),
-                                dict(disk_cache_dir="cache")])
-def test_train_model_refuses_sample_caches(data_root, tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="cache"):
-        train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
+@pytest.mark.parametrize("model", ["unet_pp", "yolov8_seg_s"])
+def test_train_model_refuses_models_not_ported(data_root, tmp_path, model):
+    with pytest.raises(ValueError, match="not yet ported"):
+        train_model(_cfg(data_root, tmp_path, model=model), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(cc_loss=True, classes=1), dict(classes=1),
+                                dict(remat=True), dict(bilinear=True), dict(model="unet_sa")])
+def test_train_model_trains_the_whole_family(tmp_path, monkeypatch, kw):
+    """The binary criterion (with and without the connected-component
+    penalty), remat, the bilinear UNet and unet_sa train end to end: every
+    step logged finite, the model that was asked for, one checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    records = []
+    cfg = _cfg(tmp_path, tmp_path, epochs=1, save_val_predictions=False, val_postprocess=False,
+               save_checkpoint=False, **kw)
+    result = train_model(cfg, train_set=_Arrays(4), val_set=_Arrays(2, seed=4), device="cpu",
+                         metric_backends=[lambda kind, rec: records.append((kind, rec))])
+    steps = [rec for kind, rec in records if kind == "train_step"]
+    assert result.step == len(steps) == 2
+    assert all(np.isfinite(rec["loss"]) for rec in steps)
+    net = result.model
+    assert (net.n_classes, net.remat, net.bilinear, net.use_attention) == (
+        cfg.classes, cfg.remat, cfg.bilinear, cfg.model == "unet_sa")
+    assert ("boundary" in steps[0]) == (cfg.classes == 1)
+    assert ("cc" in steps[0]) == cfg.cc_loss
+    assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 2
+
+
+def test_train_model_logs_the_cc_penalty_on_the_loss(tmp_path, monkeypatch, caplog):
+    """classes=1 with cc_loss: each logged loss is the device loss plus the
+    host penalty of that step's probabilities, the penalty is logged as
+    ``cc``, and a fetch window above 8 steps is clamped to 8."""
+    monkeypatch.chdir(tmp_path)
+    records = []
+    cfg = _cfg(tmp_path, tmp_path, epochs=1, classes=1, cc_loss=True, batch_size=1,
+               nan_check_every=20, save_val_predictions=False, val_postprocess=False,
+               save_checkpoint=False)
+    with caplog.at_level("WARNING"):
+        result = train_model(cfg, train_set=_Arrays(10, hw=64), val_set=_Arrays(1, hw=64),
+                             device="cpu",
+                             metric_backends=[lambda kind, rec: records.append((kind, rec))])
+    assert "clamped to 8" in caplog.text
+    steps = [rec for kind, rec in records if kind == "train_step"]
+    assert [rec["step"] for rec in steps] == list(range(1, 11)) and result.step == 10
+    for rec in steps:
+        device_loss = rec["ce"] + rec["dice"] + cfg.boundary_weight * rec["boundary"]
+        assert rec["loss"] == pytest.approx(device_loss + rec["cc"], rel=1e-6)
+        assert rec["cc"] >= 0 and "cc_probs" not in rec
+    assert sum(rec["cc"] for rec in steps) > 0
+
+
+def test_cc_loss_warns_without_the_binary_loss(tmp_path, monkeypatch, caplog):
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(tmp_path, tmp_path, epochs=1, cc_loss=True, save_val_predictions=False,
+               val_postprocess=False, save_checkpoint=False)
+    with caplog.at_level("WARNING"):
+        train_model(cfg, train_set=_Arrays(2), val_set=_Arrays(2), device="cpu")
+    assert "no effect with classes=3" in caplog.text
+
+
+@pytest.mark.parametrize("kw", [dict(sample_cache_bytes=10**8), dict(disk_cache_dir="cache")])
+def test_train_model_uses_the_sample_caches(data_root, tmp_path, monkeypatch, kw):
+    """The RAM cache and the disk cache (one directory per split, as JAX's)
+    train as the uncached run does."""
+    monkeypatch.chdir(tmp_path)
+    params = []
+    for cached in (False, True):
+        cfg = _cfg(data_root, tmp_path, epochs=1, save_val_predictions=False,
+                   val_postprocess=False, save_checkpoint=False, num_workers=1,
+                   **(kw if cached else {}))
+        torch.manual_seed(0)
+        params.append([p.detach().clone() for p in train_model(cfg, device="cpu")
+                       .model.parameters()])
+    for a, b in zip(*params):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if "disk_cache_dir" in kw:
+        for split in ("train", "val"):
+            assert len(list((tmp_path / "cache" / split).glob("*.npz"))) == 8
 
 
 def test_train_model_defaults_to_the_card(data_root, tmp_path):
@@ -216,14 +286,98 @@ def test_cli_loads_reference_pth_weights(data_root, tmp_path, monkeypatch):
     assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 4
 
 
-@pytest.mark.parametrize("flag", ["--bilinear", "--num-devices=2", "--spatial-shards=2",
-                                  "--remat", "--sample-cache-gb=1", "--disk-cache-dir=c",
-                                  "--cc-loss", "--distributed", "--classes=1"])
+@pytest.mark.parametrize("flag", ["--num-devices=2", "--spatial-shards=2", "--distributed",
+                                  "--model=unet_pp", "--model=unet_pp_s",
+                                  "--model=yolov8_seg_s"])
 def test_cli_refuses_flags_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--data-root", "d", flag])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--bilinear"], dict(bilinear=True)),
+    (["--remat"], dict(remat=True)),
+    (["--sample-cache-gb=1"], dict(sample_cache_gb=1.0)),
+    (["--disk-cache-dir=c"], dict(disk_cache_dir="c")),
+    (["--cc-loss"], dict(cc_loss=True)),
+    (["--classes=1"], dict(classes=1)),
+    (["--model=unet_sa"], dict(model="unet_sa")),
+])
+def test_cli_takes_the_flags_that_are_ported(flags, want):
+    args = vars(train_cli.get_args(["--data-root", "d", *flags]))
+    assert {k: args[k] for k in want} == want
+
+
+def _jax_cli_args(monkeypatch, argv):
+    from unet_medical_image_contour_segmentation_tpu.cli import train as jax_train_cli
+
+    monkeypatch.setattr("sys.argv", ["train", *argv])
+    return vars(jax_train_cli.get_args())
+
+
+def test_cli_new_flags_parse_to_the_jax_defaults(monkeypatch):
+    ours, theirs = vars(train_cli.get_args([])), _jax_cli_args(monkeypatch, [])
+    shared = ("bilinear", "remat", "sample_cache_gb", "disk_cache_dir", "cc_loss", "classes",
+              "model", "nan_check_every", "epochs", "batch_size", "lr", "scale", "amp")
+    assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
+
+
+class _OutOfMemoryOnce:
+    """A train_model stub that runs out of device memory on its first call."""
+
+    def __init__(self, error):
+        self.error = error
+        self.remat = []
+
+    def __call__(self, cfg, **kw):
+        self.remat.append(cfg.remat)
+        if len(self.remat) == 1:
+            raise self.error
+
+
+@pytest.mark.parametrize("error", [torch.cuda.OutOfMemoryError("CUDA out of memory"),
+                                   RuntimeError("RESOURCE_EXHAUSTED: Out of memory")])
+def test_cli_reruns_with_remat_after_out_of_memory(monkeypatch, caplog, error):
+    from unet_medical_image_contour_segmentation_torch.engine import train as train_engine
+
+    stub = _OutOfMemoryOnce(error)
+    monkeypatch.setattr(train_engine, "train_model", stub)
+    with caplog.at_level("ERROR"):
+        assert train_cli.main(["--data-root", "d", "--device", "cpu"]) == 0
+    assert stub.remat == [False, True]
+    assert "Enabling rematerialization" in caplog.text
+
+
+def test_cli_passes_other_errors_on(monkeypatch):
+    from unet_medical_image_contour_segmentation_torch.engine import train as train_engine
+
+    stub = _OutOfMemoryOnce(RuntimeError("a launch failed"))
+    monkeypatch.setattr(train_engine, "train_model", stub)
+    with pytest.raises(RuntimeError, match="a launch failed"):
+        train_cli.main(["--data-root", "d", "--device", "cpu"])
+    assert stub.remat == [False]
+
+
+@pytest.mark.parametrize("variant", [dict(bilinear=True), dict(use_attention=True)])
+def test_cli_loads_reference_pth_of_each_variant(data_root, tmp_path, monkeypatch, variant):
+    """--load of a reference .pth of a bilinear UNet or a unet_sa trains the
+    matching port model from it."""
+    from unet_medical_image_contour_segmentation_torch.models.unet import UNet
+
+    monkeypatch.chdir(tmp_path)
+    torch.manual_seed(0)
+    sd = UNet(widths=(16, 32, 64, 128, 256), **variant).state_dict()
+    torch.save(dict(sd, mask_values=[0, 128, 255]), tmp_path / "ref.pth")
+    flags = ["--bilinear"] if variant.get("bilinear") else ["--model", "unet_sa"]
+    if variant.get("bilinear"):
+        flags += ["--model", "unet_s"]
+    assert train_cli.main(["--data-root", str(data_root), "--epochs", "1", "-b", "2",
+                           "--scale", "0.5", "--no-amp", "--no-save-val-predictions",
+                           "--no-val-postprocess", "--sample-cache-gb", "0", "--device", "cpu",
+                           "--load", str(tmp_path / "ref.pth"), *flags]) == 0
+    assert load_checkpoint(str(tmp_path / "model_epoch1.npz"))["step"] == 4
 
 
 def test_cli_defaults_match_jax_cli():
@@ -247,10 +401,52 @@ def test_dataset_matches_jax(data_root):
         np.testing.assert_array_equal(a["mask"], b["mask"])
 
 
-@pytest.mark.parametrize("kw", [dict(cache_bytes=10), dict(disk_cache_dir="x")])
-def test_dataset_refuses_caches(data_root, kw):
-    with pytest.raises(NotImplementedError):
-        BasicDataset(data_root / "imgs/train", data_root / "masks/train", **kw)
+@pytest.mark.parametrize("kw", [dict(cache_bytes=10**8), dict(disk_cache_dir="x")])
+def test_dataset_caches_give_the_jax_samples(data_root, tmp_path, kw):
+    """The RAM cache and the disk cache give JAX's samples, on the first
+    pass and from the cache; a disk entry whose source changed is decoded
+    and written again."""
+    import time
+
+    if "disk_cache_dir" in kw:
+        kw = dict(disk_cache_dir=tmp_path / kw["disk_cache_dir"])
+    ours = BasicDataset(data_root / "imgs/train", data_root / "masks/train", 0.5, **kw)
+    theirs = JD.BasicDataset(data_root / "imgs/train", data_root / "masks/train", 0.5)
+
+    def check():
+        for i in range(len(ours)):
+            a, b = ours[i], theirs[theirs.ids.index(ours.ids[i // 4]) * 4 + i % 4]
+            np.testing.assert_array_equal(a["image"], b["image"])
+            np.testing.assert_array_equal(a["mask"], b["mask"])
+
+    check()
+    check()  # from the cache
+    if "cache_bytes" in kw:
+        assert len(ours._cache) == 8 and ours._cache_used <= kw["cache_bytes"]
+        return
+    entries = sorted(kw["disk_cache_dir"].glob("*.npz"))
+    assert len(entries) == 8
+    # rewrite one source image: its four entries go stale and are rebuilt
+    name = ours.ids[0]
+    src = data_root / "imgs/train" / f"{name}.png"
+    Image.fromarray(np.full((64, 64), 200, np.uint8)).save(src)
+    os.utime(src, (time.time() + 10, time.time() + 10))
+    stale = kw["disk_cache_dir"] / f"{name}.r0.s0.5.npz"
+    before = stale.stat().st_mtime_ns
+    theirs = JD.BasicDataset(data_root / "imgs/train", data_root / "masks/train", 0.5)
+    check()
+    assert stale.stat().st_mtime_ns != before
+    np.testing.assert_array_equal(ours[0]["image"], np.full((32, 32, 1), 200 / 255, np.float32))
+
+
+def test_dataset_ram_cache_keeps_to_its_budget(data_root):
+    one = BasicDataset(data_root / "imgs/train", data_root / "masks/train", 0.5)[0]
+    nbytes = one["image"].nbytes + one["mask"].nbytes
+    ds = BasicDataset(data_root / "imgs/train", data_root / "masks/train", 0.5,
+                      cache_bytes=3 * nbytes)
+    for i in range(len(ds)):
+        ds[i]
+    assert len(ds._cache) == 3 and ds._cache_used == 3 * nbytes
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, False), (False, True), (True, True)])

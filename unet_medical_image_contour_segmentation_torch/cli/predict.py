@@ -11,9 +11,12 @@ post-processing on by default, masks saved as {0,128,255} PNGs (next to the
 inputs when ``-o`` is omitted), batches grouped by image size, and tiled
 serving of images above ``--tile-threshold`` pixels, and int8 serving
 (``--int8``, with ``--int8-scales s.json``: load the calibration if the file
-exists, else calibrate on the first batch and save it there).  Its other
-flags (data parallelism, exported programs, visualisation) are rejected with
-an error until they are ported.
+exists, else calibrate on the first batch and save it there).  A ``.pt2``
+program of the export CLI serves through ``ExportedPredictor`` (its
+precision, int8 included, was fixed at export time, so ``--int8`` is ignored
+with a warning; tile 512 unless ``--tile`` says otherwise).  JAX's
+``.stablehlo`` programs, data parallelism and visualisation are rejected
+with an error.
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ _NOT_PORTED = {
 
 
 def get_args(argv=None):
-    parser = argparse.ArgumentParser(description="Predict multiclass masks (.pth/.npz weights)")
+    parser = argparse.ArgumentParser(description="Predict multiclass masks (.pth/.npz weights "
+                                                 "or a .pt2 program)")
     parser.add_argument("--model", "-m", required=True,
-                        help="Weights: .pth/.pt state_dict, pickled module or TorchScript; .npz")
+                        help="Weights: .pth/.pt state_dict, pickled module or TorchScript; "
+                             ".npz; or a .pt2 program of the export CLI")
     parser.add_argument("--input", "-i", required=True, help="Input image file or directory")
     parser.add_argument("--output", "-o", help="Output directory (default: next to the input)")
     parser.add_argument("--no-save", "-n", action="store_true", default=False)
@@ -74,8 +79,8 @@ def get_args(argv=None):
             parser.error(f"{flags[0]}: {what} is not ported to the PyTorch package yet; "
                          "use the JAX package's umics-predict")
     if args.model.endswith(".stablehlo"):
-        parser.error("--model: exported .stablehlo programs are not served by the "
-                     "PyTorch package yet")
+        parser.error("--model: .stablehlo programs are the JAX package's (its umics-predict "
+                     "serves them); export a .pt2 program with this package's export CLI")
     return args
 
 
@@ -86,7 +91,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..engine.checkpoint import load_weights
-    from ..engine.predict import Predictor, collect_image_files
+    from ..engine.predict import ExportedPredictor, Predictor, collect_image_files
     from ..models.unet import get_model
 
     if os.path.isdir(args.input):
@@ -101,14 +106,25 @@ def main(argv=None) -> int:
         logging.error("Input file does not exist: %s", args.input)
         return 1
 
-    state_dict, _ = load_weights(args.model)
-    compute_dtype = torch.bfloat16 if args.device.startswith("cuda") else None
-    model = get_model(args.arch, n_channels=1, n_classes=args.classes,
-                      bilinear=args.bilinear, compute_dtype=compute_dtype)
-    model.load_state_dict(state_dict)
-    predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
-                          tile=args.tile, tile_halo=args.tile_halo,
-                          tile_threshold=args.tile_threshold, quantize=args.int8)
+    if args.model.endswith(".pt2"):
+        if args.int8:
+            logging.warning("--int8 is ignored for .pt2 programs (the program's precision is "
+                            "fixed at export time); export with --int8 for an int8 program, "
+                            "which serves here with no flags")
+            args.int8 = False
+        predictor = ExportedPredictor.from_file(
+            args.model, device=args.device, batch_size=args.batch_size,
+            tile=512 if args.tile is None else args.tile, tile_halo=args.tile_halo,
+            tile_threshold=args.tile_threshold)
+    else:
+        state_dict, _ = load_weights(args.model)
+        compute_dtype = torch.bfloat16 if args.device.startswith("cuda") else None
+        model = get_model(args.arch, n_channels=1, n_classes=args.classes,
+                          bilinear=args.bilinear, compute_dtype=compute_dtype)
+        model.load_state_dict(state_dict)
+        predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
+                              tile=args.tile, tile_halo=args.tile_halo,
+                              tile_threshold=args.tile_threshold, quantize=args.int8)
     logging.info("Model loaded on %s", predictor.device)
     scales = args.int8_scales if args.int8 else None
     if scales and os.path.exists(scales):

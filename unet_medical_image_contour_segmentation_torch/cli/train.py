@@ -4,16 +4,20 @@
     python -m unet_medical_image_contour_segmentation_torch.cli.train \\
         --data-root data/ --epochs 5 --batch-size 8 --model unet_s
 
-The flags of the JAX package's ``cli/train.py`` that the port serves, with
-its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
-compute): the imgs/{train,val} + masks/{train,val} layout under
-``--data-root``, ``--load`` of a ``.npz`` checkpoint of either package (a
-full resume: weights, BN statistics, optimizer state, step), of ``latest``
-in ``./checkpoints``, or of a reference ``.pth`` (weights and BN statistics
-only).  The other flags (parallelism, multi-host, rematerialisation and the
-out-of-memory retry that uses it, the bilinear and other models, the binary
-and connected-component losses, the sample caches) are rejected with an
-error until they are ported.
+The flags of the JAX package's ``cli/train.py`` for single-device training,
+with its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
+compute, a 2 GB decoded-sample RAM cache): the imgs/{train,val} +
+masks/{train,val} layout under ``--data-root``; ``--model`` over the UNet
+family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``) and ``--bilinear``;
+``--classes 1`` for the binary BCE + Dice + boundary criterion and
+``--cc-loss`` for its connected-component penalty; ``--remat``;
+``--sample-cache-gb`` and ``--disk-cache-dir``; ``--load`` of a ``.npz``
+checkpoint of either package (a full resume: weights, BN statistics,
+optimizer state, step), of ``latest`` in ``./checkpoints``, or of a
+reference ``.pth`` (weights and BN statistics of the UNet the flags name).
+As the JAX CLI does, a run that runs out of device memory is run again
+from the start with ``remat`` on.  UNet++, YOLOv8-seg and the parallel and
+multi-host flags are rejected with an error until they are ported.
 """
 
 from __future__ import annotations
@@ -24,14 +28,12 @@ import sys
 
 # flags of the JAX CLI that the port does not serve yet
 _NOT_PORTED = {
-    "--bilinear": "bilinear UNets", "--num-devices": "data parallelism",
-    "--spatial-shards": "spatial parallelism", "--remat": "rematerialisation",
-    "--sample-cache-gb": "the decoded-sample RAM cache",
-    "--disk-cache-dir": "the decoded-sample disk cache",
-    "--cc-loss": "the connected-component penalty", "--distributed": "multi-host training",
-    "--coordinator-address": "multi-host training", "--num-processes": "multi-host training",
-    "--process-id": "multi-host training",
+    "--num-devices": "data parallelism", "--spatial-shards": "spatial parallelism",
+    "--distributed": "multi-host training", "--coordinator-address": "multi-host training",
+    "--num-processes": "multi-host training", "--process-id": "multi-host training",
 }
+# models of the JAX CLI's --model that the port does not have yet
+_MODELS_NOT_PORTED = ("unet_pp", "unet_pp_s", "yolov8_seg_s")
 
 
 def get_args(argv=None):
@@ -57,14 +59,28 @@ def get_args(argv=None):
     parser.add_argument("--no-val-postprocess", dest="val_postprocess",
                         action="store_false", default=True,
                         help="Skip the cv2 post-processed Dice during validation")
-    parser.add_argument("--classes", "-c", type=int, default=3, help="Number of classes")
-    parser.add_argument("--model", "-m", default="unet_s", choices=["unet", "unet_t", "unet_s"],
+    parser.add_argument("--bilinear", action="store_true", default=False,
+                        help="Use bilinear upsampling")
+    parser.add_argument("--classes", "-c", type=int, default=3,
+                        help="Number of classes (1: the binary boundary criterion)")
+    parser.add_argument("--model", "-m", default="unet_s",
+                        choices=["unet", "unet_t", "unet_s", "unet_sa", *_MODELS_NOT_PORTED],
                         help="Model variant")
     parser.add_argument("--data-root", default="data/data-without-black-shadow")
+    parser.add_argument("--remat", action="store_true", default=False,
+                        help="Rematerialize blocks (activation checkpointing)")
+    parser.add_argument("--sample-cache-gb", type=float, default=2.0,
+                        help="RAM budget for decoded samples (0 disables)")
+    parser.add_argument("--disk-cache-dir", default=None,
+                        help="Persistent decoded-sample cache directory (.npz per "
+                             "id/rotation/scale, mtime-validated)")
     parser.add_argument("--nan-check-every", type=int, default=1,
                         help="Steps between NaN-guard/metric fetches")
     parser.add_argument("--no-scheduler-quirk", dest="scheduler_quirk", action="store_false",
                         default=True, help="Step the LR schedule by epoch instead of by Dice")
+    parser.add_argument("--cc-loss", action="store_true", default=False,
+                        help="Add the connected-component penalty to the binary loss "
+                             "(a host term on the logged value, no gradient)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
     for flag in _NOT_PORTED:
@@ -75,9 +91,19 @@ def get_args(argv=None):
         if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
             parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
                          "use the JAX package's umics-train")
-    if args.classes == 1:
-        parser.error("--classes 1: the binary loss is not ported to the PyTorch package yet")
+    if args.model in _MODELS_NOT_PORTED:
+        parser.error(f"--model {args.model} is not ported to the PyTorch package yet; "
+                     "use the JAX package's umics-train")
     return args
+
+
+def _out_of_memory(e: BaseException) -> bool:
+    """The JAX CLI's test, plus torch's own out-of-memory error."""
+    import torch
+
+    return isinstance(e, torch.cuda.OutOfMemoryError) or (
+        isinstance(e, RuntimeError)
+        and ("RESOURCE_EXHAUSTED" in str(e) or "Out of memory" in str(e)))
 
 
 def main(argv=None) -> int:
@@ -89,12 +115,16 @@ def main(argv=None) -> int:
     from ..engine.train import train_model
     from ..models.torch_compat import params_from_state_dict
 
-    cfg = TrainConfig(model=args.model, classes=args.classes, data_root=args.data_root,
+    cfg = TrainConfig(model=args.model, classes=args.classes, bilinear=args.bilinear,
+                      remat=args.remat, data_root=args.data_root,
                       scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
                       learning_rate=args.lr, amp=args.amp, scheduler_quirk=args.scheduler_quirk,
-                      load=args.load, save_val_predictions=args.save_val_predictions,
+                      cc_loss=args.cc_loss, load=args.load,
+                      save_val_predictions=args.save_val_predictions,
                       val_postprocess=args.val_postprocess,
-                      nan_check_every=args.nan_check_every)
+                      nan_check_every=args.nan_check_every,
+                      sample_cache_bytes=int(args.sample_cache_gb * 1e9),
+                      disk_cache_dir=args.disk_cache_dir)
 
     state = None
     if cfg.load == "latest":
@@ -105,12 +135,30 @@ def main(argv=None) -> int:
         if str(cfg.load).endswith(".npz"):
             state = load_checkpoint(cfg.load)  # weights, BN stats, optimizer state, step
         else:
-            state_dict, _ = load_weights(cfg.load)  # reference .pth: weights + BN stats
+            # reference .pth: weights + BN stats of the UNet the flags name
+            state_dict, _ = load_weights(cfg.load, bilinear=cfg.bilinear,
+                                         use_attention=cfg.model == "unet_sa")
             params, bn_state, _ = params_from_state_dict(state_dict)
             state = {"params": params, "bn_state": bn_state, "opt_state": None, "step": 0}
         logging.info("Model loaded from %s", cfg.load)
 
-    train_model(cfg, state=state, device=args.device)
+    # the retry runs outside the handler, so that the failed run's traceback
+    # (and the tensors its frames hold) is gone before it starts
+    out_of_memory = False
+    try:
+        train_model(cfg, state=state, device=args.device)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+        if not _out_of_memory(e):
+            raise
+        out_of_memory = True
+    if out_of_memory:
+        import torch
+
+        logging.error("Detected OutOfMemoryError! Enabling rematerialization to reduce "
+                      "memory usage, but this slows down training.")
+        torch.cuda.empty_cache()
+        cfg.remat = True
+        train_model(cfg, state=state, device=args.device)
     return 0
 
 

@@ -5,13 +5,27 @@ scan, 4x rotation augmentation (original + 90/180/270 with expand), PIL
 NEAREST/BICUBIC scale resize, mask value map {255->2, 128->1, 0->0}, /255
 image normalisation; samples come out channel-last, ``{"image": (H, W, 1)
 float32, "mask": (H, W) int32}``.  PIL is imported where it is used, so the
-package imports on machines without it.  The decoded-sample caches (RAM and
-disk) are not ported yet: asking for one raises ``NotImplementedError``.
+package imports on machines without it.
+
+Two optional caches of decoded samples, as the JAX package's (the decode and
+the bicubic resize are deterministic per index, so both give the same
+pixels):
+
+* ``cache_bytes > 0``: a RAM cache, filled until its byte budget is spent
+  and never evicted (access is cyclic per epoch, so eviction would churn);
+  epochs from the second on skip the decode.  A lock keeps the budget exact
+  under the loader's threads.
+* ``disk_cache_dir``: one ``.npz`` per (id, rotation, scale), written
+  atomically and read back only while the source files' mtimes equal the
+  ones stored beside the pixels (a stale or unreadable entry is decoded and
+  written again), so it also speeds up the first epoch and a new run.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from os import listdir
 from os.path import isfile, join, splitext
@@ -55,9 +69,6 @@ class BasicDataset:
 
     def __init__(self, images_dir, mask_dir, scale: float = 1.0, mask_suffix: str = "_mask",
                  augment: bool = True, cache_bytes: int = 0, disk_cache_dir=None):
-        if cache_bytes > 0 or disk_cache_dir:
-            raise NotImplementedError("the decoded-sample RAM and disk caches are not "
-                                      "ported yet; pass cache_bytes=0, disk_cache_dir=None")
         self.images_dir = Path(images_dir)
         self.mask_dir = Path(mask_dir)
         if not 0 < scale <= 1:
@@ -65,6 +76,13 @@ class BasicDataset:
         self.scale = scale
         self.mask_suffix = mask_suffix
         self.augment = augment
+        self._disk_cache_dir = Path(disk_cache_dir) if disk_cache_dir else None
+        if self._disk_cache_dir is not None:
+            self._disk_cache_dir.mkdir(parents=True, exist_ok=True)
+        self._cache = {} if cache_bytes > 0 else None
+        self._cache_budget = int(cache_bytes)
+        self._cache_used = 0
+        self._cache_lock = threading.Lock()
 
         self.ids = [splitext(f)[0] for f in listdir(images_dir)
                     if isfile(join(images_dir, f)) and not f.startswith(".")]
@@ -114,7 +132,44 @@ class BasicDataset:
     def rotate_image_and_mask(img, mask, angle: int):
         return img.rotate(angle, expand=True), mask.rotate(angle, expand=True)
 
+    def _disk_cache_load(self, path: Path, img_file: Path, mask_file: Path):
+        """The cached sample, or None for a missing, stale or unreadable entry."""
+        try:
+            with np.load(path) as z:
+                if (float(z["img_mtime"]) != img_file.stat().st_mtime
+                        or float(z["mask_mtime"]) != mask_file.stat().st_mtime):
+                    return None  # a source changed since the entry was written
+                return {"image": z["image"], "mask": z["mask"]}
+        except (OSError, KeyError, ValueError, EOFError):
+            return None
+
+    def _disk_cache_store(self, path: Path, sample, img_file: Path, mask_file: Path) -> None:
+        # through a file handle (np.savez appends ".npz" to a bare name), then
+        # renamed into place, so no loader thread reads a partial entry
+        tmp = path.with_name(path.name + f".tmp{os.getpid()}.{threading.get_ident()}")
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, image=sample["image"], mask=sample["mask"],
+                         img_mtime=img_file.stat().st_mtime,
+                         mask_mtime=mask_file.stat().st_mtime)
+            os.replace(tmp, path)
+        except OSError:
+            log.warning("disk cache write failed for %s", path, exc_info=True)
+
+    def _ram_cache_insert(self, idx: int, sample):
+        if self._cache is not None:
+            nb = sample["image"].nbytes + sample["mask"].nbytes
+            with self._cache_lock:
+                if idx not in self._cache and self._cache_used + nb <= self._cache_budget:
+                    self._cache[idx] = sample
+                    self._cache_used += nb
+        return sample
+
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        if self._cache is not None:
+            hit = self._cache.get(idx)
+            if hit is not None:
+                return hit  # the loader stacks samples into new batches, never mutates
         original_idx = idx // 4 if self.augment else idx
         rotation_idx = idx % 4 if self.augment else 0
 
@@ -125,6 +180,13 @@ class BasicDataset:
             raise ValueError(f"expected exactly one image for id {name!r}, got {img_file}")
         if len(mask_file) != 1:
             raise ValueError(f"expected exactly one mask for id {name!r}, got {mask_file}")
+
+        cache_path = None
+        if self._disk_cache_dir is not None:
+            cache_path = self._disk_cache_dir / f"{name}.r{rotation_idx}.s{self.scale:g}.npz"
+            sample = self._disk_cache_load(cache_path, img_file[0], mask_file[0])
+            if sample is not None:
+                return self._ram_cache_insert(idx, sample)
 
         mask = load_image(mask_file[0])
         img = load_image(img_file[0])
@@ -138,4 +200,7 @@ class BasicDataset:
         mask_a = self.preprocess(self.mask_values, mask, self.scale, is_mask=True)
         if not np.all((mask_a >= 0) & (mask_a <= 2)):
             raise ValueError("mask holds values outside the class range {0,1,2}")
-        return {"image": img_a, "mask": mask_a.astype(np.int32)}
+        sample = {"image": img_a, "mask": mask_a.astype(np.int32)}
+        if cache_path is not None:
+            self._disk_cache_store(cache_path, sample, img_file[0], mask_file[0])
+        return self._ram_cache_insert(idx, sample)

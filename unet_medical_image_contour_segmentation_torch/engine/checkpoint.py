@@ -96,10 +96,27 @@ def load_checkpoint(path: str) -> dict:
     }
 
 
-def load_weights(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:
-    """``.pth``/``.pt`` or ``.npz`` -> (the port's state_dict, mask_values)."""
+def load_weights(path: str, *, bilinear: bool = False, use_attention: bool = False
+                 ) -> Tuple[Dict[str, torch.Tensor], Optional[list]]:
+    """``.pth``/``.pt`` or ``.npz`` -> (the port's state_dict, mask_values).
+
+    The flags are the JAX package's (``engine/checkpoint.py:load_weights``):
+    a reference ``.pth`` is read as the weights of the UNet they name, so
+    that ``get_model(..., bilinear=, use_attention=)`` takes the state_dict
+    with a plain ``load_state_dict``: ``bilinear`` drops any ConvTranspose
+    ``up{i}.up.*`` entry (JAX reads none), ``use_attention`` requires the
+    ``up{i}.attention.conv1.weight`` entries (KeyError if one is missing).
+    Without flags the state_dict comes back as the file holds it.  An
+    ``.npz`` carries its own structure and loads as it is."""
     if str(path).endswith((".pth", ".pt")):
-        return load_pth(path)
+        sd, mask_values = load_pth(path)
+        for i in range(1, 5):
+            if bilinear:
+                for k in [k for k in sd if k.startswith(f"up{i}.up.")]:
+                    del sd[k]
+            if use_attention and f"up{i}.attention.conv1.weight" not in sd:
+                raise KeyError(f"{path}: no up{i}.attention.conv1.weight for use_attention")
+        return sd, mask_values
     ck = load_checkpoint(path)
     return state_dict_from_jax(ck["params"], ck["bn_state"]), ck["mask_values"]
 

@@ -29,7 +29,10 @@ from an f32 BN fold, and every DoubleConv conv runs on the int8 kernel
 where the JAX package's rules send it there: H or W not a multiple of 16, or
 a dense batch smaller than ``INT8_MIN_BATCH`` of its architecture.
 
-Data-parallel serving and exported-program serving are not ported yet.
+:class:`ExportedPredictor` serves a ``torch.export`` program
+(``engine/export.py``, the ``.pt2`` counterpart of the JAX package's
+StableHLO): the same dense and tiled paths around the program's forward.
+Data-parallel serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ..models.quantize import apply_int8, build_qparams, calibrate_amax, folded_
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
 
-__all__ = ["Predictor", "mask_to_image", "collect_image_files"]
+__all__ = ["Predictor", "ExportedPredictor", "mask_to_image", "collect_image_files"]
 
 log = logging.getLogger(__name__)
 
@@ -84,19 +87,12 @@ def _norm_uint8(x: torch.Tensor) -> torch.Tensor:
     return xf / torch.where(mx > 1, 255.0, 1.0)
 
 
-class Predictor:
-    """Batched predictor for a fixed UNet.
-
-    ``device`` defaults to ``cuda`` (raising when there is no card);
-    ``compute_dtype`` defaults to the model's own.  Every BatchNorm is folded
-    into its conv (exact in eval mode) on a copy of the model.  ``tile``,
-    ``tile_halo`` and ``tile_threshold`` set the tiled path (see the module
-    docstring): ``tile=None`` picks the tile per image (:meth:`_auto_tile`),
-    ``tile_threshold=None`` takes ``TILE_THRESHOLD`` and 0 never tiles.
-    ``quantize=True`` serves in int8 (see the module docstring); the
-    calibration is a small JSON of per-tap amax floats, in the JAX package's
-    format (:meth:`save_calibration`, :meth:`load_calibration`).
-    """
+class _Serving:
+    """The dense and tiled serving paths (see the module docstring) around a
+    forward that a subclass gives: :meth:`_logits` maps (N, H, W, C) float
+    on the device to f32 logits, :meth:`_dense_logits` is the dense path's
+    forward (the same by default), :meth:`_classes` the class map, and
+    :meth:`_prepare` sees every batch before it is served."""
 
     # dense-path pixel budget: above it, predict tiles the image; 0 = never
     TILE_THRESHOLD = 1536 * 1536
@@ -113,115 +109,36 @@ class Predictor:
     # False: one forward per tile, stitched on the host (the reference the
     # device grid is tested against)
     tile_on_device = True
-    # the smallest dense batch served in int8, per architecture (the JAX
-    # package's map); smaller batches serve the float program.  The tiled
-    # path is not gated: it runs tile_batch windows a forward.  The card's
-    # int8 / bf16 times at b = 1..8 are in PERF.md (chip_smoke.py's sweep).
-    INT8_MIN_BATCH: Dict[str, int] = {"unet_sa": 4}
-    # the spatial divisor of the int8 program and of the calibration crop
-    INT8_DIVISOR = 16
 
-    def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
-                 compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
-                 tile: Optional[int] = None, tile_halo: int = 96,
-                 tile_threshold: Optional[int] = None, quantize: bool = False):
+    def __init__(self, device: Optional[Union[str, torch.device]], batch_size: int,
+                 tile: Optional[int], tile_halo: int, tile_threshold: Optional[int]):
         self.device = resolve_device(device)
         self.batch_size = batch_size
-        self.n_classes = model.n_classes
         self.tile = tile
         self.tile_halo = tile_halo
         self.tile_threshold = self.TILE_THRESHOLD if tile_threshold is None else tile_threshold
-        cd = model.compute_dtype if compute_dtype is None else compute_dtype
-        net = fold_bn(model, cd)
-        net.compute_dtype = cd
-        self.model = net.to(self.device)
-        self.compute_dtype = cd
-        self.arch = getattr(model, "name", "")
-        self.quantize = quantize
-        self._qparams: Optional[dict] = None
-        self._amax: Optional[Dict[str, float]] = None
-        # quantisation reads an f32 fold (the JAX package quantises f32
-        # folded params), never self.model's fold in the compute dtype
-        self._qfolded = folded_tree(fold_bn(model, torch.float32)) if quantize else None
-
-    # -- int8 serving (models/quantize.py) ----------------------------------
-
-    def calibrate(self, images: np.ndarray) -> None:
-        """Calibrate the int8 activation scales on (B, H, W[, C]) float or
-        uint8 images, cut to multiples of 16 (per-tensor scales do not depend
-        on the cut): the float fold's forward in the compute dtype."""
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        div = self.INT8_DIVISOR
-        hc, wc = x.shape[1] // div * div, x.shape[2] // div * div
-        if hc < div or wc < div:
-            raise ValueError(f"calibration images too small: {tuple(x.shape)}")
-        x = x[:, :hc, :wc].contiguous().to(self.device)
-        self._set_amax(calibrate_amax(folded_tree(self.model), x, self.compute_dtype))
-
-    def _set_amax(self, amax: Dict[str, float]) -> None:
-        """Build the int8 qparams on the device from calibration amaxes."""
-        if self._qfolded is None:
-            raise ValueError("int8 serving needs a Predictor built with quantize=True")
-        self._qparams = build_qparams(self._qfolded, amax, self.device)
-        self._amax = dict(amax)
-
-    def save_calibration(self, path: str) -> None:
-        """Write the calibration as JSON ({tap: amax}); the int8 weights
-        rebuild from it deterministically."""
-        if self._amax is None:
-            raise ValueError("not calibrated yet: call calibrate() or predict one batch first")
-        with open(path, "w") as f:
-            json.dump(self._amax, f, indent=1, sort_keys=True)
-
-    def load_calibration(self, path: str) -> None:
-        """Load a calibration written by :meth:`save_calibration` (or by the
-        JAX package's)."""
-        with open(path) as f:
-            self._set_amax(json.load(f))
-
-    def _ensure_quantized(self, images: np.ndarray) -> None:
-        """First-batch auto-calibration on at most 4 images; a batch whose
-        16-multiple cut is under 32 pixels (the bottleneck would vanish) is
-        skipped and serves in float."""
-        if not self.quantize or self._qparams is not None:
-            return
-        div = self.INT8_DIVISOR
-        if min(images.shape[1] // div, images.shape[2] // div) * div >= 32:
-            self.calibrate(images[:4])
-
-    def _int8_min_batch(self) -> int:
-        return self.INT8_MIN_BATCH.get(self.arch, 1)
-
-    def _int8_ok(self, h: int, w: int) -> bool:
-        """Calibrated, and H and W multiples of 16 (else the float program)."""
-        return (self._qparams is not None and h % self.INT8_DIVISOR == 0
-                and w % self.INT8_DIVISOR == 0)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) float on the device -> f32 logits, int8 where
-        :meth:`_int8_ok`, else the float fold."""
-        if self._int8_ok(x.shape[1], x.shape[2]):
-            return apply_int8(self._qparams, x, self.compute_dtype)
-        return self.model(x)
+        raise NotImplementedError
+
+    def _dense_logits(self, x: torch.Tensor, gate_batch: int) -> torch.Tensor:
+        return self._logits(x)
 
     def _classes(self, logits: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, n_classes) logits -> (B, H, W) int32 classes."""
-        if self.n_classes == 1:
-            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
+        """(B, H, W, C) logits -> (B, H, W) int32 classes."""
         return logits.argmax(dim=-1).int()
+
+    def _prepare(self, images: np.ndarray) -> None:
+        pass
 
     @torch.inference_mode()
     def _forward(self, images: np.ndarray, out_hw: Tuple[int, int],
                  gate_batch: int) -> torch.Tensor:
-        """One batch -> (B, outH, outW) int32 class map, left on the device;
-        int8 when ``gate_batch`` reaches ``INT8_MIN_BATCH``."""
+        """One batch -> (B, outH, outW) int32 class map, left on the device,
+        through :meth:`_dense_logits` with ``gate_batch``."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        if gate_batch >= self._int8_min_batch():
-            logits = self._logits(x)
-        else:
-            logits = self.model(x)
+        logits = self._dense_logits(x, gate_batch)
         if tuple(logits.shape[1:3]) != tuple(out_hw):
             logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
         return self._classes(logits)
@@ -241,7 +158,8 @@ class Predictor:
 
     def _tile_core(self, windows: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
         """(N, win, win, C) float windows -> (N, tile, tile) int32 classes of
-        their central cores (int8 where :meth:`_int8_ok`, at any batch)."""
+        their central cores, through :meth:`_logits` at any batch (no int8
+        gate)."""
         logits = self._logits(windows)
         return self._classes(logits[:, halo:halo + tile, halo:halo + tile])
 
@@ -315,11 +233,12 @@ class Predictor:
     def _predict_device(self, images: np.ndarray, out_hw: Optional[Tuple[int, int]] = None,
                         gate_batch: Optional[int] = None) -> torch.Tensor:
         """One batch of one size -> its class map (B, outH, outW), tiled or
-        dense, left where it was computed.  The dense path serves int8 when
-        ``gate_batch`` (this batch's size when None) reaches ``INT8_MIN_BATCH``."""
+        dense, left where it was computed.  The dense path hands
+        ``gate_batch`` (this batch's size when None) to :meth:`_dense_logits`,
+        where :class:`Predictor` gates int8 on it."""
         in_hw = tuple(images.shape[1:3])
         out_hw = tuple(out_hw or in_hw)
-        self._ensure_quantized(images)
+        self._prepare(images)
         if self._use_tiling(in_hw, out_hw):
             return self._tiled_predict(images)
         return self._forward(images, out_hw, len(images) if gate_batch is None else gate_batch)
@@ -334,7 +253,7 @@ class Predictor:
         ``batch_size`` only to bound device memory, each chunk on that one
         program.  (``predict_paths`` gates each batch, as JAX's does.)"""
         images = np.asarray(images)
-        self._ensure_quantized(images)
+        self._prepare(images)
         preds = [self._predict_device(images[i:i + self.batch_size], out_hw, len(images))
                  .cpu().numpy() for i in range(0, len(images), self.batch_size)]
         return np.concatenate(preds).astype(np.int32, copy=False)
@@ -419,3 +338,160 @@ class Predictor:
             for f in futures:
                 f.result()
         return results
+
+class Predictor(_Serving):
+    """Batched predictor for a fixed UNet.
+
+    ``device`` defaults to ``cuda`` (raising when there is no card);
+    ``compute_dtype`` defaults to the model's own.  Every BatchNorm is folded
+    into its conv (exact in eval mode) on a copy of the model.  ``tile``,
+    ``tile_halo`` and ``tile_threshold`` set the tiled path (see the module
+    docstring): ``tile=None`` picks the tile per image (:meth:`_auto_tile`),
+    ``tile_threshold=None`` takes ``TILE_THRESHOLD`` and 0 never tiles.
+    ``quantize=True`` serves in int8 (see the module docstring); the
+    calibration is a small JSON of per-tap amax floats, in the JAX package's
+    format (:meth:`save_calibration`, :meth:`load_calibration`).
+    """
+
+    # the smallest dense batch served in int8, per architecture (the JAX
+    # package's map); smaller batches serve the float program.  The tiled
+    # path is not gated: it runs tile_batch windows a forward.  The card's
+    # int8 / bf16 times at b = 1..8 are in PERF.md (chip_smoke.py's sweep).
+    INT8_MIN_BATCH: Dict[str, int] = {"unet_sa": 4}
+    # the spatial divisor of the int8 program and of the calibration crop
+    INT8_DIVISOR = 16
+
+    def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
+                 compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
+                 tile: Optional[int] = None, tile_halo: int = 96,
+                 tile_threshold: Optional[int] = None, quantize: bool = False):
+        super().__init__(device, batch_size, tile, tile_halo, tile_threshold)
+        self.n_classes = model.n_classes
+        cd = model.compute_dtype if compute_dtype is None else compute_dtype
+        net = fold_bn(model, cd)
+        net.compute_dtype = cd
+        self.model = net.to(self.device)
+        self.compute_dtype = cd
+        self.arch = getattr(model, "name", "")
+        self.quantize = quantize
+        self._qparams: Optional[dict] = None
+        self._amax: Optional[Dict[str, float]] = None
+        # quantisation reads an f32 fold (the JAX package quantises f32
+        # folded params), never self.model's fold in the compute dtype
+        self._qfolded = folded_tree(fold_bn(model, torch.float32)) if quantize else None
+
+    # -- int8 serving (models/quantize.py) ----------------------------------
+
+    def calibrate(self, images: np.ndarray) -> None:
+        """Calibrate the int8 activation scales on (B, H, W[, C]) float or
+        uint8 images, cut to multiples of 16 (per-tensor scales do not depend
+        on the cut): the float fold's forward in the compute dtype."""
+        x = torch.from_numpy(np.ascontiguousarray(images))
+        x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
+        div = self.INT8_DIVISOR
+        hc, wc = x.shape[1] // div * div, x.shape[2] // div * div
+        if hc < div or wc < div:
+            raise ValueError(f"calibration images too small: {tuple(x.shape)}")
+        x = x[:, :hc, :wc].contiguous().to(self.device)
+        self._set_amax(calibrate_amax(folded_tree(self.model), x, self.compute_dtype))
+
+    def _set_amax(self, amax: Dict[str, float]) -> None:
+        """Build the int8 qparams on the device from calibration amaxes."""
+        if self._qfolded is None:
+            raise ValueError("int8 serving needs a Predictor built with quantize=True")
+        self._qparams = build_qparams(self._qfolded, amax, self.device)
+        self._amax = dict(amax)
+
+    def save_calibration(self, path: str) -> None:
+        """Write the calibration as JSON ({tap: amax}); the int8 weights
+        rebuild from it deterministically."""
+        if self._amax is None:
+            raise ValueError("not calibrated yet: call calibrate() or predict one batch first")
+        with open(path, "w") as f:
+            json.dump(self._amax, f, indent=1, sort_keys=True)
+
+    def load_calibration(self, path: str) -> None:
+        """Load a calibration written by :meth:`save_calibration` (or by the
+        JAX package's)."""
+        with open(path) as f:
+            self._set_amax(json.load(f))
+
+    def _prepare(self, images: np.ndarray) -> None:
+        """First-batch auto-calibration on at most 4 images; a batch whose
+        16-multiple cut is under 32 pixels (the bottleneck would vanish) is
+        skipped and serves in float."""
+        if not self.quantize or self._qparams is not None:
+            return
+        div = self.INT8_DIVISOR
+        if min(images.shape[1] // div, images.shape[2] // div) * div >= 32:
+            self.calibrate(images[:4])
+
+    def _int8_min_batch(self) -> int:
+        return self.INT8_MIN_BATCH.get(self.arch, 1)
+
+    def _int8_ok(self, h: int, w: int) -> bool:
+        """Calibrated, and H and W multiples of 16 (else the float program)."""
+        return (self._qparams is not None and h % self.INT8_DIVISOR == 0
+                and w % self.INT8_DIVISOR == 0)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) float on the device -> f32 logits, int8 where
+        :meth:`_int8_ok`, else the float fold."""
+        if self._int8_ok(x.shape[1], x.shape[2]):
+            return apply_int8(self._qparams, x, self.compute_dtype)
+        return self.model(x)
+
+    def _dense_logits(self, x: torch.Tensor, gate_batch: int) -> torch.Tensor:
+        """The dense forward: :meth:`_logits` when ``gate_batch`` reaches
+        ``INT8_MIN_BATCH``, else the float fold."""
+        if gate_batch >= self._int8_min_batch():
+            return self._logits(x)
+        return self.model(x)
+
+    def _classes(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, n_classes) logits -> (B, H, W) int32 classes."""
+        if self.n_classes == 1:
+            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
+        return super()._classes(logits)
+
+class ExportedPredictor(_Serving):
+    """The serving paths of :class:`Predictor` around an exported program
+    (``.pt2`` bytes, a path, or a loaded ExportedProgram), the counterpart
+    of the JAX package's ``StableHLOPredictor``: BN folding, the compute
+    dtype and int8 were fixed at export time and the program maps (B, H, W,
+    C) f32 images to logits.  uint8 images are normalised on the host (the
+    program's input is f32), the classes are the argmax of the logits (as
+    JAX's), and the tiled path uses a fixed tile of 512 by default (an int8
+    program has one static window size: ``tile + 2 * tile_halo``).  The
+    program runs on the device it was exported on, which ``device`` must
+    name."""
+
+    def __init__(self, exported, *, device: Optional[Union[str, torch.device]] = None,
+                 batch_size: int = 8, tile: Optional[int] = 512, tile_halo: int = 96,
+                 tile_threshold: Optional[int] = None):
+        from .export import load_exported
+
+        super().__init__(device, batch_size, tile, tile_halo, tile_threshold)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        program = load_exported(exported) if isinstance(exported, (bytes, bytearray, str)) \
+            else exported
+        self.model = program.module()
+        held = {t.device for t in self.model.state_dict().values()}
+        if held and held != {self.device}:
+            raise ValueError(f"the program holds its weights on {sorted(map(str, held))}; "
+                             f"it serves there, not on {self.device}")
+
+    @classmethod
+    def from_file(cls, path: str, **kw) -> "ExportedPredictor":
+        with open(path, "rb") as f:
+            return cls(f.read(), **kw)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x if x.dim() == 4 else x.unsqueeze(-1)).float()
+
+    def _predict_device(self, images: np.ndarray, out_hw: Optional[Tuple[int, int]] = None,
+                        gate_batch: Optional[int] = None) -> torch.Tensor:
+        if images.dtype == np.uint8:
+            images = _norm_uint8(torch.from_numpy(images)).numpy()
+        return super()._predict_device(images, out_hw, gate_batch)

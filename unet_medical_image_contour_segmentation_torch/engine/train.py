@@ -16,12 +16,18 @@ new state, the port updates the model and the optimizer in place.
 * checkpoints every ``checkpoint_every`` epochs past ``checkpoint_after_frac``
   of the run, and the final ``model_epoch{N}.npz``, with the optimizer state.
 
-Single device only: data and spatial parallelism, rematerialisation,
-training the bilinear UNet or unet_sa (both serve), the binary loss and the
-connected-component penalty raise ``NotImplementedError`` until they are
-ported.  tqdm, PIL and cv2 are
+* with ``cc_loss`` (binary models only), the connected-component penalty
+  scored on the host on that same delayed fetch and added to the logged
+  loss value, never to the gradient (JAX's ``check_nan``); the fetch window
+  is then clamped to 8 steps, since each queued step holds a (B, H, W)
+  probability map on the card.
+
+The whole UNet family trains (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``,
+bilinear or ConvTranspose ups, ``remat``), with the binary or multiclass
+criterion.  Single device only: data and spatial parallelism raise
+``NotImplementedError`` until they are ported.  tqdm, PIL and cv2 are
 imported only on the paths that use them (progress bars, prediction dumps,
-post-processed Dice).
+post-processed Dice, the connected-component penalty).
 """
 
 from __future__ import annotations
@@ -59,8 +65,10 @@ class TrainStep:
 
     ``batch`` holds ``image`` (B, H, W[, C]) float and ``mask`` (B, H, W)
     integer tensors on the model's device.  The metrics (``ce``, ``dice``,
-    ``loss``, ``grad_norm``, ``lr``) are 0-d f32 tensors on that device;
-    nothing in the step waits for the card.  ``step`` counts the steps taken.
+    ``loss``, ``grad_norm``, ``lr``; ``boundary`` for the binary loss) are 0-d
+    f32 tensors on that device, and ``cc_probs`` a (B, H, W) map when the
+    loss config emits it; nothing in the step waits for the card.  ``step``
+    counts the steps taken.
     """
 
     def __init__(self, model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConfig,
@@ -100,11 +108,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     unported = {
         "num_devices > 1 (data parallelism)": (cfg.num_devices or 1) > 1,
         "spatial_shards > 1 (spatial parallelism)": cfg.spatial_shards > 1,
-        "cc_loss (the connected-component penalty)": cfg.cc_loss,
-        "classes == 1 (the binary BCE + Dice + boundary loss)": cfg.classes == 1,
-        "remat (activation checkpointing)": cfg.remat,
-        "bilinear (the bilinear UNet)": cfg.bilinear,
-        "model unet_sa (the attention UNet)": cfg.model == "unet_sa",
     }
     asked = [what for what, on in unported.items() if on]
     if asked:
@@ -132,17 +135,24 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     from ..utils.metrics import MetricLogger
 
     _refuse_unported(cfg)
+    if cfg.cc_loss and cfg.classes != 1:
+        # the penalty is part of the binary loss only (the reference ships it
+        # commented out inside its n_classes == 1 branch)
+        log.warning("--cc-loss has no effect with classes=%d: the connected-component "
+                    "penalty is part of the binary (classes=1) loss only", cfg.classes)
     device = resolve_device(device)
     if model is None:
         model = get_model(cfg.model, n_channels=cfg.n_channels, n_classes=cfg.classes,
-                          bilinear=cfg.bilinear,
+                          bilinear=cfg.bilinear, remat=cfg.remat,
                           compute_dtype=torch.bfloat16 if cfg.amp else None)
     if train_set is None:
         root = Path(cfg.data_root)
-        kw = dict(augment=cfg.augment, cache_bytes=cfg.sample_cache_bytes,
-                  disk_cache_dir=cfg.disk_cache_dir)
-        train_set = BasicDataset(root / "imgs/train", root / "masks/train", cfg.scale, **kw)
-        val_set = BasicDataset(root / "imgs/val", root / "masks/val", cfg.scale, **kw)
+        dc = Path(cfg.disk_cache_dir) if cfg.disk_cache_dir else None
+        kw = dict(augment=cfg.augment, cache_bytes=cfg.sample_cache_bytes)
+        train_set = BasicDataset(root / "imgs/train", root / "masks/train", cfg.scale,
+                                 disk_cache_dir=dc / "train" if dc else None, **kw)
+        val_set = BasicDataset(root / "imgs/val", root / "masks/val", cfg.scale,
+                               disk_cache_dir=dc / "val" if dc else None, **kw)
     if mask_values is None:
         mask_values = (list(getattr(train_set, "mask_values", []))
                        + list(getattr(val_set, "mask_values", [])))
@@ -158,7 +168,8 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
 
     loss_cfg = LossConfig(n_classes=model.n_classes, boundary_weight=cfg.boundary_weight,
                           boundary_edge_width=cfg.boundary_edge_width,
-                          boundary_edge_weight=cfg.boundary_edge_weight)
+                          boundary_edge_weight=cfg.boundary_edge_weight,
+                          connected_component=cfg.cc_loss, cc_emit_probs=True)
     opt_cfg = RMSpropConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
                             momentum=cfg.momentum)
     if state is not None:
@@ -173,21 +184,37 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     mlog = MetricLogger(cfg.metrics_path, backends=metric_backends)
     lr = cfg.learning_rate  # the scheduler sets the base lr at construction
     nan_check_every = max(1, cfg.nan_check_every)
-    if nan_check_every > 256:
+    if cfg.cc_loss and nan_check_every > 8:
+        log.warning("nan_check_every=%d clamped to 8: --cc-loss queues a full probability "
+                    "map per pending step", nan_check_every)
+        nan_check_every = 8
+    elif nan_check_every > 256:
         log.warning("nan_check_every=%d is very large: the NaN guard will lag training by "
                     "as many steps", nan_check_every)
     pending = []  # (global step, device metrics), fetched nan_check_every steps behind
 
     def drain_pending():
-        """Fetch and check every queued step in one copy; -> (sum, last loss)."""
+        """Fetch and check every queued step in one copy; -> (sum, last loss).
+        A step's ``cc_probs`` map comes to the host beside it, and its
+        connected-component penalty joins the logged loss."""
         if not pending:
             return 0.0, None
-        keys = list(pending[0][1])
+        keys = [k for k in pending[0][1] if k != "cc_probs"]
         host = torch.stack([torch.stack([m[k].float() for k in keys])
                             for _, m in pending]).cpu().numpy()
+        probs = None
+        if "cc_probs" in pending[0][1]:
+            from ..losses.connected_component import connected_component_loss
+
+            probs = [m["cc_probs"].cpu().numpy() for _, m in pending]
         total = last = 0.0
-        for (step_idx, _), row in zip(pending, host):
+        for i, ((step_idx, _), row) in enumerate(zip(pending, host)):
             metrics = dict(zip(keys, row.tolist()))
+            if probs is not None:
+                metrics["cc"] = connected_component_loss(
+                    probs[i], edge_distance=loss_cfg.cc_edge_distance,
+                    min_area=loss_cfg.cc_min_area, penalty_weight=loss_cfg.cc_penalty_weight)
+                metrics["loss"] += metrics["cc"]
             last = metrics["loss"]
             if not np.isfinite(last):
                 raise RuntimeError("Fatal: NaN loss detected!")

@@ -33,6 +33,15 @@ kernels in ``csrc/conv3x3.cu`` (:func:`route`), in plain sight:
 
 Each wrapper runs a kernel for a CUDA tensor and its plain version for a CPU
 tensor; nothing else picks between them, and nothing falls back.
+
+The forward is the custom op ``umics::conv3x3_nhwc`` (``torch.library``):
+its CUDA implementation is the ctypes launch (and the launch counter), its
+CPU implementation the plain version, and its fake implementation gives
+the output's shape and dtype from the inputs', with H and W left symbolic.
+``torch.export`` traces through the op without touching a pointer, and an
+exported program (``engine/export.py``) calls the same launch when it runs;
+a program loads only once this module has registered the op.  Training
+takes the op inside the autograd Function below.
 """
 
 from __future__ import annotations
@@ -241,12 +250,22 @@ def _count(wrapper, dtype: torch.dtype) -> None:
         wrapper.tensor_core_launches += 1
 
 
+@torch.library.custom_op("umics::conv3x3_nhwc", mutates_args=(), device_types="cuda")
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if _device_of(x) == "cpu":
-        return conv3x3_nhwc_reference(x, w)
+    """The forward on the card: one launch of csrc/conv3x3.cu, counted."""
     y = _launch(x, w)
     _count(conv3x3_nhwc, x.dtype)
     return y
+
+
+@_forward.register_kernel("cpu")
+def _forward_cpu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return conv3x3_nhwc_reference(x, w)
+
+
+@_forward.register_fake
+def _forward_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[3]))
 
 
 def conv3x3_nhwc_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -321,7 +340,8 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x's dtype -> (B, H, W, Cout) in x's dtype, summed in f32.  A CUDA tensor
     goes to the kernel of its :func:`route` (and adds one to
     ``conv3x3_nhwc.launches``, and to ``.tensor_core_launches`` in bf16), a
-    CPU tensor to the plain version.  When x or w requires grad the call is
+    CPU tensor to the plain version (both through the custom op
+    ``umics::conv3x3_nhwc``).  When x or w requires grad the call is
     differentiable: dx through :func:`conv3x3_nhwc_dx` (the kernel again,
     so Cout must lie in 8..64) and dw through :func:`conv3x3_nhwc_dw`.
     """

@@ -35,7 +35,11 @@ row per output channel (K-major), zeros past Cin and Cout;
 convolution on CUDA, so the plain version (:func:`conv3x3_int8_reference`)
 sums the im2col patch times the packed weight in float64 (exact: |acc| <= 9
 * 1024 * 127^2 < 2^53) and casts to int32.  The wrapper runs it for a CPU
-tensor; a CUDA tensor launches the kernel or raises.
+tensor; a CUDA tensor launches the kernel or raises.  Both go through the
+custom op ``umics::conv3x3_int8`` (``torch.library``; ``out_dtype`` and the
+optional ``x2`` are in its schema, and its fake implementation gives the
+output's shape and dtype), which ``torch.export`` traces through for the
+exported int8 program (``engine/export.py``).
 """
 
 from __future__ import annotations
@@ -299,14 +303,30 @@ def conv3x3_int8(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: tor
     A CUDA tensor launches ``csrc/conv3x3_int8.cu`` (and adds one to
     ``conv3x3_int8.launches``); a CPU tensor runs the plain version."""
     _check(x, wp, mul, badd, out_dtype, x2)
-    if x.device.type == "cpu":
-        return conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2)
+    return _conv3x3_int8_op(x, wp, mul, badd, out_dtype, x2)
+
+
+conv3x3_int8.launches = 0
+
+
+@torch.library.custom_op("umics::conv3x3_int8", mutates_args=(), device_types="cuda")
+def _conv3x3_int8_op(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor,
+                     badd: torch.Tensor, out_dtype: torch.dtype,
+                     x2: Optional[torch.Tensor]) -> torch.Tensor:
+    """The int8 conv on the card: one launch of csrc/conv3x3_int8.cu, counted."""
     y = _launch(x, wp, mul, badd, out_dtype, x2)
     conv3x3_int8.launches += 1
     return y
 
 
-conv3x3_int8.launches = 0
+@_conv3x3_int8_op.register_kernel("cpu")
+def _conv3x3_int8_cpu(x, wp, mul, badd, out_dtype, x2):
+    return conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2)
+
+
+@_conv3x3_int8_op.register_fake
+def _conv3x3_int8_fake(x, wp, mul, badd, out_dtype, x2):
+    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], mul.shape[0]), dtype=out_dtype)
 
 
 @functools.lru_cache(maxsize=None)

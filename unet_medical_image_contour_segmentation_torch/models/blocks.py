@@ -37,9 +37,13 @@ def _conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
 
 
 def _bn_apply(bn: nn.BatchNorm2d, y: torch.Tensor, train: bool) -> torch.Tensor:
+    """BN over NHWC ``y``; in train mode the running statistics and
+    ``num_batches_tracked`` move in place, except while a rematerialised
+    block recomputes its forward in the backward pass (``bn.recomputing``,
+    set by ``models/unet.py``): the step's forward already moved them once."""
     y, (mean, var) = batch_norm(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
                                 train=train, momentum=bn.momentum, eps=bn.eps)
-    if train:
+    if train and not getattr(bn, "recomputing", False):
         with torch.no_grad():
             bn.running_mean.copy_(mean)
             bn.running_var.copy_(var)

@@ -7,14 +7,27 @@ the ConvTranspose ups for x2 bilinear upsamples and halves the widths that
 feed them, as the JAX ``UNet.init`` does.  Input is NHWC
 (B, H, W, C), or (B, H, W) read as C = 1; logits come back f32 NHWC.
 ``compute_dtype`` (e.g. ``torch.bfloat16``) is the dtype every conv runs in.
+
+``remat=True`` rematerialises each of the nine blocks (inc, down1-4, up1-4;
+not the 1x1 head) in a train forward that records gradients, as the JAX
+``UNet(remat=True)`` wraps them in ``jax.checkpoint``: a block keeps only its
+inputs, and its forward runs again in the backward pass
+(``torch.utils.checkpoint``, non-reentrant).  JAX returns the BN running
+statistics functionally, so its remat step updates them once; here they
+move in place in the forward, so the recompute runs with every BN of the
+block marked ``recomputing`` and leaves them alone (``blocks._bn_apply``).
+A remat step therefore equals a plain one, statistics included, and
+launches the 3x3 kernel's forward twice for each conv it routes there.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import DoubleConv, Down, OutConv, Up
 
@@ -27,11 +40,11 @@ class UNet(nn.Module):
     def __init__(self, n_channels: int = 1, n_classes: int = 3, bilinear: bool = False,
                  widths: Tuple[int, int, int, int, int] = (16, 32, 64, 128, 256),
                  use_attention: bool = False, compute_dtype: Optional[torch.dtype] = None,
-                 name: str = "unet_s"):
+                 name: str = "unet_s", remat: bool = False):
         super().__init__()
         self.n_channels, self.n_classes, self.bilinear = n_channels, n_classes, bilinear
         self.widths, self.use_attention = tuple(widths), use_attention
-        self.compute_dtype, self.name = compute_dtype, name
+        self.compute_dtype, self.name, self.remat = compute_dtype, name, remat
         w, f = self.widths, 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, w[0])
         self.down1, self.down2 = Down(w[0], w[1]), Down(w[1], w[2])
@@ -46,16 +59,43 @@ class UNet(nn.Module):
         if x.dim() == 3:
             x = x.unsqueeze(-1)
         cd = self.compute_dtype
-        x1 = self.inc(x, cd)
-        x2 = self.down1(x1, cd)
-        x3 = self.down2(x2, cd)
-        x4 = self.down3(x3, cd)
-        x5 = self.down4(x4, cd)
-        y = self.up1(x5, x4, cd)
-        y = self.up2(y, x3, cd)
-        y = self.up3(y, x2, cd)
-        y = self.up4(y, x1, cd)
+        run = _rematerialised if self.remat and self.training and torch.is_grad_enabled() \
+            else _direct
+        x1 = run(self.inc, x, cd)
+        x2 = run(self.down1, x1, cd)
+        x3 = run(self.down2, x2, cd)
+        x4 = run(self.down3, x3, cd)
+        x5 = run(self.down4, x4, cd)
+        y = run(self.up1, x5, x4, cd)
+        y = run(self.up2, y, x3, cd)
+        y = run(self.up3, y, x2, cd)
+        y = run(self.up4, y, x1, cd)
         return self.outc(y, cd).float()
+
+
+def _direct(block: nn.Module, *args):
+    return block(*args)
+
+
+@contextlib.contextmanager
+def _recomputing(block: nn.Module) -> Iterator[None]:
+    """Mark every BN of ``block`` as recomputing for the duration (the
+    backward may run on another thread, so the mark sits on the modules)."""
+    bns = [m for m in block.modules() if isinstance(m, nn.BatchNorm2d)]
+    for bn in bns:
+        bn.recomputing = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.recomputing = False
+
+
+def _rematerialised(block: nn.Module, *args):
+    # no block draws random numbers, so the recompute needs no saved RNG
+    # state (preserve_rng_state would stash and restore it for each block)
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing(block)))
 
 
 def unet(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:

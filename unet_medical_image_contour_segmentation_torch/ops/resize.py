@@ -5,6 +5,11 @@ interpolation by a (out, in) row-stochastic matrix per axis, in f32.  Two
 modes are used: ``align_corners=True`` for the x2 decoder upsample of the
 bilinear UNet, and ``align_corners=False`` for the Predictor's back-resize of
 the logits to the original image size.
+
+Under ``torch.export`` with symbolic H and W (the exported programs of
+``engine/export.py``) the matrices are built from the runtime sizes with
+torch ops in the same float64 arithmetic, so an exported bilinear UNet
+takes any H and W and computes what the eager one does.
 """
 
 from __future__ import annotations
@@ -39,6 +44,28 @@ def _interp_matrix_np(in_size: int, out_size: int, align_corners: bool) -> np.nd
     return mat
 
 
+def _interp_matrix_symbolic(in_size, out_size, align_corners: bool,
+                            device) -> torch.Tensor:
+    """:func:`_interp_matrix_np` for symbolic sizes, in torch ops."""
+    dst = torch.arange(out_size, dtype=torch.float64, device=device)
+    if align_corners:
+        src = dst * (in_size - 1) / (out_size - 1)
+    else:
+        src = torch.clamp_min(in_size / out_size * (dst + 0.5) - 0.5, 0.0)
+    i0 = torch.clamp(torch.floor(src).long(), 0, in_size - 1)
+    i1 = torch.clamp_max(i0 + 1, in_size - 1)
+    frac = (src - i0).float()
+    cols = torch.arange(in_size, device=device)
+    return ((cols == i0[:, None]) * (1.0 - frac)[:, None]
+            + (cols == i1[:, None]) * frac[:, None])
+
+
+def _interp_matrix(in_size, out_size, align_corners: bool, device) -> torch.Tensor:
+    if isinstance(in_size, torch.SymInt) or isinstance(out_size, torch.SymInt):
+        return _interp_matrix_symbolic(in_size, out_size, align_corners, device)
+    return torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(device)
+
+
 def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int, *,
                     align_corners: bool) -> torch.Tensor:
     """Resize NHWC ``x`` to (out_h, out_w); computed in f32, cast back.
@@ -49,8 +76,8 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int, *,
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    mh = torch.from_numpy(_interp_matrix_np(h, out_h, align_corners)).to(x.device)
-    mw = torch.from_numpy(_interp_matrix_np(w, out_w, align_corners)).to(x.device)
+    mh = _interp_matrix(h, out_h, align_corners, x.device)
+    mw = _interp_matrix(w, out_w, align_corners, x.device)
     y = torch.einsum("oh,nhwc->nowc", mh, x.float())
     y = torch.einsum("pw,nowc->nopc", mw, y)
     return y.to(x.dtype)
