@@ -81,10 +81,26 @@ Phases, in order; any failure exits nonzero before the last line:
      slices/s beside it; B2 the int8 program at 512² from a calibration
      JSON: 18 int8 and no bf16 launch a forward, masks 100% equal to the
      live int8 Predictor's on the same qparams;
- 16. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
-     window of phases 5-15 launched the conv3x3 kernel must be one that
-     phase 3 or 4 held against the plain version;
- 17. a JSON ``kernels`` line (with per-shape rows), then the device line and
+ 16. UNet++ and YOLOv8-seg at the presets' full widths, seeded random weights
+     in the JAX layout: C1 unet_pp_s (3 classes) served by Predictor at (8,
+     512, 512) bf16 (12 kernel launches a forward, masks >= 99% of f32,
+     slices/s, batch-1 p50, device ms, peak memory), one forward of the full
+     unet_pp for its peak memory (no launch), one 2048² scan tiled against
+     dense in the interior; C2 unet_pp_s int8 (30 int8 launches, no bf16
+     launch, card vs CPU int8 masks >= 99%, device ms against bf16) and its
+     int8 .pt2 program (masks 100% of the live int8 Predictor's); C3
+     unet_pp_s training (f32 card-vs-CPU step, 20 bf16 steps of 12 + 12
+     launches, a falling loss, a remat step bit-equal in BN state to a
+     plain one, peak memory both ways); C4 yolov8_seg_s (binary, live BN):
+     serving (4 launches a forward), an f32 card-vs-CPU binary step, 20 bf16
+     steps of 4 + 4 launches, and a bf16 .pt2 program served at (8, 512,
+     512) and 1024x768 (masks >= 99.9% of the live Predictor's);
+ 17. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
+     window of phases 5-16 launched the conv3x3 kernel must be one that
+     phase 3 or 4 held against the plain version (phase 3 times YOLO's two
+     shapes that unet_s lacks, 32->32 at 128² and at 512², and checks its
+     exported program's; phase 10 checks unet_pp_s's split conv1s);
+ 18. a JSON ``kernels`` line (with per-shape rows), then the device line and
      the result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
@@ -162,12 +178,14 @@ from unet_medical_image_contour_segmentation_torch.losses.compound import (  # n
     LossConfig,
 )
 from unet_medical_image_contour_segmentation_torch.models.torch_compat import (  # noqa: E402
+    params_from_state_dict,
     state_dict_from_jax,
 )
 from unet_medical_image_contour_segmentation_torch.models.quantize import (  # noqa: E402
     apply_int8,
 )
 from unet_medical_image_contour_segmentation_torch.models.unet import (  # noqa: E402
+    get_model,
     unet,
     unet_s,
     unet_sa,
@@ -199,9 +217,6 @@ MAIN_CONVS = [
     ("up4.conv2", 16, 16, 1),
 ]
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
-# the downsampling of each UNet block's level, for the shapes its convs see
-LEVELS = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
-          "up1": 8, "up2": 4, "up3": 2, "up4": 1}
 # the int8 paths calibrate on the first 4 images of a batch: a bf16 forward
 # of MAIN_CONVS at (CALIB_BATCH, HW, HW)
 CALIB_BATCH = 4
@@ -409,37 +424,67 @@ def record_launches() -> None:
     conv3x3_module._launch = recorded
 
 
-def routed_convs(model) -> list:
+def conv_label(path: str) -> str:
+    """A conv's label from its module path: a DoubleConv's ``{block}.conv{1,2}``
+    (``down1.maxpool_conv.1.double_conv.0`` -> ``down1.conv1``, ``x0_1.double_conv.3``
+    -> ``x0_1.conv2``), else the path without its ``.conv`` holder
+    (``c2f0.m0.cv1.conv`` -> ``c2f0.m0.cv1``)."""
+    if ".double_conv." in path:
+        return f"{path.split('.')[0]}.conv{1 if path.endswith('.0') else 2}"
+    return path.removesuffix(".conv")
+
+
+def routed_convs(model, hw: int = 64) -> list:
     """(name, Cin, Cout, downsampling) of each 3x3 conv of ``model`` that the
-    dispatch rule sends to the kernel (``kernels/conv3x3.py:supported``; each
-    is called at stride 1, pad 1), named as in MAIN_CONVS."""
-    rows = []
-    for path, m in model.named_modules():
-        if not (isinstance(m, torch.nn.Conv2d) and m.padding == (1, 1)):
-            continue
-        cout, cin, kh, kw = m.weight.shape
-        if supported((kh, kw, cin, cout), 1, 1):
-            block = path.split(".")[0]
-            rows.append((f"{block}.conv{1 if path.endswith('.0') else 2}", cin, cout,
-                         LEVELS[block]))
+    dispatch rule sends to the kernel (``kernels/conv3x3.py:supported``), in
+    the order the forward calls them: one f32 eval forward of a copy on the
+    CPU at (1, hw, hw) records each call of the kernel's wrapper, its conv
+    found by the weight's storage and its downsampling read from its input's
+    width.  Named as in MAIN_CONVS (:func:`conv_label`)."""
+    import copy
+
+    net = copy.deepcopy(model).float().cpu().eval()
+    net.compute_dtype = None
+    names = {m.weight.data_ptr(): conv_label(path) for path, m in net.named_modules()
+             if isinstance(m, torch.nn.Conv2d)}
+    rows, wrapper = [], conv3x3_module.conv3x3_nhwc
+
+    def recorded(x, w):
+        rows.append((names[w.data_ptr()], w.shape[2], w.shape[3], hw // x.shape[2]))
+        return wrapper(x, w)
+
+    conv3x3_module.conv3x3_nhwc = recorded
+    try:
+        with torch.no_grad():
+            net(torch.zeros(1, hw, hw, net.n_channels))
+    finally:
+        conv3x3_module.conv3x3_nhwc = wrapper
     return rows
+
+
+def new_shapes(rows) -> list:
+    """The rows whose (Cin, Cout, downsampling) MAIN_CONVS lacks, one each."""
+    seen, out = {c[1:] for c in MAIN_CONVS}, []
+    for row in rows:
+        if row[1:] not in seen:
+            seen.add(row[1:])
+            out.append(row)
+    return out
 
 
 def train_shapes() -> list:
     """(label, Cin, Cout, downsampling) of the routed convs of the models the
     train phases run (unet_s multiclass and binary, unet_sa, the bilinear
-    unet_s), one per shape, MAIN_CONVS first; fails where unet_s's own are
-    not MAIN_CONVS."""
+    unet_s, unet_pp_s, yolov8_seg_s), one per shape, MAIN_CONVS first; fails
+    where unet_s's own are not MAIN_CONVS."""
     if routed_convs(unet_s()) != MAIN_CONVS:
         raise RuntimeError(f"unet_s routes {routed_convs(unet_s())}, not MAIN_CONVS")
-    out, seen = list(MAIN_CONVS), {c[1:] for c in MAIN_CONVS}
-    for label, model in (("binary", unet_s(n_classes=1)), ("unet_sa", unet_sa()),
-                         ("bilinear", unet_s(bilinear=True))):
-        for name, cin, cout, s in routed_convs(model):
-            if (cin, cout, s) not in seen:
-                seen.add((cin, cout, s))
-                out.append((f"{label} {name}", cin, cout, s))
-    return out
+    models = (("binary", unet_s(n_classes=1)), ("unet_sa", unet_sa()),
+              ("bilinear", unet_s(bilinear=True)), ("unet_pp_s", get_model("unet_pp_s")),
+              ("yolo", get_model("yolov8_seg_s")))
+    rows = [(f"{label} {name}", *shape) for label, model in models
+            for name, *shape in routed_convs(model)]
+    return list(MAIN_CONVS) + new_shapes(rows)
 
 
 def phase_kernels(usage: dict):
@@ -465,6 +510,13 @@ def phase_kernels(usage: dict):
     eh, ew = EXPORT_WIDE
     shapes += [(f"{name}@{eh}x{ew}", 1, eh // s, ew // s, cin, cout, "export")
                for name, cin, cout, s in MAIN_CONVS]
+    # yolov8_seg_s (C4): the shapes unet_s lacks, timed; its exported program's
+    # 1024x768 image, checked
+    yolo = routed_convs(get_model("yolov8_seg_s"))
+    shapes += [(f"yolo {name}", BATCH, HW // s, HW // s, cin, cout, "yolo")
+               for name, cin, cout, s in new_shapes(yolo)]
+    shapes += [(f"yolo {name}@{eh}x{ew}", 1, eh // s, ew // s, cin, cout, "export")
+               for name, cin, cout, s in yolo]
     rows, max_err = [], 0.0
     for name, b, h, w, cin, cout, path in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -483,7 +535,7 @@ def phase_kernels(usage: dict):
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: max abs err {err}")
             max_err = max(max_err, err)
             CHECKED.add((b, h, w, cin, cout, str(dtype)))
-            timed = path in ("dense", "ragged") or path.startswith("tiled")
+            timed = path in ("dense", "ragged", "yolo") or path.startswith("tiled")
             if dtype != torch.bfloat16 or not timed:
                 log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} "
                     f"{'f32 ' if dtype == torch.float32 else 'bf16'} max_abs_err {err:.3g} ok"
@@ -651,6 +703,9 @@ def phase_int8_kernels(usage: dict):
     shapes += [(f"{name} split@{w704}", b704, w704 // s, w704 // s, cin // 2, cout, out,
                 f"tiled{w704}", cin // 2)
                for name, cin, cout, s, out in INT8_CONVS if name in SPLIT_CONVS]
+    # unet_pp_s's nested conv1s (C2): the j skips and the upsample, checked
+    shapes += [(f"pp {name} split", BATCH, HW // s, HW // s, cin, cout, "int8", "pp", cin2)
+               for name, cin, cin2, cout, s in PP_SPLIT_CONVS]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
     for i, (name, b, h, w, cin, cout, out, path, cin2) in enumerate(shapes):
@@ -671,7 +726,7 @@ def phase_int8_kernels(usage: dict):
         if geo != launch_int8_geometry(b, h, w, cin_k, cout, cin2):
             raise RuntimeError(f"launch_geometry differs from the built kernel's at {name}: "
                                f"{launch_int8_geometry(b, h, w, cin_k, cout, cin2)} against {geo}")
-        if path.startswith("tiled"):
+        if path.startswith("tiled") or path == "pp":
             log(f"[int8-kernels] {name:20s} {str((b, h, w, cin, cin2, cout)):30s} -> {out:5s} "
                 f"equal; grid {geo.grid}, tile {geo.tile}")
             continue
@@ -751,6 +806,54 @@ def random_unet_params(seed: int, widths=(16, 32, 64, 128, 256), n_channels=1, n
         state[f"up{i}"] = {"conv": conv_s}
     params["outc"] = {"w": conv(1, w[0], n_classes, w[0]), "b": np.zeros(n_classes, np.float32)}
     return params, state
+
+
+def random_params_like(model, seed: int):
+    """Seeded weights in the JAX package's layout (numpy pytrees) for any
+    port model, with the tree of its own state_dict: He-normal convs (fan
+    in = kh * kw * Cin), N(0, 0.1) conv and ConvTranspose biases, and BN
+    affines / running stats near identity, each leaf drawn in sorted path
+    order.  UNet++ and YOLOv8-seg take their weights from here."""
+    params, state, _ = params_from_state_dict(model.state_dict())
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                out[k] = fill(v)
+            elif k == "w":
+                fan_in = v.shape[0] * v.shape[1] * v.shape[2]
+                out[k] = rng.normal(0, np.sqrt(2.0 / fan_in), v.shape).astype(np.float32)
+            elif k in ("scale", "var"):
+                out[k] = rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+            else:  # b, BN bias, mean
+                out[k] = rng.normal(0, 0.1, v.shape).astype(np.float32)
+        return out
+
+    return fill(params), fill(state)
+
+
+def seeded_model(name: str, seed: int, centre: bool = True, **kw):
+    """``get_model(name, **kw)`` (UNet++, YOLOv8-seg, any of the zoo) with
+    :func:`random_params_like` weights, in eval mode; with ``centre`` the
+    head biases (``outc``, ``out{j}``, ``head``) are then shifted so that
+    the classes split a noise image's pixels: each class's mean logit to 0,
+    or for one class the median logit to 0 (sigmoid > 0.5 on half)."""
+    model = get_model(name, **kw)
+    params, state = random_params_like(model, seed)
+    model.load_state_dict(state_dict_from_jax(params, state))
+    if not centre:
+        return model.eval()
+    probe = np.random.default_rng(seed + 1).random((1, 128, 128), dtype=np.float32)
+    with torch.inference_mode():
+        logits = model.eval()(torch.from_numpy(probe))
+    shift = (logits.median() if model.n_classes == 1 else logits.mean(dim=(0, 1, 2))).numpy()
+    for head in [k for k in params if k in ("outc", "head") or re.fullmatch(r"out\d+", k)]:
+        params[head]["b"] = (params[head]["b"] - shift).astype(np.float32)
+    model.load_state_dict(state_dict_from_jax(params, state))
+    return model
 
 
 def build_model(seed: int, factory=unet_s, class2_share=None):
@@ -969,11 +1072,11 @@ def seeded_unet_s(compute_dtype=None, n_classes=3, factory=unet_s, **kw):
     return model
 
 
-def one_train_step(device: str, data: dict, n_classes: int = 3):
-    """One f32 step of the seeded unet_s on ``device`` -> host (metrics,
-    clipped grads, new params, buffers); ``n_classes=1`` takes the binary
-    criterion."""
-    model = seeded_unet_s(n_classes=n_classes).to(device)
+def one_train_step(device: str, data: dict, n_classes: int = 3, build=None):
+    """One f32 step of the seeded unet_s (or of ``build()``'s model) on
+    ``device`` -> host (metrics, clipped grads, new params, buffers);
+    ``n_classes=1`` takes the binary criterion."""
+    model = (build() if build else seeded_unet_s(n_classes=n_classes)).to(device)
     step = make_train_step(model, LossConfig(n_classes=n_classes),
                            RMSpropConfig(learning_rate=TRAIN_LR))
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
@@ -988,9 +1091,11 @@ def one_train_step(device: str, data: dict, n_classes: int = 3):
             host(model.named_parameters()), host(model.named_buffers()))
 
 
-def phase_train_reference(n_classes: int = 3) -> None:
+def phase_train_reference(n_classes: int = 3, build=None, label=None) -> None:
     """One f32 train step (TF32 off) on the card against the CPU's, with the
-    multiclass criterion, or the binary one for ``n_classes=1``.
+    multiclass criterion, or the binary one for ``n_classes=1``; of the
+    seeded unet_s, or of a fresh ``build()`` on each side (logged as
+    ``label``).
 
     The loss agrees to 1e-4 relative, every gradient to 1e-3 of the model's
     largest gradient (sums in another order; a tensor whose gradient nearly
@@ -1003,7 +1108,8 @@ def phase_train_reference(n_classes: int = 3) -> None:
     other way."""
     data = rect_batch(5, 2, 64, 96)
     (m_card, g_card, p_card, b_card), (m_cpu, g_cpu, p_cpu, b_cpu) = (
-        one_train_step("cuda", data, n_classes), one_train_step("cpu", data, n_classes))
+        one_train_step("cuda", data, n_classes, build),
+        one_train_step("cpu", data, n_classes, build))
     loss_err = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     norm_err = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
     g_max = max(g.abs().max().item() for g in g_cpu.values())
@@ -1019,7 +1125,7 @@ def phase_train_reference(n_classes: int = 3) -> None:
         raise RuntimeError(f"card train step differs from the CPU's: loss rel {loss_err:.3g}, "
                            f"grad norm rel {norm_err:.3g}, grads {grad_err:.3g} of the max, params "
                            f"max {param_diff.max().item():.3g}, buffers ok {buffers_ok}")
-    label = "train-reference" if n_classes == 3 else "A1 binary train-reference"
+    label = label or ("train-reference" if n_classes == 3 else "A1 binary train-reference")
     log(f"[{label}] (2, 64, 96) f32 step, card vs CPU: loss {m_card['loss']:.6f} "
         f"(rel {loss_err:.3g}), grad norm {m_card['grad_norm']:.6f} (rel {norm_err:.3g}), "
         f"grads max abs diff {grad_err:.3g} of the largest gradient {g_max:.3g} (relative "
@@ -1168,6 +1274,29 @@ def remat_step(model, batch, profile_dir=None):
     return loss, grads, buffers, peak, launches, start.elapsed_time(end) / REMAT_TIMED_STEPS
 
 
+def remat_equals_plain(runs: dict, per_step: int, label: str) -> tuple:
+    """``runs`` {remat: remat_step(...)} of one model's plain and remat step
+    from the same weights and batch: the same loss (1e-6 relative),
+    gradients within phase 6's bound (1e-3 of the largest), bit-equal BN
+    running statistics and num_batches_tracked, and the remat step's
+    launches 2 * per_step forward (the recompute) + per_step dx; -> (loss
+    relative difference, gradient difference of the largest)."""
+    (loss, grads, bufs, _, _, _), (r_loss, r_grads, r_bufs, _, r_launch, _) = (
+        runs[False], runs[True])
+    want = {"conv3x3_nhwc": 2 * per_step, "conv3x3_nhwc tensor_core": 2 * per_step,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
+    g_max = max(g.abs().max().item() for g in grads.values())
+    grad_err = max((r_grads[k] - grads[k]).abs().max().item() for k in grads) / g_max
+    loss_err = abs(r_loss - loss) / abs(loss)
+    stats_equal = all(torch.equal(r_bufs[k], bufs[k]) for k in bufs)
+    if (r_launch != want or loss_err > 1e-6 or grad_err > 1e-3 or not stats_equal
+            or not np.isfinite(r_loss)):
+        raise RuntimeError(f"[{label}] launches {r_launch} (want {want}), loss {r_loss} vs "
+                           f"{loss}, grads {grad_err:.3g} of the max, BN buffers equal "
+                           f"{stats_equal}")
+    return loss_err, grad_err
+
+
 def phase_remat(profile_dir=None) -> dict:
     """A3: one remat step of unet_s and one plain step from the same weights
     and batch: the same loss, gradients within phase 6's bounds, equal BN
@@ -1179,20 +1308,8 @@ def phase_remat(profile_dir=None) -> dict:
     runs = {remat: remat_step(seeded_unet_s(torch.bfloat16, remat=remat).cuda(), batch,
                               profile_dir)
             for remat in (False, True)}
-    (loss, grads, bufs, peak, _, ms), (r_loss, r_grads, r_bufs, r_peak, r_launch, r_ms) = (
-        runs[False], runs[True])
-    n = len(MAIN_CONVS)
-    want = {"conv3x3_nhwc": 2 * n, "conv3x3_nhwc tensor_core": 2 * n,
-            "conv3x3_nhwc_dx": n, "conv3x3_nhwc_dx tensor_core": n}
-    g_max = max(g.abs().max().item() for g in grads.values())
-    grad_err = max((r_grads[k] - grads[k]).abs().max().item() for k in grads) / g_max
-    loss_err = abs(r_loss - loss) / abs(loss)
-    stats_equal = all(torch.equal(r_bufs[k], bufs[k]) for k in bufs)
-    if (r_launch != want or loss_err > 1e-6 or grad_err > 1e-3 or not stats_equal
-            or not np.isfinite(r_loss)):
-        raise RuntimeError(f"[A3 remat] launches {r_launch} (want {want}), loss {r_loss} vs "
-                           f"{loss}, grads {grad_err:.3g} of the max, BN buffers equal "
-                           f"{stats_equal}")
+    (loss, _, _, peak, _, ms), (r_loss, _, _, r_peak, r_launch, r_ms) = runs[False], runs[True]
+    loss_err, grad_err = remat_equals_plain(runs, len(MAIN_CONVS), "A3 remat")
     full = {}
     for remat in (False, True):
         model = seeded_unet_s(torch.bfloat16, factory=unet, remat=remat).cuda()
@@ -2090,6 +2207,341 @@ def phase_export_int8(model) -> tuple:
                           live_slices_per_s=live_rate)
 
 
+# -- C1-C4: UNet++ and YOLOv8-seg at the presets' full widths -------------------
+
+# routed 3x3 convs per forward (the dispatch rule, confirmed by routed_convs):
+# unet_pp_s 12 (its bilinear variant 11), the full unet_pp 0, yolov8_seg_s 4
+PP_PER_FORWARD, YOLO_PER_FORWARD = 12, 4
+# every DoubleConv conv of unet_pp_s runs int8: 15 nodes x 2
+PP_INT8_PER_FORWARD = 30
+# the int8 forward's nested conv1s as split inputs (x: the j skips
+# concatenated, x2: the ConvTranspose upsample): name, Cin, Cin2, Cout,
+# downsampling of the level (unet_pp_s widths 16..128)
+PP_SPLIT_CONVS = [(f"x{i}_{j}.conv1", w * j, w, w, 2 ** i)
+                  for j in range(1, 5) for i, w in enumerate((16, 32, 64, 128)) if i + j <= 4]
+# the card-vs-CPU int8 check of unet_pp_s runs the plain int8 conv (an f64
+# im2col product) on the CPU: 2 images cut to this size keep it to seconds
+PP_INT8_CPU_HW = 256
+
+
+def fwd_launches(n: int) -> dict:
+    """The read_launches() of n forward launches on the tensor cores, no dx."""
+    return {"conv3x3_nhwc": n, "conv3x3_nhwc tensor_core": n, "conv3x3_nhwc_dx": 0,
+            "conv3x3_nhwc_dx tensor_core": 0}
+
+
+def in_dtype(model, dtype):
+    """A copy of ``model`` whose convs run in ``dtype`` (f32 master weights)."""
+    import copy
+
+    net = copy.deepcopy(model)
+    net.compute_dtype = dtype
+    return net
+
+
+def counted_masks(pred, images, want: dict, label: str) -> np.ndarray:
+    """``pred.predict_array(images)`` in a counted window, which must launch
+    ``want`` (read_launches); -> the masks."""
+    reset_launches()
+    masks = pred.predict_array(images)
+    launches = read_launches()
+    if launches != want:
+        raise RuntimeError(f"[{label}] predict_array{tuple(images.shape)} launched {launches}, "
+                           f"want {want}")
+    return masks
+
+
+def serve_numbers(pred, images, queued_reps: int = FORWARD_REPS) -> dict:
+    """Host slices/s of ``pred.predict_array(images)`` (20 calls, host arrays
+    in and out), batch-1 p50 (50 calls), device forward + classes ms (CUDA
+    events, batch resident, ``queued_reps`` calls queued behind a sleep: the
+    device alone) and peak memory of the host-clock calls."""
+    for _ in range(3):
+        pred.predict_array(images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rate, batch_ms = host_rate(pred, images)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    one = images[:1]
+    for _ in range(3):
+        pred.predict_array(one)
+    lat = []
+    for _ in range(50):
+        t1 = time.perf_counter()
+        pred.predict_array(one)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    x = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        fwd_ms, _ = time_ms(lambda i: pred._classes(pred.model(x)), reps=queued_reps, warmup=2)
+    return dict(slices_per_s=rate, batch_ms=batch_ms, latency_p50_ms=float(np.median(lat)),
+                forward_ms=fwd_ms, peak_mib=peak)
+
+
+def phase_pp_serve():
+    """C1: unet_pp_s (3 classes, ConvTranspose ups) with seeded weights served
+    by Predictor at (BATCH, HW, HW) in bf16: 12 kernel launches a forward,
+    masks against f32 (TF32 off) >= MIN_AGREEMENT, host slices/s, batch-1
+    p50, device forward ms, peak memory; one bf16 forward of the full
+    unet_pp (64..1024) at the same batch for its peak memory (no kernel
+    launch); one 2048² scan tiled (auto tile 512), 12 launches per
+    window-group forward, tiled against dense in the interior (bf16 >=
+    MIN_AGREEMENT, f32 >= MIN_INTERIOR_AGREEMENT)."""
+    model = seeded_model("unet_pp_s", MODEL_SEED, n_classes=3)
+    if len(routed_convs(model)) != PP_PER_FORWARD:
+        raise RuntimeError(f"unet_pp_s routes {routed_convs(model)}, not {PP_PER_FORWARD} convs")
+    images = smooth_images(1, BATCH, HW)
+    pred = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    pred.predict_array(images[:1])  # warm-up: cuDNN picks its algorithms here
+    masks = counted_masks(pred, images, fwd_launches(PP_PER_FORWARD), "C1 unet_pp_s predict")
+    check_masks(masks, (BATCH, HW, HW))
+    with exact_f32():
+        ref = Predictor(model, device="cuda").predict_array(images)
+    agree = float((masks == ref).mean())
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"[C1] unet_pp_s bf16 masks agree with f32 on {agree:.4%} < "
+                           f"{MIN_AGREEMENT:.0%}")
+    result = dict(agreement_f32=agree, **serve_numbers(pred, images),
+                  shares=(np.bincount(masks.ravel(), minlength=3) / masks.size).tolist())
+    log(f"[C1 unet_pp_s] bf16 predict_array ({BATCH}, {HW}, {HW}): {PP_PER_FORWARD} kernel "
+        f"launches a forward, all on the tensor cores; masks vs f32 (TF32 off) {agree:.4%}, "
+        f"class shares {result['shares']}; {result['slices_per_s']:.1f} slices/s "
+        f"({result['batch_ms']:.3f} ms a batch, host clock), batch-1 p50 "
+        f"{result['latency_p50_ms']:.3f} ms, device forward+argmax {result['forward_ms']:.3f} ms "
+        f"(CUDA events, {FORWARD_REPS} calls queued), peak memory {result['peak_mib']:.1f} MiB")
+
+    full = Predictor(seeded_model("unet_pp", MODEL_SEED, centre=False, n_classes=3),
+                     device="cuda", compute_dtype=torch.bfloat16)
+    full.predict_array(images[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    check_masks(counted_masks(full, images, fwd_launches(0), "C1 unet_pp predict"),
+                (BATCH, HW, HW))
+    full_peak = torch.cuda.max_memory_allocated() / 2**20
+    x = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        full_ms, _ = time_ms(lambda i: full.model(x).argmax(-1), reps=3, warmup=1, queued=False)
+    del full, x
+    torch.cuda.empty_cache()
+    result.update(unet_pp_peak_mib=full_peak, unet_pp_forward_ms=full_ms)
+    log(f"[C1 unet_pp] the full unet_pp (64..1024) bf16 predict_array ({BATCH}, {HW}, {HW}): "
+        f"no kernel launch (every 3x3 conv has Cin >= 64 but x0_0.conv1's 1), peak memory "
+        f"{full_peak:.1f} MiB, device forward+argmax {full_ms:.3f} ms")
+
+    n, s = 1, TILED_SIZES[0][1]
+    scan = smooth_images(21, n, s, cells=s // 32)
+    tiled = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_halo=HALO)
+    dense = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_threshold=0)
+    tiled.predict_array(scan)  # warm-up
+    forwards = group_forwards(tiled, n, s, s)
+    t_masks = counted_masks(tiled, scan, fwd_launches(PP_PER_FORWARD * forwards),
+                            "C1 unet_pp_s tiled")
+    inner = float((interior(t_masks) == interior(dense.predict_array(scan))).mean())
+    with exact_f32():
+        f32_t = Predictor(model, device="cuda", tile_halo=HALO).predict_array(scan)
+        f32_d = Predictor(model, device="cuda", tile_threshold=0).predict_array(scan)
+    inner_f32 = float((interior(f32_t) == interior(f32_d)).mean())
+    if inner < MIN_AGREEMENT or inner_f32 < MIN_INTERIOR_AGREEMENT:
+        raise RuntimeError(f"[C1 tiled] tiled vs dense interior {inner:.4%} (bf16) / "
+                           f"{inner_f32:.4%} (f32)")
+    rate, call_ms = host_rate(tiled, scan, reps=TILED_REPS)
+    tile = tiled._auto_tile(s, s)
+    xs = torch.from_numpy(scan[..., None]).cuda()
+    dev_ms, _ = time_ms(lambda i: tiled._tile_grid(xs, tile, HALO), reps=TILED_REPS, warmup=2,
+                        queued=False)
+    result["tiled"] = dict(forwards=forwards, interior_agreement_dense=inner,
+                           interior_agreement_dense_f32=inner_f32, slices_per_s=rate,
+                           call_ms=call_ms, device_ms_per_image=dev_ms / n)
+    log(f"[C1 unet_pp_s tiled] ({n}, {s}, {s}) tile {tile}, halo {HALO}: {forwards} "
+        f"window-group forwards of {PP_PER_FORWARD} launches; tiled vs dense interior "
+        f"{inner:.4%} (bf16), {inner_f32:.4%} (f32); {rate:.3f} slices/s ({call_ms:.2f} ms a "
+        f"call, host clock), device {dev_ms / n:.3f} ms per image")
+    return model, {"pp_predict": fwd_launches(PP_PER_FORWARD),
+                   "pp_tiled": fwd_launches(PP_PER_FORWARD * forwards)}, result
+
+
+def phase_pp_int8(model):
+    """C2: unet_pp_s int8 (bf16 compute) at (BATCH, HW, HW): the first call
+    calibrates (a bf16 forward of 12 launches, then 30 int8); then 30 int8
+    launches and no bf16-kernel launch a forward; int8 masks of the card
+    (f32 compute, TF32 off) against the CPU's (the kernel's plain version)
+    on one calibration >= MIN_AGREEMENT, as the UNet's int8 is held; device
+    forward ms int8 against bf16 (bf16, int8, int8, bf16), host slices/s;
+    masks against f32 reported.  Then the int8 .pt2 program at 512² from
+    the live qparams: 30 int8 launches a forward, masks 100% equal to the
+    live int8 Predictor's."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import (
+        export_program_int8,
+    )
+    from unet_medical_image_contour_segmentation_torch.engine.predict import (
+        ExportedPredictor,
+    )
+
+    images = smooth_images(1, BATCH, HW)
+    q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+    bf16 = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    reset_launches()
+    q.predict_array(images)
+    calib = int8_counts()
+    if calib != {"conv3x3_int8": PP_INT8_PER_FORWARD, "conv3x3_nhwc": PP_PER_FORWARD}:
+        raise RuntimeError(f"[C2] the calibrating first call launched {calib}")
+    reset_launches()
+    masks = q.predict_array(images)
+    launches = int8_counts()
+    if launches != {"conv3x3_int8": PP_INT8_PER_FORWARD, "conv3x3_nhwc": 0}:
+        raise RuntimeError(f"[C2] an int8 forward launched {launches}, want "
+                           f"{PP_INT8_PER_FORWARD} int8 and no bf16 kernel launch")
+    check_masks(masks, (BATCH, HW, HW))
+    with exact_f32():
+        ref = Predictor(model, device="cuda").predict_array(images)
+    agree, agree_bf16 = float((masks == ref).mean()), float((bf16.predict_array(images) == ref)
+                                                            .mean())
+    cut = images[:2, :PP_INT8_CPU_HW, :PP_INT8_CPU_HW]
+    card_vs_cpu = int8_card_vs_cpu(model, q._amax, cut)
+    if card_vs_cpu < MIN_AGREEMENT:
+        raise RuntimeError(f"[C2] the card's int8 masks agree with the CPU's on "
+                           f"{card_vs_cpu:.4%} < {MIN_AGREEMENT:.0%}")
+    x = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        fwd = {"bf16": lambda i: bf16.model(x).argmax(-1),
+               "int8": lambda i: apply_int8(q._qparams, x, torch.bfloat16).argmax(-1)}
+        dev = {k: [] for k in fwd}
+        for k in ("bf16", "int8", "int8", "bf16"):
+            dev[k].append(time_ms(fwd[k], reps=FORWARD_REPS, warmup=2)[0])
+    rates = {k: host_rate(p, images, reps=10)[0] for k, p in (("bf16", bf16), ("int8", q))}
+    result = dict(agreement_f32=agree, bf16_agreement_f32=agree_bf16, card_vs_cpu=card_vs_cpu,
+                  int8_forward_ms=float(np.mean(dev["int8"])),
+                  bf16_forward_ms=float(np.mean(dev["bf16"])), int8_forward_ms_runs=dev["int8"],
+                  bf16_forward_ms_runs=dev["bf16"], int8_slices_per_s=rates["int8"],
+                  bf16_slices_per_s=rates["bf16"])
+    log(f"[C2 unet_pp_s int8] ({BATCH}, {HW}, {HW}) bf16 compute: calibration {calib}, then "
+        f"{launches} a forward; masks vs f32 {agree:.4%} (bf16 vs f32 {agree_bf16:.4%}); card "
+        f"vs CPU int8 masks (f32 compute, {tuple(cut.shape)}) {card_vs_cpu:.4%}; device "
+        f"forward+argmax int8 {dev['int8']} ms, bf16 {dev['bf16']} ms (int8 / bf16 "
+        f"{result['int8_forward_ms'] / result['bf16_forward_ms']:.3f}, CUDA events, "
+        f"{FORWARD_REPS} calls queued); host slices/s int8 {rates['int8']:.1f}, bf16 "
+        f"{rates['bf16']:.1f}")
+
+    t0 = time.perf_counter()
+    data = export_program_int8(in_dtype(model, torch.bfloat16).eval(), q._qparams,
+                               example_hw=(HW, HW))
+    export_s = time.perf_counter() - t0
+    exported = ExportedPredictor(data, device="cuda")
+    exported.predict_array(images[:1])  # warm-up
+    reset_launches()
+    e_masks = exported.predict_array(images)
+    e_launches = int8_counts()
+    e_agree = float((e_masks == q.predict_array(images)).mean())
+    if e_launches != {"conv3x3_int8": PP_INT8_PER_FORWARD, "conv3x3_nhwc": 0} or e_agree != 1.0:
+        raise RuntimeError(f"[C2 export int8] a program forward launched {e_launches}; masks "
+                           f"equal to the live int8 Predictor's on {e_agree:.6%}")
+    result["export"] = dict(bytes=len(data), export_s=export_s, agreement=e_agree,
+                            slices_per_s=host_rate(exported, images, reps=10)[0])
+    log(f"[C2 unet_pp_s int8 export] program at {HW}² ({len(data)} bytes, export "
+        f"{export_s:.1f} s): {e_launches} a forward; masks equal to the live int8 "
+        f"Predictor's on {e_agree:.4%}; host {result['export']['slices_per_s']:.1f} slices/s")
+    return {"pp_int8_predict": launches, "pp_int8_export": e_launches}, result
+
+
+def phase_pp_train():
+    """C3: unet_pp_s trains multiclass: one f32 step card vs CPU (as phase 6),
+    then TRAIN_WARMUP + TRAIN_STEPS bf16 steps at (BATCH, HW, HW), 12 + 12
+    launches a step, a falling loss, step ms; a remat step against a plain
+    one from the same weights (remat_equals_plain: 24 + 12 launches), peak
+    memory both ways."""
+    def build(**kw):
+        return seeded_model("unet_pp_s", MODEL_SEED, centre=False, n_classes=3, **kw)
+
+    phase_train_reference(3, build=build, label="C3 unet_pp_s train-reference")
+    launches, numbers, _ = train_steps(build(compute_dtype=torch.bfloat16).cuda(), LossConfig(),
+                                       device_batch(6), "C3 unet_pp_s train", PP_PER_FORWARD)
+    batch = device_batch(9)
+    runs = {remat: remat_step(build(compute_dtype=torch.bfloat16, remat=remat).cuda(), batch)
+            for remat in (False, True)}
+    loss_err, grad_err = remat_equals_plain(runs, PP_PER_FORWARD, "C3 unet_pp_s remat")
+    numbers.update(remat_loss_rel=loss_err, remat_grad_err=grad_err,
+                   plain_peak_mib=runs[False][3], remat_peak_mib=runs[True][3],
+                   plain_step_ms=runs[False][5], remat_step_ms=runs[True][5])
+    log(f"[C3 unet_pp_s remat] bf16 ({BATCH}, {HW}, {HW}): remat step loss rel {loss_err:.3g}, "
+        f"gradients {grad_err:.3g} of the largest, BN buffers bit-equal, launches "
+        f"{runs[True][4]}; peak memory remat {runs[True][3]:.1f} MiB, plain "
+        f"{runs[False][3]:.1f} MiB ({runs[True][3] / runs[False][3]:.3f}x); step "
+        f"{runs[True][5]:.3f} ms remat, {runs[False][5]:.3f} ms plain")
+    return {"pp_train": launches, "pp_train_remat": runs[True][4]}, numbers
+
+
+def phase_yolo():
+    """C4: yolov8_seg_s (1 class, binary) with seeded weights: live-BN serving
+    in bf16 at (BATCH, HW, HW), 4 launches a forward, masks against f32 >=
+    MIN_AGREEMENT, host slices/s, device forward ms, peak memory; one f32
+    binary step card vs CPU, then TRAIN_WARMUP + TRAIN_STEPS bf16 binary
+    steps, 4 + 4 launches a step, a falling loss; a bf16 .pt2 program
+    (dynamic batch, H and W multiples of 32) served at (BATCH, HW, HW) and
+    one 1024x768 image, 4 launches a forward, masks >= MIN_EXPORT_AGREEMENT
+    of the live Predictor's."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import export_program
+    from unet_medical_image_contour_segmentation_torch.engine.predict import (
+        ExportedPredictor,
+    )
+
+    model = seeded_model("yolov8_seg_s", MODEL_SEED)
+    if len(routed_convs(model)) != YOLO_PER_FORWARD:
+        raise RuntimeError(f"yolov8_seg_s routes {routed_convs(model)}")
+    images = smooth_images(1, BATCH, HW)
+    pred = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    pred.predict_array(images[:1])
+    masks = counted_masks(pred, images, fwd_launches(YOLO_PER_FORWARD), "C4 yolo predict")
+    if masks.shape != (BATCH, HW, HW) or not set(np.unique(masks)) <= {0, 1}:
+        raise RuntimeError(f"[C4] masks {masks.shape} with values {np.unique(masks)}")
+    with exact_f32():
+        ref = Predictor(model, device="cuda").predict_array(images)
+    agree = float((masks == ref).mean())
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"[C4] yolov8_seg_s bf16 masks agree with f32 on {agree:.4%}")
+    # one forward queued at a time: four queued yolov8_seg_s forwards fill the
+    # launch queue on an H100 and block the host past the sleep
+    serve = dict(agreement_f32=agree, foreground=float(masks.mean()),
+                 **serve_numbers(pred, images, queued_reps=1))
+    log(f"[C4 yolov8_seg_s] bf16 predict_array ({BATCH}, {HW}, {HW}), live BN: "
+        f"{YOLO_PER_FORWARD} kernel launches a forward; masks vs f32 {agree:.4%} (foreground "
+        f"{serve['foreground']:.3f}); {serve['slices_per_s']:.1f} slices/s, batch-1 p50 "
+        f"{serve['latency_p50_ms']:.3f} ms, device forward+classes {serve['forward_ms']:.3f} ms "
+        f"(CUDA events, one call queued), peak memory {serve['peak_mib']:.1f} MiB")
+
+    def build(**kw):
+        return seeded_model("yolov8_seg_s", MODEL_SEED, centre=False, **kw)
+
+    phase_train_reference(1, build=build, label="C4 yolov8_seg_s binary train-reference")
+    t_launches, train, _ = train_steps(build(compute_dtype=torch.bfloat16).cuda(),
+                                       LossConfig(n_classes=1), device_batch(6),
+                                       "C4 yolov8_seg_s binary train", YOLO_PER_FORWARD)
+
+    t0 = time.perf_counter()
+    data = export_program(in_dtype(model, torch.bfloat16).eval(), device="cuda")
+    export_s = time.perf_counter() - t0
+    exported = ExportedPredictor(data, device="cuda")
+    wide = smooth_images(13, 1, EXPORT_WIDE[0])[:, :, :EXPORT_WIDE[1]]
+    exported.predict_array(images[:1])  # warm-up
+    reset_launches()
+    e_masks, e_wide = exported.predict_array(images), exported.predict_array(wide)
+    e_launches = read_launches()
+    e_agree = float((e_masks == pred.predict_array(images)).mean())
+    e_agree_wide = float((e_wide == pred.predict_array(wide)).mean())
+    if (e_launches != fwd_launches(2 * YOLO_PER_FORWARD) or e_wide.shape != (1, *EXPORT_WIDE)
+            or min(e_agree, e_agree_wide) < MIN_EXPORT_AGREEMENT):
+        raise RuntimeError(f"[C4 export] two program forwards launched {e_launches}; masks "
+                           f"agree with the live Predictor's on {e_agree:.6%} and "
+                           f"{e_agree_wide:.6%}")
+    export = dict(bytes=len(data), export_s=export_s, agreement=e_agree,
+                  agreement_1024x768=e_agree_wide,
+                  slices_per_s=host_rate(exported, images, reps=10)[0])
+    log(f"[C4 yolov8_seg_s export] bf16 program ({len(data)} bytes, export {export_s:.1f} s): "
+        f"{YOLO_PER_FORWARD} launches a forward ({e_launches} in two); masks equal to the live "
+        f"Predictor's on {e_agree:.6%} of ({BATCH}, {HW}, {HW}) and {e_agree_wide:.6%} of one "
+        f"1024x768 image; host {export['slices_per_s']:.1f} slices/s")
+    return ({"yolo_predict": fwd_launches(YOLO_PER_FORWARD), "yolo_train": t_launches,
+             "yolo_export": e_launches}, dict(serve=serve, train=train, export=export))
+
+
 def phase_launched_shapes() -> int:
     """Every shape at which a counted window of a main path launched the
     conv3x3 kernel (forward or dx) was held against the plain version in
@@ -2121,6 +2573,7 @@ def main(argv=None) -> int:
                     help="write torch.profiler tables of the bf16 and int8 forwards and "
                          "the train step to DIR")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     smi = phase_device()
     usage = phase_build()
@@ -2147,6 +2600,11 @@ def main(argv=None) -> int:
     int8_pipe_launches, int8_main["pipeline"] = phase_int8_pipeline()
     export_launches, export = phase_export(model)
     export8_launches, export["int8"] = phase_export_int8(model)
+    pp_model, pp_launches, families = phase_pp_serve()
+    pp = {"unet_pp_s": families}
+    pp8_launches, pp["unet_pp_s"]["int8"] = phase_pp_int8(pp_model)
+    pp_train_launches, pp["unet_pp_s"]["train"] = phase_pp_train()
+    yolo_launches, pp["yolov8_seg_s"] = phase_yolo()
     n_shapes = phase_launched_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
@@ -2154,11 +2612,15 @@ def main(argv=None) -> int:
     train_paths = {"train": train_launches, "train_binary": binary_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
                    "train_remat": remat_launches}
-    fwd_launches = {"predict": launches["conv3x3_nhwc"],
-                    **{k: v["conv3x3_nhwc"] for k, v in train_paths.items()},
-                    "tiled": tiled_launches["conv3x3_nhwc"],
-                    "pipeline": pipeline_launches.get("conv3x3_nhwc", 0),
-                    "export": export_launches["conv3x3_nhwc"]}
+    # C1-C4: UNet++ and YOLOv8-seg serving, tiled, train and export
+    family_paths = {**pp_launches, **pp_train_launches, **yolo_launches}
+    train_paths.update({k: v for k, v in family_paths.items() if "train" in k})
+    by_path = {"predict": launches["conv3x3_nhwc"],
+               **{k: v["conv3x3_nhwc"] for k, v in train_paths.items()},
+               "tiled": tiled_launches["conv3x3_nhwc"],
+               "pipeline": pipeline_launches.get("conv3x3_nhwc", 0),
+               "export": export_launches["conv3x3_nhwc"],
+               **{k: v["conv3x3_nhwc"] for k, v in family_paths.items() if "train" not in k}}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
     pallas = f"{tpu}/ops/pallas_conv.py"
@@ -2169,15 +2631,18 @@ def main(argv=None) -> int:
     int8_by_path = {"int8_predict": int8_launches["conv3x3_int8"],
                     "int8_tiled": int8_tiled_launches["conv3x3_int8"],
                     "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0),
-                    "int8_export": export8_launches["conv3x3_int8"]}
+                    "int8_export": export8_launches["conv3x3_int8"],
+                    **{k: v["conv3x3_int8"] for k, v in pp8_launches.items()}}
+    yolo_rows = [r for r in rows if r["path"] == "yolo"]
     kernels = [{
         "name": "conv3x3_nhwc",
         "route": "cuda",
         "source": source,
         "replaces": f"{pallas}:133",
-        # the launches of every path: dense predict, train, tiled predict, pipeline
-        "launches": sum(fwd_launches.values()),
-        "launches_by_path": fwd_launches,
+        # the launches of every path: dense predict, train, tiled predict,
+        # pipeline, export, and unet_pp_s / yolov8_seg_s (C1-C4)
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max_err,
         # per unet_s forward: the sum over the main path's shapes
         "ms": sum(r["ms"] for r in main_rows),
@@ -2194,6 +2659,8 @@ def main(argv=None) -> int:
                                             for k in ("ms", "bound_ms", "library_ms")}}
                   for b, win in TILED_WINDOWS},
         "tiled_shapes": shape_rows(tiled_rows),
+        # yolov8_seg_s's convs at (8, 512²) that unet_s has no shape for
+        "yolo_shapes": shape_rows(yolo_rows),
     }, {
         # the int8 conv with its epilogue, per unet_s int8 forward (8, 512², 18 convs)
         "name": "conv3x3_int8",
@@ -2228,7 +2695,7 @@ def main(argv=None) -> int:
         "source": source,
         "replaces": f"{pallas}:183",
         # the launches of every train path: multiclass, binary, unet_sa,
-        # bilinear, remat
+        # bilinear, remat, unet_pp_s (plain, remat), yolov8_seg_s
         "launches": sum(v["conv3x3_nhwc_dx"] for v in train_paths.values()),
         "launches_by_path": {k: v["conv3x3_nhwc_dx"] for k, v in train_paths.items()},
         "max_abs_err": bwd_err,
@@ -2265,6 +2732,8 @@ def main(argv=None) -> int:
     log(f"[pipeline] {json.dumps(pipeline)}")
     log(f"[int8-main] {json.dumps(int8_main)}")
     log(f"[export] {json.dumps(export)}")
+    log(f"[families] {json.dumps(pp)}")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s from the device check to the result")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

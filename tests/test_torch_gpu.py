@@ -17,9 +17,11 @@ import torch
 from chip_smoke import (
     INT8_CONVS,
     MODEL_SEED,
+    PP_SPLIT_CONVS,
     build_model,
     int8_operands,
     rect_batch,
+    seeded_model as seeded_family,
     seeded_unet_s,
     smooth_images,
     tiled_logits,
@@ -505,3 +507,106 @@ def test_exported_program_on_card(cuda, seeded_model):
         with torch.no_grad():
             want = live(x)
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+# -- UNet++ and YOLOv8-seg on the card -------------------------------------------
+
+# name, get_model kwargs, routed 3x3 convs a forward
+FAMILIES = [("unet_pp_s", dict(n_classes=3), 12), ("yolov8_seg_s", {}, 4)]
+
+
+@pytest.mark.parametrize("name,kw,per_forward", FAMILIES, ids=[f[0] for f in FAMILIES])
+def test_family_predictor_on_card_matches_cpu(cuda, name, kw, per_forward):
+    """f32 (TF32 off): the card's masks equal the CPU's on >= 99.9% of
+    pixels, through per_forward kernel launches (YOLO serves live BN)."""
+    model = seeded_family(name, MODEL_SEED, **kw)
+    images = smooth_images(64, 2, 128)[:, :, :96]
+    before = K.conv3x3_nhwc.launches
+    with exact_f32():
+        got = Predictor(model, device=cuda).predict_array(images)
+    assert K.conv3x3_nhwc.launches == before + per_forward
+    want = Predictor(model, device="cpu").predict_array(images)
+    assert got.shape == want.shape == (2, 128, 96)
+    assert (got == want).mean() >= 0.999
+
+
+@pytest.mark.parametrize("name,kw,per_forward", FAMILIES, ids=[f[0] for f in FAMILIES])
+def test_family_train_step_on_card_matches_cpu(cuda, name, kw, per_forward):
+    """One f32 step (TF32 off), multiclass for UNet++ and binary for YOLO,
+    with the bounds of test_train_step_on_card_matches_cpu; then in bf16
+    each step launches the kernel per_forward times forward and as dx."""
+    lr, n_classes = 1e-4, kw.get("n_classes", 1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = seeded_family(name, MODEL_SEED, centre=False, **kw).to(dev)
+        step = make_train_step(model, LossConfig(n_classes=n_classes),
+                               RMSpropConfig(learning_rate=lr))
+        with exact_f32():
+            metrics = step(_rect_batch(dev), lr)
+        out[dev.type] = ({k: v.item() for k, v in metrics.items()},
+                         {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (m_card, g_card), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-4)
+    assert m_card["grad_norm"] == pytest.approx(m_cpu["grad_norm"], rel=1e-3)
+    g_max = max(g.abs().max() for g in g_cpu.values())
+    for n in g_cpu:
+        assert (g_card[n] - g_cpu[n]).abs().max() <= 1e-3 * g_max, n
+
+    model = seeded_family(name, MODEL_SEED, centre=False, compute_dtype=torch.bfloat16,
+                          **kw).to(cuda)
+    step = make_train_step(model, LossConfig(n_classes=n_classes),
+                           RMSpropConfig(learning_rate=lr))
+    before = _counts()
+    metrics = step(_rect_batch(cuda), lr)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [per_forward] * 4
+    assert np.isfinite(metrics["loss"].item())
+
+
+def test_unet_pp_int8_predictor_on_card_matches_cpu(cuda, tmp_path):
+    """unet_pp_s int8 in f32 (TF32 off) on the card against the CPU on one
+    calibration: masks >= 99.9% equal; all 30 DoubleConv convs ran int8."""
+    model = seeded_family("unet_pp_s", MODEL_SEED, n_classes=3)
+    images = smooth_images(65, 2, 128)[:, :, :96]
+    with exact_f32():
+        card = Predictor(model, device=cuda, quantize=True)
+        card.calibrate(images)
+        card.save_calibration(str(tmp_path / "s.json"))
+        before = (K8.conv3x3_int8.launches, K.conv3x3_nhwc.launches)
+        got = card.predict_array(images)
+        assert (K8.conv3x3_int8.launches - before[0], K.conv3x3_nhwc.launches - before[1]) == (
+            30, 0)
+    cpu = Predictor(model, device="cpu", quantize=True)
+    cpu.load_calibration(str(tmp_path / "s.json"))
+    assert (got == cpu.predict_array(images)).mean() >= 0.999
+
+
+@pytest.mark.parametrize("name,cin,cin2,cout,s", PP_SPLIT_CONVS,
+                         ids=[c[0] for c in PP_SPLIT_CONVS])
+def test_int8_kernel_at_unet_pp_split_shapes(cuda, name, cin, cin2, cout, s):
+    """The nested conv1s' split inputs (the j skips, the upsample), exactly
+    equal to the plain version."""
+    x, wp, mul, badd = int8_operands(66, 2, 64 // s + 3, 96 // s + 5, cin + cin2, cout, cuda)
+    x, x2 = x[..., :cin].contiguous(), x[..., cin:].contiguous()
+    got = K8.conv3x3_int8(x, wp, mul, badd, torch.int8, x2)
+    assert torch.equal(got, K8.conv3x3_int8_reference(x, wp, mul, badd, torch.int8, x2))
+
+
+def test_yolo_exported_program_on_card(cuda):
+    """yolov8_seg_s (bf16, live BN) as a program with symbolic H and W
+    (multiples of 32): 4 launches a forward, masks >= 99.9% of the live
+    Predictor's at two sizes."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import export_program
+    from unet_medical_image_contour_segmentation_torch.engine.predict import ExportedPredictor
+
+    model = seeded_family("yolov8_seg_s", MODEL_SEED)
+    bf16 = seeded_family("yolov8_seg_s", MODEL_SEED, compute_dtype=torch.bfloat16)
+    program = ExportedPredictor(export_program(bf16, device=cuda, example_hw=(128, 128)),
+                                device=cuda)
+    live = Predictor(model, device=cuda, compute_dtype=torch.bfloat16)
+    for hw in ((128, 128), (96, 160)):
+        images = smooth_images(67, 2, 160)[:, :hw[0], :hw[1]]
+        before = K.conv3x3_nhwc.launches
+        got = program.predict_array(images)
+        assert K.conv3x3_nhwc.launches == before + 4
+        assert (got == live.predict_array(images)).mean() >= 0.999

@@ -36,6 +36,12 @@ def test_int8_modules_are_checked(module):
     assert PORT / module in _sources()
 
 
+@pytest.mark.parametrize("module", ["models/unet_nested.py", "models/yolov8_seg.py"])
+def test_model_family_modules_are_checked(module):
+    """UNet++ and YOLOv8-seg are among the sources checked above."""
+    assert PORT / module in _sources()
+
+
 def test_importing_everything_loads_no_jax():
     code = f"""
 import importlib, pkgutil, sys

@@ -174,8 +174,8 @@ def test_cli_predicts_a_directory(model, png_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--viz"], ["--model", "m.stablehlo"],
-                                   ["--arch", "yolov8_seg_s"],
-                                   ["--num-devices", "2"], ["--arch", "unet_pp"]])
+                                   ["--arch", "yolov8_seg_s", "--int8"],
+                                   ["--num-devices", "2"], ["--int8", "--arch", "yolov8_seg_s"]])
 def test_cli_rejects_what_is_not_ported(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.get_args(["-m", "w.npz", "-i", "x.png", *extra])

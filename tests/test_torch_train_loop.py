@@ -172,9 +172,10 @@ def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, kw, what):
         train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("model", ["unet_pp", "yolov8_seg_s"])
+@pytest.mark.parametrize("model", ["unet_pp_m", "yolov8_seg_m"])
 def test_train_model_refuses_models_not_ported(data_root, tmp_path, model):
-    with pytest.raises(ValueError, match="not yet ported"):
+    """Models of neither package (UNet++ and YOLOv8-seg are ported)."""
+    with pytest.raises(ValueError, match="unknown model"):
         train_model(_cfg(data_root, tmp_path, model=model), device="cpu")
 
 
@@ -287,8 +288,8 @@ def test_cli_loads_reference_pth_weights(data_root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--num-devices=2", "--spatial-shards=2", "--distributed",
-                                  "--model=unet_pp", "--model=unet_pp_s",
-                                  "--model=yolov8_seg_s"])
+                                  "--coordinator-address=localhost:1234", "--num-processes=2",
+                                  "--process-id=1"])
 def test_cli_refuses_flags_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.get_args(["--data-root", "d", flag])

@@ -145,8 +145,8 @@ def test_presets_and_registry():
     assert "up1.attention.conv1.weight" in sa.state_dict()
     bl = torch_unet_s(bilinear=True)
     assert bl.bilinear and "up1.up.weight" not in bl.state_dict()
-    with pytest.raises(ValueError, match="unet_pp"):
-        get_model("unet_pp")
+    with pytest.raises(ValueError, match="unet_pp"):  # the error lists every model
+        get_model("unet_ppp")
 
 
 VARIANTS = {  # name: (port kwargs, JAX model, seeded-weight kwargs)

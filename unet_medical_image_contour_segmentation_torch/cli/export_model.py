@@ -7,17 +7,19 @@ with a sanity forward of each, with the PyTorch port.
 
 The JAX package's ``cli/export_model.py`` with its flags and defaults: the
 weights (``.pth``/``.pt``/``.npz``, mask_values stripped) of a UNet of the
-family (``--arch``, ``--classes``, ``--bilinear``) export with a dynamic
-batch and dynamic H and W (multiples of 16; ``--static`` fixes 1x512x512).
+family, or the ``.npz`` weights of a UNet++ or YOLOv8-seg (``--arch``,
+``--classes``, ``--bilinear``) export with a dynamic batch and dynamic H and
+W (multiples of the model's ``hw_divisor``: 16, or 32 for YOLOv8-seg;
+``--static`` fixes 1x512x512).
 ``--format pt2`` (the default, the port's counterpart of StableHLO: a
 ``.pt2`` program served by ``predict -m x.pt2``), ``onnx`` (the reference's
 deployment contract: opset 11, NCHW, dynamic batch / height / width) or
 ``both``; without ``--format`` the output's extension decides.  ``--int8``
 exports the int8 program instead (weights and requant scales baked in,
 static ``--int8-hw``, dynamic batch) from ``--int8-scales`` or from
-``--calib`` images.  The program is traced on ``--device`` (default cuda)
-and serves there.  ``stablehlo`` and the UNet++ and YOLO architectures are
-refused: they are the JAX package's.
+``--calib`` images (not for yolov8_seg_s, whose int8 path is not ported
+yet).  The program is traced on ``--device`` (default cuda) and serves
+there.  ``stablehlo`` is refused: it is the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ import logging
 import os
 import sys
 
-# --arch choices of the JAX CLI that the port has no model for yet
-_ARCHS_NOT_PORTED = ("unet_pp", "unet_pp_s", "yolov8_seg_s")
+from .predict import ARCHS, INT8_NOT_PORTED
 
 
 def get_args(argv=None):
@@ -36,7 +37,7 @@ def get_args(argv=None):
     parser.add_argument("--model", "-m", default="checkpoints/model_S_boundary_512x512.pth",
                         help="Checkpoint (.pth or .npz)")
     parser.add_argument("--arch", default="unet_s",
-                        choices=["unet", "unet_t", "unet_s", "unet_sa", *_ARCHS_NOT_PORTED])
+                        choices=ARCHS)
     parser.add_argument("--classes", type=int, default=3)
     parser.add_argument("--bilinear", action="store_true", default=False)
     parser.add_argument("--output", "-o", default=None,
@@ -63,17 +64,18 @@ def get_args(argv=None):
     if args.format == "stablehlo":
         parser.error("--format stablehlo: StableHLO is the JAX package's artifact (its "
                      "umics-export); the PyTorch package exports .pt2 programs and ONNX")
-    if args.arch in _ARCHS_NOT_PORTED:
-        parser.error(f"--arch {args.arch} is not ported to the PyTorch package yet; use the "
-                     "JAX package's umics-export")
+    if args.int8 and args.arch in INT8_NOT_PORTED:
+        parser.error(f"--arch {args.arch} --int8: the int8 program of {args.arch} is not "
+                     "ported to the PyTorch package yet; export it in float, or use the JAX "
+                     "package's umics-export")
     if args.format is None:
         args.format = "onnx" if (args.output or "").endswith(".onnx") else "pt2"
     return args
 
 
-def _calibration_batch(path: str):
+def _calibration_batch(path: str, div: int):
     """Up to 4 images from ``path`` (a file or a directory), cut to
-    multiples of 16 and to their common size: (n, H, W, 1) float32."""
+    multiples of ``div`` and to their common size: (n, H, W, 1) float32."""
     import numpy as np
     from PIL import Image
 
@@ -86,7 +88,7 @@ def _calibration_batch(path: str):
     imgs = []
     for fp in files:
         a = BasicDataset.preprocess(None, Image.open(fp).convert("L"), scale=1, is_mask=False)
-        imgs.append(a[:a.shape[0] // 16 * 16, :a.shape[1] // 16 * 16])
+        imgs.append(a[:a.shape[0] // div * div, :a.shape[1] // div * div])
     h, w = min(a.shape[0] for a in imgs), min(a.shape[1] for a in imgs)
     return np.stack([a[:h, :w] for a in imgs])
 
@@ -107,7 +109,7 @@ def _export_int8(args, model, base: str) -> int:
         predictor.load_calibration(args.int8_scales)
         logging.info("Loaded int8 calibration from %s", args.int8_scales)
     elif args.calib:
-        batch = _calibration_batch(args.calib)
+        batch = _calibration_batch(args.calib, model.hw_divisor)
         if batch is None:
             logging.error("No calibration images under %s", args.calib)
             return 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Train a UNet for contour segmentation with the PyTorch port.
+"""Train a UNet, UNet++ or YOLOv8-seg for contour segmentation with the PyTorch port.
 
     python -m unet_medical_image_contour_segmentation_torch.cli.train \\
         --data-root data/ --epochs 5 --batch-size 8 --model unet_s
@@ -8,16 +8,19 @@ The flags of the JAX package's ``cli/train.py`` for single-device training,
 with its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
 compute, a 2 GB decoded-sample RAM cache): the imgs/{train,val} +
 masks/{train,val} layout under ``--data-root``; ``--model`` over the UNet
-family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``) and ``--bilinear``;
+family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``), UNet++
+(``unet_pp``, ``unet_pp_s``) and YOLOv8-seg (``yolov8_seg_s``), and
+``--bilinear``;
 ``--classes 1`` for the binary BCE + Dice + boundary criterion and
 ``--cc-loss`` for its connected-component penalty; ``--remat``;
 ``--sample-cache-gb`` and ``--disk-cache-dir``; ``--load`` of a ``.npz``
 checkpoint of either package (a full resume: weights, BN statistics,
 optimizer state, step), of ``latest`` in ``./checkpoints``, or of a
-reference ``.pth`` (weights and BN statistics of the UNet the flags name).
+reference ``.pth`` (weights and BN statistics of the UNet the flags name;
+UNet++ and YOLOv8-seg have no ``.pth``, as in the JAX package).
 As the JAX CLI does, a run that runs out of device memory is run again
-from the start with ``remat`` on.  UNet++, YOLOv8-seg and the parallel and
-multi-host flags are rejected with an error until they are ported.
+from the start with ``remat`` on.  The parallel and multi-host flags are
+rejected with an error until they are ported.
 """
 
 from __future__ import annotations
@@ -32,8 +35,6 @@ _NOT_PORTED = {
     "--distributed": "multi-host training", "--coordinator-address": "multi-host training",
     "--num-processes": "multi-host training", "--process-id": "multi-host training",
 }
-# models of the JAX CLI's --model that the port does not have yet
-_MODELS_NOT_PORTED = ("unet_pp", "unet_pp_s", "yolov8_seg_s")
 
 
 def get_args(argv=None):
@@ -64,7 +65,8 @@ def get_args(argv=None):
     parser.add_argument("--classes", "-c", type=int, default=3,
                         help="Number of classes (1: the binary boundary criterion)")
     parser.add_argument("--model", "-m", default="unet_s",
-                        choices=["unet", "unet_t", "unet_s", "unet_sa", *_MODELS_NOT_PORTED],
+                        choices=["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s",
+                                 "yolov8_seg_s"],
                         help="Model variant")
     parser.add_argument("--data-root", default="data/data-without-black-shadow")
     parser.add_argument("--remat", action="store_true", default=False,
@@ -91,9 +93,6 @@ def get_args(argv=None):
         if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
             parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
                          "use the JAX package's umics-train")
-    if args.model in _MODELS_NOT_PORTED:
-        parser.error(f"--model {args.model} is not ported to the PyTorch package yet; "
-                     "use the JAX package's umics-train")
     return args
 
 

@@ -4,7 +4,10 @@ The ``.npz`` layout is that of the JAX package's ``engine/checkpoint.py``:
 one array per leaf of the ``params`` / ``bn_state`` / ``opt_state`` pytrees,
 keyed by its path joined with ``//``, and a JSON ``__meta__`` entry (step,
 mask_values, extra).  A checkpoint written by either package loads in the
-other unchanged.
+other unchanged, for the UNet family, UNet++ and YOLOv8-seg.  ``.pth`` is
+the reference UNet's format only: the reference ships no UNet++ or YOLO
+weights, and the JAX package reads and writes no ``.pth`` of them, so the
+port refuses one too.
 """
 
 from __future__ import annotations
@@ -55,9 +58,11 @@ def save_checkpoint(path: str, model: nn.Module, step: int = 0,
 
     With ``optimizer`` (the RMSprop over ``model``'s parameters) the ``.npz``
     also holds its state as the JAX package's ``opt_state``, so a training
-    run resumes from it in either package."""
+    run resumes from it in either package.  A ``.pth`` of a UNet++ or
+    YOLOv8-seg raises ValueError (see the module docstring)."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     if str(path).endswith(".pth"):
+        _require_reference_unet(sd, path)
         if mask_values is not None:
             sd["mask_values"] = mask_values
         torch.save(sd, path)
@@ -74,6 +79,12 @@ def save_checkpoint(path: str, model: nn.Module, step: int = 0,
     blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     np.savez(path, **blobs)
+
+
+def _require_reference_unet(sd: dict, path) -> None:
+    if "inc.double_conv.0.weight" not in sd:
+        raise ValueError(f"{path}: .pth holds the reference UNet family's state_dict only; "
+                         "keep UNet++ and YOLOv8-seg weights in .npz, as the JAX package does")
 
 
 def load_checkpoint(path: str) -> dict:
@@ -110,6 +121,7 @@ def load_weights(path: str, *, bilinear: bool = False, use_attention: bool = Fal
     ``.npz`` carries its own structure and loads as it is."""
     if str(path).endswith((".pth", ".pt")):
         sd, mask_values = load_pth(path)
+        _require_reference_unet(sd, path)
         for i in range(1, 5):
             if bilinear:
                 for k in [k for k in sd if k.startswith(f"up{i}.up.")]:

@@ -6,16 +6,19 @@ reference exports ONNX opset 11 with dynamic batch, H and W
 (the reference's ``export_model.py:30-46``; the port's ONNX writer is
 ``engine/onnx_export.py``):
 
-* :func:`export_program`: the eval forward of a UNet with BN folded into
-  the convs in the model's compute dtype (the program the ``Predictor``
-  serves), traced with a symbolic batch and H, W symbolic multiples of 16
-  (``hw_divisor``: the four pooling levels).  Each routed 3x3 conv is the
-  custom op ``umics::conv3x3_nhwc``, so the program launches the hand kernel
-  on the card and runs its plain version on the CPU.
+* :func:`export_program`: the eval forward of a UNet, UNet++ or YOLOv8-seg
+  with BN folded into the convs in the model's compute dtype (YOLO's BN
+  live, as it serves; the program the ``Predictor`` serves), traced with a
+  symbolic batch and H, W symbolic multiples of the model's ``hw_divisor``
+  (16 for the UNets' four pooling levels, 2^(depth-1) for UNet++, 32 for
+  YOLO's stride-32 backbone).  Each routed 3x3 conv is the custom op
+  ``umics::conv3x3_nhwc``, so the program launches the hand kernel on the
+  card and runs its plain version on the CPU.
 * :func:`export_program_int8`: the int8 forward (``models/quantize.py:
-  apply_int8``) with its qparams baked in as buffers, a static H and W (one
-  program per serving size, as JAX's) and a symbolic batch; every DoubleConv
-  conv is the custom op ``umics::conv3x3_int8``.
+  apply_int8``, the UNet family's or UNet++'s) with its qparams baked in as
+  buffers, a static H and W (one program per serving size, as JAX's) and a
+  symbolic batch; every DoubleConv conv is the custom op
+  ``umics::conv3x3_int8``.  YOLOv8-seg has no int8 program yet.
 
 The weights sit on the device the program was exported on, and the program
 runs there.  :func:`load_exported` registers both custom ops before it
@@ -37,18 +40,16 @@ log = logging.getLogger(__name__)
 __all__ = ["export_program", "export_program_int8", "load_exported", "sanity_check",
            "logits_close"]
 
-HW_DIVISOR = 16  # the UNet family's four 2x2 pools
-
-
-def _dims(dynamic_batch: bool, dynamic_hw: bool) -> dict:
+def _dims(dynamic_batch: bool, dynamic_hw: bool, hw_divisor: int) -> dict:
+    """Symbolic dims: the batch, and H and W as multiples of ``hw_divisor``."""
     from torch.export import Dim
 
     spec = {}
     if dynamic_batch:
         spec[0] = Dim("b", min=1, max=4096)
     if dynamic_hw:
-        spec[1] = HW_DIVISOR * Dim("h", min=1, max=1024)
-        spec[2] = HW_DIVISOR * Dim("w", min=1, max=1024)
+        spec[1] = hw_divisor * Dim("h", min=1, max=16384 // hw_divisor)
+        spec[2] = hw_divisor * Dim("w", min=1, max=16384 // hw_divisor)
     return spec
 
 
@@ -61,22 +62,23 @@ def _save(program) -> bytes:
 def export_program(model: nn.Module, *, example_hw: Tuple[int, int] = (512, 512),
                    dynamic_batch: bool = True, dynamic_hw: bool = True,
                    device: Optional[Union[str, torch.device]] = None) -> bytes:
-    """The eval forward of ``model`` (BN folded, its compute dtype) as the
-    bytes of a ``torch.export`` program: (B, H, W, n_channels) f32 ->
-    (B, H, W, n_classes) f32, B symbolic with ``dynamic_batch``, H and W
-    symbolic multiples of 16 with ``dynamic_hw``.  ``device`` (default
-    cuda, raising without a card) holds the weights and runs the program."""
+    """The eval forward of ``model`` (BN folded where it folds, its compute
+    dtype) as the bytes of a ``torch.export`` program: (B, H, W, n_channels)
+    f32 -> (B, H, W, n_classes) f32, B symbolic with ``dynamic_batch``, H and
+    W symbolic multiples of the model's ``hw_divisor`` with ``dynamic_hw``.
+    ``device`` (default cuda, raising without a card) holds the weights and
+    runs the program."""
     from ..device import resolve_device
     from ..kernels import conv3x3  # noqa: F401  (registers umics::conv3x3_nhwc)
-    from ..models.fold_bn import fold_bn
+    from ..models.fold_bn import serving_copy
 
     device = resolve_device(device)
-    net = fold_bn(model, model.compute_dtype).to(device)
+    net = serving_copy(model, model.compute_dtype).to(device)
     net.compute_dtype = model.compute_dtype
     x = torch.zeros((2, *example_hw, model.n_channels), dtype=torch.float32, device=device)
+    dims = _dims(dynamic_batch, dynamic_hw, model.hw_divisor)
     with torch.no_grad():
-        program = torch.export.export(
-            net, (x,), dynamic_shapes={"x": _dims(dynamic_batch, dynamic_hw)})
+        program = torch.export.export(net, (x,), dynamic_shapes={"x": dims})
     return _save(program)
 
 
@@ -120,15 +122,17 @@ def export_program_int8(model: nn.Module, qparams: dict, *,
     ``example_hw``, batch symbolic with ``dynamic_batch``, on the qparams'
     device.  The quantised weights and the requant scales are baked in: the
     program needs no calibration at serve time and loads as a float program
-    does."""
+    does.  NotImplementedError for YOLOv8-seg (no int8 path yet)."""
     from ..kernels import conv3x3_int8  # noqa: F401  (registers umics::conv3x3_int8)
+    from ..models.quantize import refuse_int8
 
+    refuse_int8(model)
     net = _Int8Forward(qparams, model.compute_dtype).eval()
     x = torch.zeros((2, *example_hw, model.n_channels), dtype=torch.float32,
                     device=qparams["s_x"].device)
     with torch.no_grad():
         program = torch.export.export(
-            net, (x,), dynamic_shapes={"x": _dims(dynamic_batch, False)})
+            net, (x,), dynamic_shapes={"x": _dims(dynamic_batch, False, model.hw_divisor)})
     return _save(program)
 
 

@@ -1,4 +1,5 @@
-"""ONNX export of the UNet family: the reference's deployment contract.
+"""ONNX export of the UNet family, UNet++ and YOLOv8-seg: the reference's
+deployment contract.
 
 The port's own copy of the JAX package's ``engine/onnx_export.py`` (the
 protobuf writer, the UNet graph builder, the parser and the torch-backed
@@ -6,29 +7,30 @@ executor), fed the port's weights through
 ``models/torch_compat.py:params_from_state_dict``.  The reference ships
 ``torch.onnx.export(opset 11, dynamic batch/H/W axes)``
 (the reference's ``export_model.py:30-46``); no ``onnx`` package is needed,
-the artifact is emitted directly: a minimal protobuf writer plus a graph
-builder that lowers the eval-mode UNet forward to ONNX ops:
+the artifact is emitted directly: a minimal protobuf writer plus graph
+builders that lower the eval-mode forwards to ONNX ops:
 
     Conv / BatchNormalization / Relu / MaxPool / ConvTranspose / Resize
-    (linear, align_corners) / ReduceMean / ReduceMax / Concat / Sigmoid / Mul
+    (linear, align_corners; nearest, asymmetric) / ReduceMean / ReduceMax /
+    Concat / Slice / Add / Sigmoid / Mul (YOLO's SiLU is Sigmoid + Mul)
 
 Weights come from the JAX-layout pytrees (HWIO -> OIHW); tensors are NCHW
 with dynamic ``batch``/``height``/``width`` dim_params, exactly like the
 reference's dynamic_axes.  On the same weights the bytes are the JAX
 package's.  The file parses back with :func:`parse_model` and the graph
 executes under :func:`run_with_torch`, which validates both the encoding
-and the graph semantics without an onnxruntime.  UNet++ and YOLOv8-seg have
-no builder here: the port has no such models yet.
+and the graph semantics without an onnxruntime.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["export_onnx", "build_unet_onnx", "parse_model", "run_with_torch"]
+__all__ = ["export_onnx", "build_unet_onnx", "build_unet_pp_onnx", "build_yolov8_onnx",
+           "parse_model", "run_with_torch"]
 
 # -- tiny protobuf writer -----------------------------------------------------
 
@@ -262,14 +264,188 @@ def build_unet_onnx(params, bn_state, *, n_channels: int, n_classes: int,
     return _model(graph, opset)
 
 
+def _conv_transpose(b: _Builder, x: str, p) -> str:
+    w = _np(p["w"]).transpose(2, 3, 0, 1)  # HWIO -> IOHW
+    ins = [x, b.init("wt", w)]
+    if p.get("b") is not None:
+        ins.append(b.init("bt", _np(p["b"])))
+    return b.add("ConvTranspose", ins, kernel_shape=[2, 2], strides=[2, 2])
+
+
+def _resize2(b: _Builder, x: str, mode: str) -> str:
+    scales = b.init("scales", _np([1.0, 1.0, 2.0, 2.0]))
+    roi = b.init("roi", np.zeros((0,), np.float32))
+    if mode == "nearest":
+        # asymmetric+floor == jnp.repeat(2) replication semantics
+        return b.add("Resize", [x, roi, scales], mode="nearest",
+                     coordinate_transformation_mode="asymmetric",
+                     nearest_mode="floor")
+    return b.add("Resize", [x, roi, scales], mode="linear",
+                 coordinate_transformation_mode="align_corners")
+
+
+def build_unet_pp_onnx(params, bn_state, *, n_channels: int, n_classes: int,
+                       bilinear: bool = False, depth: Optional[int] = None,
+                       opset: int = 11) -> bytes:
+    """Eval-mode UNet++ forward -> ONNX ModelProto bytes.
+
+    Mirrors models/unet_nested.py's ``_apply_nhwc`` (the reference *imports*
+    UNetPlusPlus from a file absent from its repo, ``train.py:16``; this is
+    the deployment contract for our runnable equivalent).  Requires H and W
+    multiples of 2^(depth-1) at runtime, like the StableHLO export.
+    """
+    if depth is None:  # infer from the params (x0_0 .. x{d-1}_0 backbone)
+        depth = 1 + max(int(k[1:].split("_")[0]) for k in params if k.startswith("x"))
+    b = _Builder()
+    deep_supervision = "outc" not in params
+
+    nodes: Dict[Tuple[int, int], str] = {}
+    x = "input"
+    for i in range(depth):
+        inp = x if i == 0 else b.add("MaxPool", [nodes[(i - 1, 0)]],
+                                     kernel_shape=[2, 2], strides=[2, 2])
+        nodes[(i, 0)] = _double_conv(b, inp, params[f"x{i}_0"], bn_state[f"x{i}_0"])
+
+    for j in range(1, depth):
+        for i in range(depth - j):
+            skips = [nodes[(i, k)] for k in range(j)]
+            src = nodes[(i + 1, j - 1)]
+            if bilinear:
+                upped = _resize2(b, src, "linear")
+            else:
+                upped = _conv_transpose(b, src, params[f"up{i}_{j}"])
+            cat = b.add("Concat", skips + [upped], axis=1)
+            nodes[(i, j)] = _double_conv(b, cat, params[f"x{i}_{j}"],
+                                         bn_state[f"x{i}_{j}"])
+
+    if deep_supervision:
+        heads = [
+            _conv(b, nodes[(0, j)], params[f"out{j}"]["w"],
+                  bias=params[f"out{j}"].get("b"), pads=0)
+            for j in range(1, depth)
+        ]
+        acc = heads[0]
+        for h in heads[1:]:
+            acc = b.add("Add", [acc, h])
+        logits = b.add("Mul", [acc, b.init("invn", _np(1.0 / len(heads)))])
+    else:
+        outc = params["outc"]
+        logits = _conv(b, nodes[(0, depth - 1)], outc["w"], bias=outc.get("b"),
+                       pads=0)
+    b.nodes.append(_node("Identity", [logits], ["output"], name="out"))
+
+    graph = _graph(
+        b.nodes, "unet_pp", b.inits,
+        [_value_info("input", ["batch", n_channels, "height", "width"])],
+        [_value_info("output", ["batch", n_classes, "height", "width"])],
+    )
+    return _model(graph, opset)
+
+
+def _silu(b: _Builder, x: str) -> str:
+    return b.add("Mul", [x, b.add("Sigmoid", [x])])
+
+
+def _cbs_onnx(b: _Builder, x: str, p, s, stride: int = 1) -> str:
+    k = _np(p["conv"]["w"]).shape[0]
+    y = _conv(b, x, p["conv"]["w"], pads=k // 2, stride=stride)
+    return _silu(b, _bn(b, y, p["bn"], s["bn"]))
+
+
+def _slice_ch(b: _Builder, x: str, start: int, end: int) -> str:
+    return b.add("Slice", [
+        x,
+        b.init("starts", np.asarray([start], np.int64)),
+        b.init("ends", np.asarray([end], np.int64)),
+        b.init("axes", np.asarray([1], np.int64)),
+    ])
+
+
+def _c2f_onnx(b: _Builder, x: str, p, s, n: int) -> str:
+    y = _cbs_onnx(b, x, p["cv1"], s["cv1"])
+    c = _np(p["cv1"]["conv"]["w"]).shape[-1] // 2
+    parts = [_slice_ch(b, y, 0, c), _slice_ch(b, y, c, 2 * c)]
+    for i in range(n):
+        t = _cbs_onnx(b, parts[-1], p[f"m{i}"]["cv1"], s[f"m{i}"]["cv1"])
+        t = _cbs_onnx(b, t, p[f"m{i}"]["cv2"], s[f"m{i}"]["cv2"])
+        parts.append(b.add("Add", [parts[-1], t]))  # residual shortcut
+    cat = b.add("Concat", parts, axis=1)
+    return _cbs_onnx(b, cat, p["cv2"], s["cv2"])
+
+
+def build_yolov8_onnx(params, bn_state, *, n_channels: int, n_classes: int,
+                      depths: Sequence[int] = (1, 2, 2, 1),
+                      opset: int = 11) -> bytes:
+    """Eval-mode YOLOv8-seg forward -> ONNX ModelProto bytes.
+
+    Mirrors models/yolov8_seg.py's ``_apply_nhwc`` (the reference imports
+    YOLOv8_Seg_S from an absent ``yolo/`` dir, ``train.py:18`` /
+    ``export_model.py:5``).  SiLU is emitted as Sigmoid+Mul (opset 11 has no
+    native SiLU).  Requires H and W multiples of 32 at runtime (stride-32
+    backbone).
+    """
+    b = _Builder()
+    p, s = params, bn_state
+
+    y = _cbs_onnx(b, "input", p["stem"], s["stem"], stride=2)
+    feats = {}
+    for i in range(4):
+        y = _cbs_onnx(b, y, p[f"down{i}"], s[f"down{i}"], stride=2)
+        y = _c2f_onnx(b, y, p[f"c2f{i}"], s[f"c2f{i}"], depths[i])
+        feats[i] = y
+
+    # SPPF: cv1 -> 5x5 s1 SAME maxpool x3 -> concat -> cv2
+    y = _cbs_onnx(b, y, p["sppf"]["cv1"], s["sppf"]["cv1"])
+    pools = [y]
+    for _ in range(3):
+        pools.append(b.add("MaxPool", [pools[-1]], kernel_shape=[5, 5],
+                           strides=[1, 1], pads=[2, 2, 2, 2]))
+    y = _cbs_onnx(b, b.add("Concat", pools, axis=1), p["sppf"]["cv2"],
+                  s["sppf"]["cv2"])
+
+    # FPN top-down (nearest x2 upsample)
+    p4 = _c2f_onnx(b, b.add("Concat", [_resize2(b, y, "nearest"), feats[2]],
+                            axis=1), p["n4"], s["n4"], depths[2])
+    p3 = _c2f_onnx(b, b.add("Concat", [_resize2(b, p4, "nearest"), feats[1]],
+                            axis=1), p["n3"], s["n3"], depths[1])
+
+    # proto head back to full resolution
+    t = _conv_transpose(b, p3, p["p_up1"])
+    t = _cbs_onnx(b, t, p["p_c1"], s["p_c1"])
+    t = _conv_transpose(b, t, p["p_up2"])
+    t = _cbs_onnx(b, t, p["p_c2"], s["p_c2"])
+    t = _conv_transpose(b, t, p["p_up3"])
+    t = _cbs_onnx(b, t, p["p_c3"], s["p_c3"])
+    logits = _conv(b, t, p["head"]["w"], bias=p["head"].get("b"), pads=0)
+    b.nodes.append(_node("Identity", [logits], ["output"], name="out"))
+
+    graph = _graph(
+        b.nodes, "yolov8_seg", b.inits,
+        [_value_info("input", ["batch", n_channels, "height", "width"])],
+        [_value_info("output", ["batch", n_classes, "height", "width"])],
+    )
+    return _model(graph, opset)
+
+
 def export_onnx(model, path: str, *, opset: int = 11) -> bytes:
-    """Write the ONNX artifact of a port UNet (its eval forward, BN as
-    BatchNormalization nodes) to ``path``; returns the bytes."""
+    """Write the ONNX artifact of a port model (its eval forward, BN as
+    BatchNormalization nodes) to ``path``; returns the bytes.  The builder
+    goes by the model's name, as JAX's ``export_onnx``: UNet++, YOLOv8-seg,
+    else the UNet family."""
     from ..models.torch_compat import params_from_state_dict
 
     params, bn_state, _ = params_from_state_dict(model.state_dict())
-    data = build_unet_onnx(params, bn_state, n_channels=model.n_channels,
-                           n_classes=model.n_classes, opset=opset)
+    name = getattr(model, "name", "")
+    if name.startswith("unet_pp"):
+        data = build_unet_pp_onnx(params, bn_state, n_channels=model.n_channels,
+                                  n_classes=model.n_classes, bilinear=model.bilinear,
+                                  opset=opset)
+    elif name.startswith("yolo"):
+        data = build_yolov8_onnx(params, bn_state, n_channels=model.n_channels,
+                                 n_classes=model.n_classes, depths=model.depths, opset=opset)
+    else:
+        data = build_unet_onnx(params, bn_state, n_channels=model.n_channels,
+                               n_classes=model.n_classes, opset=opset)
     with open(path, "wb") as f:
         f.write(data)
     return data

@@ -1,8 +1,10 @@
 """Inference: preprocess -> forward -> back-resize -> argmax -> post-process.
 
-The dense and tiled paths of the JAX package's ``engine/predict.py:Predictor``:
-BN is folded into the convs once at construction (which also stores the 3x3
-weights packed in the compute dtype), images run through the model in
+The dense and tiled paths of the JAX package's ``engine/predict.py:Predictor``,
+for the UNet family, UNet++ and YOLOv8-seg: BN is folded into the convs once
+at construction (which also stores the 3x3 weights packed in the compute
+dtype; a model with no DoubleConv to fold, YOLOv8-seg, serves with live BN
+in eval mode, as JAX's does), images run through the model in
 batches under ``torch.inference_mode()``, logits go back to the requested
 size by a bilinear resize with ``align_corners=False``, and the argmax takes
 the first of equal maxima (``torch.argmax``'s documented rule, the rule of
@@ -21,13 +23,15 @@ follows the JAX package here, tile for tile.
 
 ``quantize=True`` serves in int8 (``models/quantize.py``): the activation
 scales calibrate on the first batch predicted (at most 4 images, H and W cut
-to multiples of 16; a batch whose cut is under 32 pixels serves in float and
-waits for the next) or explicitly (:meth:`Predictor.calibrate`,
-:meth:`Predictor.load_calibration`), the weights quantise per output channel
-from an f32 BN fold, and every DoubleConv conv runs on the int8 kernel
-(``kernels/conv3x3_int8.py``).  A batch goes to the float program instead
-where the JAX package's rules send it there: H or W not a multiple of 16, or
-a dense batch smaller than ``INT8_MIN_BATCH`` of its architecture.
+to multiples of the model's ``hw_divisor``, 16 for the UNets and UNet++; a
+batch whose cut is under 32 pixels serves in float and waits for the next)
+or explicitly (:meth:`Predictor.calibrate`, :meth:`Predictor.load_calibration`),
+the weights quantise per output channel from an f32 BN fold, and every
+DoubleConv conv runs on the int8 kernel (``kernels/conv3x3_int8.py``).  A
+batch goes to the float program instead where the JAX package's rules send
+it there: H or W not a multiple of ``hw_divisor``, or a dense batch smaller
+than ``INT8_MIN_BATCH`` of its architecture.  YOLOv8-seg has no int8 path
+in the port yet: ``quantize=True`` raises for it.
 
 :class:`ExportedPredictor` serves a ``torch.export`` program
 (``engine/export.py``, the ``.pt2`` counterpart of the JAX package's
@@ -50,8 +54,15 @@ from torch import nn
 
 from ..data.dataset import BasicDataset
 from ..device import resolve_device
-from ..models.fold_bn import fold_bn
-from ..models.quantize import apply_int8, build_qparams, calibrate_amax, folded_tree
+from ..models.fold_bn import fold_bn, serving_copy
+from ..models.quantize import (
+    apply_int8,
+    build_qparams,
+    build_qparams_pp,
+    calibrate_amax,
+    folded_tree,
+    refuse_int8,
+)
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
 
@@ -125,7 +136,11 @@ class _Serving:
         return self._logits(x)
 
     def _classes(self, logits: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) logits -> (B, H, W) int32 classes."""
+        """(B, H, W, C) logits -> (B, H, W) int32 classes: the argmax, or for
+        one output channel (a binary model) sigmoid > 0.5, as the evaluate
+        path does."""
+        if logits.shape[-1] == 1:
+            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
         return logits.argmax(dim=-1).int()
 
     def _prepare(self, images: np.ndarray) -> None:
@@ -340,11 +355,13 @@ class _Serving:
         return results
 
 class Predictor(_Serving):
-    """Batched predictor for a fixed UNet.
+    """Batched predictor for a fixed UNet, UNet++ or YOLOv8-seg.
 
     ``device`` defaults to ``cuda`` (raising when there is no card);
-    ``compute_dtype`` defaults to the model's own.  Every BatchNorm is folded
-    into its conv (exact in eval mode) on a copy of the model.  ``tile``,
+    ``compute_dtype`` defaults to the model's own.  Every DoubleConv's
+    BatchNorm is folded into its conv (exact in eval mode) on a copy of the
+    model; a model without one (YOLOv8-seg) serves an eval copy with live
+    BN.  ``tile``,
     ``tile_halo`` and ``tile_threshold`` set the tiled path (see the module
     docstring): ``tile=None`` picks the tile per image (:meth:`_auto_tile`),
     ``tile_threshold=None`` takes ``TILE_THRESHOLD`` and 0 never tiles.
@@ -358,17 +375,18 @@ class Predictor(_Serving):
     # path is not gated: it runs tile_batch windows a forward.  The card's
     # int8 / bf16 times at b = 1..8 are in PERF.md (chip_smoke.py's sweep).
     INT8_MIN_BATCH: Dict[str, int] = {"unet_sa": 4}
-    # the spatial divisor of the int8 program and of the calibration crop
-    INT8_DIVISOR = 16
 
     def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
                  compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
                  tile: Optional[int] = None, tile_halo: int = 96,
                  tile_threshold: Optional[int] = None, quantize: bool = False):
         super().__init__(device, batch_size, tile, tile_halo, tile_threshold)
-        self.n_classes = model.n_classes
+        # the spatial divisor of the int8 program and of the calibration crop
+        self.hw_divisor = model.hw_divisor
         cd = model.compute_dtype if compute_dtype is None else compute_dtype
-        net = fold_bn(model, cd)
+        if quantize:
+            refuse_int8(model)
+        net = serving_copy(model, cd)
         net.compute_dtype = cd
         self.model = net.to(self.device)
         self.compute_dtype = cd
@@ -384,11 +402,11 @@ class Predictor(_Serving):
 
     def calibrate(self, images: np.ndarray) -> None:
         """Calibrate the int8 activation scales on (B, H, W[, C]) float or
-        uint8 images, cut to multiples of 16 (per-tensor scales do not depend
-        on the cut): the float fold's forward in the compute dtype."""
+        uint8 images, cut to multiples of ``hw_divisor`` (per-tensor scales do
+        not depend on the cut): the float fold's forward in the compute dtype."""
         x = torch.from_numpy(np.ascontiguousarray(images))
         x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        div = self.INT8_DIVISOR
+        div = self.hw_divisor
         hc, wc = x.shape[1] // div * div, x.shape[2] // div * div
         if hc < div or wc < div:
             raise ValueError(f"calibration images too small: {tuple(x.shape)}")
@@ -399,7 +417,8 @@ class Predictor(_Serving):
         """Build the int8 qparams on the device from calibration amaxes."""
         if self._qfolded is None:
             raise ValueError("int8 serving needs a Predictor built with quantize=True")
-        self._qparams = build_qparams(self._qfolded, amax, self.device)
+        build = build_qparams_pp if "x0_0" in self._qfolded else build_qparams
+        self._qparams = build(self._qfolded, amax, self.device)
         self._amax = dict(amax)
 
     def save_calibration(self, path: str) -> None:
@@ -418,21 +437,22 @@ class Predictor(_Serving):
 
     def _prepare(self, images: np.ndarray) -> None:
         """First-batch auto-calibration on at most 4 images; a batch whose
-        16-multiple cut is under 32 pixels (the bottleneck would vanish) is
-        skipped and serves in float."""
+        ``hw_divisor``-multiple cut is under 32 pixels (or one divisor; the
+        bottleneck would vanish) is skipped and serves in float."""
         if not self.quantize or self._qparams is not None:
             return
-        div = self.INT8_DIVISOR
-        if min(images.shape[1] // div, images.shape[2] // div) * div >= 32:
+        div = self.hw_divisor
+        if min(images.shape[1] // div, images.shape[2] // div) * div >= max(32, div):
             self.calibrate(images[:4])
 
     def _int8_min_batch(self) -> int:
         return self.INT8_MIN_BATCH.get(self.arch, 1)
 
     def _int8_ok(self, h: int, w: int) -> bool:
-        """Calibrated, and H and W multiples of 16 (else the float program)."""
-        return (self._qparams is not None and h % self.INT8_DIVISOR == 0
-                and w % self.INT8_DIVISOR == 0)
+        """Calibrated, and H and W multiples of ``hw_divisor`` (else the float
+        program)."""
+        return (self._qparams is not None and h % self.hw_divisor == 0
+                and w % self.hw_divisor == 0)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) float on the device -> f32 logits, int8 where
@@ -448,11 +468,6 @@ class Predictor(_Serving):
             return self._logits(x)
         return self.model(x)
 
-    def _classes(self, logits: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, n_classes) logits -> (B, H, W) int32 classes."""
-        if self.n_classes == 1:
-            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
-        return super()._classes(logits)
 
 class ExportedPredictor(_Serving):
     """The serving paths of :class:`Predictor` around an exported program
@@ -460,8 +475,9 @@ class ExportedPredictor(_Serving):
     of the JAX package's ``StableHLOPredictor``: BN folding, the compute
     dtype and int8 were fixed at export time and the program maps (B, H, W,
     C) f32 images to logits.  uint8 images are normalised on the host (the
-    program's input is f32), the classes are the argmax of the logits (as
-    JAX's), and the tiled path uses a fixed tile of 512 by default (an int8
+    program's input is f32), the classes are the argmax of the logits, or
+    sigmoid > 0.5 for a binary program (JAX's ``StableHLOPredictor`` takes
+    the argmax of one channel, so 0 everywhere), and the tiled path uses a fixed tile of 512 by default (an int8
     program has one static window size: ``tile + 2 * tile_halo``).  The
     program runs on the device it was exported on, which ``device`` must
     name."""

@@ -23,8 +23,9 @@ new state, the port updates the model and the optimizer in place.
   probability map on the card.
 
 The whole UNet family trains (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``,
-bilinear or ConvTranspose ups, ``remat``), with the binary or multiclass
-criterion.  Single device only: data and spatial parallelism raise
+bilinear or ConvTranspose ups, ``remat``), and UNet++ (``unet_pp``,
+``unet_pp_s``, ``remat`` per node) and YOLOv8-seg (``yolov8_seg_s``), with
+the binary or multiclass criterion.  Single device only: data and spatial parallelism raise
 ``NotImplementedError`` until they are ported.  tqdm, PIL and cv2 are
 imported only on the paths that use them (progress bars, prediction dumps,
 post-processed Dice, the connected-component penalty).

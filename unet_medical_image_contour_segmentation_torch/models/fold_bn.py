@@ -7,6 +7,7 @@ package's ``models/fold_bn.py:fold_params``.  The folded weights are stored
 once, contiguous HWIO in the compute dtype, which is the packed form the
 3x3 kernel reads without a copy.  The attention conv of unet_sa has no BN
 after it and stays as it is, as in the JAX package (``fold_bn.py:43``).
+UNet++ folds every node's DoubleConv the same way.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from torch import nn
 from ..ops.nn import conv2d
 from .blocks import DoubleConv
 
-__all__ = ["FoldedDoubleConv", "fold_double_conv", "fold_bn"]
+__all__ = ["FoldedDoubleConv", "fold_double_conv", "fold_bn", "serving_copy"]
 
 
 class FoldedDoubleConv(nn.Module):
@@ -65,3 +66,14 @@ def fold_bn(model: nn.Module, dtype: Optional[torch.dtype] = None) -> nn.Module:
     for parent, name, child in targets:
         setattr(parent, name, fold_double_conv(child, dtype))
     return folded
+
+
+def serving_copy(model: nn.Module, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """The eval copy a model serves from: :func:`fold_bn`'s, or, for a model
+    with no DoubleConv to fold (YOLOv8-seg, whose BN follows convs inside
+    its CBS blocks), an eval copy that runs its BN live, as the JAX
+    package's Predictor serves it (``engine/predict.py:127-133``)."""
+    try:
+        return fold_bn(model, dtype)
+    except KeyError:
+        return copy.deepcopy(model).eval()

@@ -15,11 +15,29 @@ JAX package's ``models/torch_compat.py``, which it may not import):
     up{i}.conv.double_conv....              <-> up{i}/conv/...
     outc.conv.{weight,bias}                 <-> outc/{w,b}
 
+UNet++ and YOLOv8-seg have no reference ``.pth``; their modules are named
+after the JAX pytree's paths, and one walk carries any of their trees by
+the kind of each node (a node of the JAX tree, a module of the port):
+
+    <n>.double_conv.{0,1,3,4}.*             <-> <n>/{conv1,bn1,conv2,bn2}   (DoubleConv, as above)
+    <n>.{weight,bias,running_mean,var}      <-> <n>/{scale,bias} + state <n>/{mean,var}
+                                                                    (BatchNorm2d: CBS's bn)
+    <n>.weight                              <-> <n>/w   (a conv without bias: CBS's conv; OIHW)
+    <n>.conv.{weight,bias}                  <-> <n>/{w,b}  (OutConv: a 1x1 conv with bias)
+    <n>.{weight,bias}                       <-> <n>/{w,b}  (ConvTranspose2d, 2x2, (in,out,kh,kw))
+
+so ``x{i}_{j}``, ``up{i}_{j}``, ``outc`` / ``out{j}`` (UNet++) and ``stem``,
+``down{i}``, ``c2f{i}/m{k}/cv{1,2}/{conv,bn}``, ``sppf``, ``n4``, ``n3``,
+``p_up{k}``, ``p_c{k}``, ``head`` (YOLO) cross without a per-model map.  In a
+tree, a ``{w, b}`` node is an OutConv when its kernel is 1x1 and a
+ConvTranspose otherwise; in a state_dict, the bias beside a ``conv`` holder
+marks the OutConv.
+
 Per-parameter tensors that are not weights (gradients, the optimizer's
 ``square_avg`` / ``momentum_buffer``) cross with the same transpositions
 through :func:`params_tree_from_tensors` and :func:`tensors_from_params_tree`;
 the int8 parameters of the JAX package's ``models/quantize.py:build_qparams``
-cross through :func:`qparams_from_jax`.
+and ``build_qparams_pp`` cross through :func:`qparams_from_jax`.
 """
 
 from __future__ import annotations
@@ -56,11 +74,79 @@ def _take_double_conv(sd: Dict[str, Any], key: str):
     return params, state
 
 
+def _nested_set(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+_DOUBLE_CONV = {"0": "conv1", "1": "bn1", "3": "conv2", "4": "bn2"}
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("state", "mean"), "running_var": ("state", "var")}
+
+
+def _params_from_nodes(sd: Dict[str, np.ndarray]) -> Tuple[dict, dict]:
+    """The walk of a UNet++ / YOLO state_dict (see the module docstring)."""
+    params: dict = {}
+    state: dict = {}
+    for key, v in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        parts = mod.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if "double_conv" in parts:
+            i = parts.index("double_conv")
+            parts = parts[:i] + [_DOUBLE_CONV[parts[i + 1]]]
+        if f"{mod}.running_mean" in sd:                       # BatchNorm2d
+            group, name = _BN_LEAF[leaf]
+            _nested_set(params if group == "params" else state, parts + [name], np.asarray(v))
+        elif parts[-1] == "conv" and f"{mod}.bias" in sd:     # OutConv
+            _nested_set(params, parts[:-1] + [{"weight": "w", "bias": "b"}[leaf]],
+                        _conv_w(v) if leaf == "weight" else np.asarray(v))
+        elif f"{mod}.bias" in sd:                             # ConvTranspose2d
+            _nested_set(params, parts + [{"weight": "w", "bias": "b"}[leaf]],
+                        _convT_w(v) if leaf == "weight" else np.asarray(v))
+        else:                                                 # conv without bias
+            _nested_set(params, parts + ["w"], _conv_w(v))
+    return params, state
+
+
+def _put_nodes(out: Dict[str, np.ndarray], prefix: str, params, state) -> None:
+    """The walk of a UNet++ / YOLO params tree, the inverse of
+    :func:`_params_from_nodes`."""
+    for name, p in params.items():
+        key, s = f"{prefix}{name}", (state or {}).get(name)
+        if "conv1" in p:                                      # DoubleConv
+            _put_double_conv(out, f"{key}.double_conv", p, s)
+        elif "scale" in p:                                    # BatchNorm2d
+            out[f"{key}.weight"] = np.asarray(p["scale"])
+            out[f"{key}.bias"] = np.asarray(p["bias"])
+            out[f"{key}.running_mean"] = np.asarray(s["mean"])
+            out[f"{key}.running_var"] = np.asarray(s["var"])
+            out[f"{key}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+        elif "w" in p:
+            w = np.asarray(p["w"])
+            if "b" not in p:                                  # conv without bias
+                out[f"{key}.weight"] = w.transpose(3, 2, 0, 1)
+            elif w.shape[:2] == (1, 1):                       # OutConv
+                out[f"{key}.conv.weight"] = w.transpose(3, 2, 0, 1)
+                out[f"{key}.conv.bias"] = np.asarray(p["b"])
+            else:                                             # ConvTranspose2d
+                out[f"{key}.weight"] = w.transpose(2, 3, 0, 1)
+                out[f"{key}.bias"] = np.asarray(p["b"])
+        else:
+            _put_nodes(out, f"{key}.", p, s)
+
+
 def params_from_state_dict(sd: Dict[str, Any]) -> Tuple[dict, dict, Optional[list]]:
-    """A state_dict (numpy or torch values) -> JAX ``(params, state, mask_values)``."""
+    """A state_dict (numpy or torch values) -> JAX ``(params, state, mask_values)``;
+    the UNet family's by the reference map, UNet++'s and YOLO's by the walk."""
     sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
           for k, v in sd.items()}
     mask_values = sd.pop("mask_values", None)
+    if "inc.double_conv.0.weight" not in sd:
+        params, state = _params_from_nodes(sd)
+        return params, state, mask_values
     params: dict = {}
     state: dict = {}
     params["inc"], state["inc"] = _take_double_conv(sd, "inc.double_conv")
@@ -95,8 +181,12 @@ def _put_double_conv(out: Dict[str, np.ndarray], key: str, params, state) -> Non
 
 def state_dict_from_jax(params, bn_state) -> Dict[str, torch.Tensor]:
     """The JAX package's ``(params, bn_state)`` numpy pytrees -> the port's
-    state_dict (the reference model's keys), ready for ``UNet.load_state_dict``."""
+    state_dict, ready for ``load_state_dict``: the reference model's keys for
+    the UNet family, the walk's for UNet++ and YOLO."""
     out: Dict[str, np.ndarray] = {}
+    if "inc" not in params:
+        _put_nodes(out, "", params, bn_state)
+        return {k: torch.tensor(v) for k, v in out.items()}
     _put_double_conv(out, "inc.double_conv", params["inc"], bn_state["inc"])
     for i in range(1, 5):
         _put_double_conv(out, f"down{i}.maxpool_conv.1.double_conv",
@@ -136,8 +226,9 @@ def tensors_from_params_tree(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
 
 
 def qparams_from_jax(tree, device="cpu") -> dict:
-    """The JAX package's ``build_qparams`` output (the UNet family's int8
-    tree, numpy or jax arrays) -> the port's qparams on ``device``: the same
+    """The JAX package's ``build_qparams`` or ``build_qparams_pp`` output (the
+    UNet family's or UNet++'s int8 tree, numpy or jax arrays) -> the port's
+    qparams on ``device``: the same
     keys, each int8 conv entry ``{w, mul, badd}`` with its HWIO weight packed
     for the kernel (``kernels/conv3x3_int8.py:pack_weight``), every other
     array (scales, ConvT, attention, head) an f32 tensor.  Both packages

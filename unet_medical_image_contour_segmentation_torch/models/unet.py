@@ -54,6 +54,11 @@ class UNet(nn.Module):
                                                   for cin, cout in up)
         self.outc = OutConv(w[0], n_classes)
 
+    @property
+    def hw_divisor(self) -> int:
+        """The H and W divisibility the four 2x2 pools need."""
+        return 16
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
         if x.dim() == 3:
@@ -125,8 +130,20 @@ def unet_sa(n_channels=1, n_classes=3, bilinear=False, **kw) -> UNet:
 MODEL_REGISTRY = {"unet": unet, "unet_t": unet_t, "unet_s": unet_s, "unet_sa": unet_sa}
 
 
-def get_model(name: str, **kw) -> UNet:
-    if name not in MODEL_REGISTRY:
-        raise ValueError(f"unknown or not yet ported model {name!r}; "
-                         f"available: {sorted(MODEL_REGISTRY)}")
-    return MODEL_REGISTRY[name](**kw)
+def _extra_registry() -> dict:
+    from .unet_nested import unet_pp, unet_pp_s
+    from .yolov8_seg import yolov8_seg_s
+
+    return {"unet_pp": unet_pp, "unet_pp_s": unet_pp_s, "yolov8_seg_s": yolov8_seg_s}
+
+
+def get_model(name: str, **kw) -> nn.Module:
+    """The model ``name`` of the UNet family, UNet++ (``unet_pp``,
+    ``unet_pp_s``) or YOLOv8-seg (``yolov8_seg_s``), built with ``kw``."""
+    registry = dict(MODEL_REGISTRY)
+    if name not in registry:
+        registry.update(_extra_registry())
+    if name not in registry:
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(MODEL_REGISTRY) + ['unet_pp', 'unet_pp_s', 'yolov8_seg_s']}")
+    return registry[name](**kw)
