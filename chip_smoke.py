@@ -62,10 +62,13 @@ Phases, in order; any failure exits nonzero before the last line:
      JSON, seconds per stage, launches); if not, stage 3's device work alone;
  10. int8 kernel vs plain: the int8 conv with its requant / dequant epilogue
      at the 18 unet_s convs at (8, 512, 512), at 16 windows of 704², and at
-     the four Up conv1s as split (skip, upsample) inputs at both sizes,
-     exactly equal to its plain version, launch geometry equal to the
-     Python mirror's; kernel / plain / bf16-path / torch._int_mm times
-     and the bound (bytes, or operations at the int8 peak);
+     the four Up conv1s as split (skip, upsample) inputs at both sizes
+     (ReLU), and at yolov8_seg_s's 11 SiLU shapes at (8, 512, 512) (its
+     proto head's three convs, and the full scope's bottleneck convs,
+     signed int8 and bf16 out), exactly equal to its plain version run on
+     the card, launch geometry equal to the Python mirror's; kernel /
+     plain / bf16-path / torch._int_mm times and the bound (bytes, or
+     operations at the int8 peak);
  11. main path, int8 predict: unet_s int8 (bf16 compute) at (8, 512, 512),
      first-batch calibration, 18 int8 launches and no bf16-kernel launch per
      forward, masks >= 99% equal to f32, device and host times beside bf16;
@@ -94,12 +97,20 @@ Phases, in order; any failure exits nonzero before the last line:
      plain one, peak memory both ways); C4 yolov8_seg_s (binary, live BN):
      serving (4 launches a forward), an f32 card-vs-CPU binary step, 20 bf16
      steps of 4 + 4 launches, and a bf16 .pt2 program served at (8, 512,
-     512) and 1024x768 (masks >= 99.9% of the live Predictor's);
+     512) and 1024x768 (masks >= 99.9% of the live Predictor's); C5
+     yolov8_seg_s int8 (bf16 compute): the proto scope through Predictor
+     (3 int8 and 2 bf16 launches a forward, card vs CPU int8 masks >=
+     99.99%, masks vs f32, device forward int8 against bf16, slices/s,
+     batch-1 p50), one full-scope forward (23 int8 launches, none bf16;
+     its torch._int_mm route's time), and its int8 .pt2 program (masks
+     100% of the live int8 Predictor's);
  17. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
      window of phases 5-16 launched the conv3x3 kernel must be one that
      phase 3 or 4 held against the plain version (phase 3 times YOLO's two
      shapes that unet_s lacks, 32->32 at 128² and at 512², and checks its
-     exported program's; phase 10 checks unet_pp_s's split conv1s);
+     exported program's and its calibration's); every shape at which one
+     launched the int8 kernel was held against its plain version in phase
+     10, or is held here;
  18. a JSON ``kernels`` line (with per-shape rows), then the device line and
      the result line.
 
@@ -146,6 +157,9 @@ from unet_medical_image_contour_segmentation_torch.kernels import _build  # noqa
 from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
     conv3x3 as conv3x3_module,
 )
+from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
+    conv3x3_int8 as conv3x3_int8_module,
+)
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # noqa: E402
     _patches,
     supported,
@@ -181,8 +195,12 @@ from unet_medical_image_contour_segmentation_torch.models.torch_compat import ( 
     params_from_state_dict,
     state_dict_from_jax,
 )
+from unet_medical_image_contour_segmentation_torch.models import (  # noqa: E402
+    quantize as quantize_module,
+)
 from unet_medical_image_contour_segmentation_torch.models.quantize import (  # noqa: E402
     apply_int8,
+    build_qparams_yolo,
 )
 from unet_medical_image_contour_segmentation_torch.models.unet import (  # noqa: E402
     get_model,
@@ -239,6 +257,24 @@ INT8_CONVS = [
 # the Up convs whose input is the decoder's (skip, upsample) pair: the int8
 # forward hands them the two parts as a split input
 SPLIT_CONVS = ("up1.conv1", "up2.conv1", "up3.conv1", "up4.conv1")
+# yolov8_seg_s's 3x3 stride-1 int8 convs, each with the SiLU epilogue, at
+# (BATCH, HW, HW): name, Cin, Cout, downsampling, the epilogue's output, and
+# how many a full-scope forward runs (the proto scope runs the p_c convs
+# alone).  Each bottleneck's cv1 requantises (signed) and its cv2
+# dequantises; n4's and n3's bottlenecks share c2f2's and c2f1's shapes.
+YOLO_SILU_CONVS = [
+    ("p_c1", 64, 64, 4, "float", 1), ("p_c2", 32, 32, 2, "float", 1),
+    ("p_c3", 32, 32, 1, "float", 1),
+    ("c2f0.m.cv1", 32, 32, 4, "int8", 1), ("c2f0.m.cv2", 32, 32, 4, "float", 1),
+    ("c2f1.m.cv1", 64, 64, 8, "int8", 4), ("c2f1.m.cv2", 64, 64, 8, "float", 4),
+    ("c2f2.m.cv1", 128, 128, 16, "int8", 4), ("c2f2.m.cv2", 128, 128, 16, "float", 4),
+    ("c2f3.m.cv1", 256, 256, 32, "int8", 1), ("c2f3.m.cv2", 256, 256, 32, "float", 1),
+]
+YOLO_PROTO_CONVS = ("p_c1", "p_c2", "p_c3")
+# the SiLU operands' requant scale: their true-scale values spread about 4
+# around 0 (silu_operands), so the signed requant clips at 127 and takes
+# SiLU's negative lobe down to about -9
+SILU_INV_S = 127 / 4.0
 # the tiled unet_s forwards hand the kernel tpb * n windows of tile + 2 * 96
 # pixels: 16 of 704² (tile 512 at (2, 2048, 2048)) and 8 of 1216² (tile 1024
 # at (1, 4096, 4096)); MAIN_CONVS at each window's levels
@@ -329,6 +365,29 @@ def int8_operands(seed: int, b: int, h: int, w: int, cin: int, cout: int, device
             torch.from_numpy(badd.astype(np.float32)).to(device))
 
 
+def silu_operands(seed: int, b: int, h: int, w: int, cin: int, cout: int, device) -> tuple:
+    """:func:`int8_operands` with mul and badd at a YOLO CBS's true scale
+    (a 16th of the ReLU operands'), so that the epilogue's f32 values spread
+    about 4 around 0 and the SiLU's negative lobe matters."""
+    x, wp, mul, badd = int8_operands(seed, b, h, w, cin, cout, device)
+    return x, wp, mul / 16, badd / 16
+
+
+def int8_check(x, wp, mul, badd, out_dtype, x2=None, act="relu", inv_s=None) -> float:
+    """The int8 kernel against its plain version run on the card, on one
+    input: equal outputs (raises otherwise); -> the max abs difference (0)."""
+    got = conv3x3_int8(x, wp, mul, badd, out_dtype, x2, act=act, inv_s=inv_s)
+    want = conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2, act=act, inv_s=inv_s)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        n_diff = int((got != want).sum())
+        raise RuntimeError(f"conv3x3_int8 ({act}) differs from its plain version at "
+                           f"{(*x.shape, 0 if x2 is None else x2.shape[3], mul.shape[0])} -> "
+                           f"{out_dtype}: {n_diff} of {got.numel()} elements, max abs err {err}")
+    return err
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -344,8 +403,9 @@ def phase_device() -> str:
 def phase_build() -> dict:
     """Build every source; -> ptxas's {kernel: "R registers, S/L bytes spill
     stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", and the int8
-    kernels "int8_tma<N,OUT>" / "int8_im2col<N,OUT>").  An int8 kernel that
-    spills fails the run (its wgmma accumulators must stay in registers)."""
+    kernels "int8_tma<N,OUT>" / "int8_im2col<N,OUT>" with ReLU,
+    "int8_tma<N,OUT,silu>" with SiLU).  An int8 kernel that spills fails
+    the run (its wgmma accumulators must stay in registers)."""
     t0 = time.perf_counter()
     results = _build.build(["conv3x3", "conv3x3_int8"])
     log(f"[build] {len(results)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
@@ -355,11 +415,12 @@ def phase_build() -> dict:
         for line in r.log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling", "arning")):
                 log(f"[build]   {line.strip()}")
-            m = re.search(r"conv3x3_int8_(tma|im2col)_kernelILi(\d+)ELi(\d+)E"
+            m = re.search(r"conv3x3_int8_(tma|im2col)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?"
                           r"|conv3x3_mma_kernelILi(\d+)E|conv3x3_kernelIfE", line)
             if m and "Compiling" in line:
-                name = (f"int8_{m.group(1)}<{m.group(2)},{m.group(3)}>" if m.group(1)
-                        else f"mma<{m.group(4)}>" if m.group(4) else "f32")
+                silu = ",silu" if m.group(4) == "1" else ""
+                name = (f"int8_{m.group(1)}<{m.group(2)},{m.group(3)}{silu}>" if m.group(1)
+                        else f"mma<{m.group(5)}>" if m.group(5) else "f32")
             elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
                 spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
             elif (m := re.search(r"Used (\d+) registers", line)) and name:
@@ -407,21 +468,35 @@ def roofline(bound_ms: float, **timed_ms) -> float:
 # the main paths (reset_launches .. read_launches / int8_counts): the run
 # fails unless the second set lies in the first (phase_launched_shapes)
 CHECKED, LAUNCHED = set(), set()
+# the same for the int8 kernel: (B, H, W, Cin, Cin2, Cout, out dtype, act),
+# held against the plain version in phase 10, or in phase 17 where phase 10
+# has no such shape
+CHECKED8, LAUNCHED8 = set(), set()
 RECORDING = [False]
 
 
+def int8_key(x, x2, cout, out_dtype, act) -> tuple:
+    return (*x.shape, 0 if x2 is None else x2.shape[3], cout, str(out_dtype), act)
+
+
 def record_launches() -> None:
-    """Wrap the kernel module's launch so that each launch made while a
+    """Wrap the kernel modules' launches so that each launch made while a
     counted window is open records its shape (the counts stay the
     wrappers')."""
-    launch = conv3x3_module._launch
+    launch, launch8 = conv3x3_module._launch, conv3x3_int8_module._launch
 
     def recorded(x, w):
         if RECORDING[0]:
             LAUNCHED.add((*x.shape, w.shape[3], str(x.dtype)))
         return launch(x, w)
 
+    def recorded8(x, wp, mul, badd, out_dtype, x2, act, inv_s):
+        if RECORDING[0]:
+            LAUNCHED8.add(int8_key(x, x2, mul.shape[0], out_dtype, act))
+        return launch8(x, wp, mul, badd, out_dtype, x2, act, inv_s)
+
     conv3x3_module._launch = recorded
+    conv3x3_int8_module._launch = recorded8
 
 
 def conv_label(path: str) -> str:
@@ -516,6 +591,9 @@ def phase_kernels(usage: dict):
     shapes += [(f"yolo {name}", BATCH, HW // s, HW // s, cin, cout, "yolo")
                for name, cin, cout, s in new_shapes(yolo)]
     shapes += [(f"yolo {name}@{eh}x{ew}", 1, eh // s, ew // s, cin, cout, "export")
+               for name, cin, cout, s in yolo]
+    # its int8 calibration forward (C5): the CBS fold at (CALIB_BATCH, HW, HW)
+    shapes += [(f"yolo {name}@calib", CALIB_BATCH, HW // s, HW // s, cin, cout, "calibrate")
                for name, cin, cout, s in yolo]
     rows, max_err = [], 0.0
     for name, b, h, w, cin, cout, path in shapes:
@@ -706,19 +784,21 @@ def phase_int8_kernels(usage: dict):
     # unet_pp_s's nested conv1s (C2): the j skips and the upsample, checked
     shapes += [(f"pp {name} split", BATCH, HW // s, HW // s, cin, cout, "int8", "pp", cin2)
                for name, cin, cin2, cout, s in PP_SPLIT_CONVS]
+    # yolov8_seg_s's SiLU convs (C5), timed
+    shapes += [(f"yolo {name}", BATCH, HW // s, HW // s, cin, cout, out, "yolo", 0)
+               for name, cin, cout, s, out, _ in YOLO_SILU_CONVS]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
     for i, (name, b, h, w, cin, cout, out, path, cin2) in enumerate(shapes):
         out_dtype = torch.int8 if out == "int8" else torch.bfloat16
-        x, wp, mul, badd = int8_operands(70 + i, b, h, w, cin + cin2, cout, "cuda")
+        act = "silu" if path == "yolo" else "relu"
+        operands = silu_operands if act == "silu" else int8_operands
+        x, wp, mul, badd = operands(70 + i, b, h, w, cin + cin2, cout, "cuda")
         x, x2 = (x[..., :cin].contiguous(), x[..., cin:].contiguous()) if cin2 else (x, None)
-        got = conv3x3_int8(x, wp, mul, badd, out_dtype, x2)
-        want = conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.equal(got, want):
-            raise RuntimeError(f"conv3x3_int8 differs from its plain version at {name} "
-                               f"{(b, h, w, cin, cin2, cout)} -> {out_dtype}: max abs err {err}")
+        inv_s = (torch.tensor(SILU_INV_S, device="cuda")
+                 if act == "silu" and out == "int8" else None)
+        err = int8_check(x, wp, mul, badd, out_dtype, x2, act, inv_s)
+        CHECKED8.add(int8_key(x, x2, cout, out_dtype, act))
         max_err = max(max_err, err)
         # the channels the kernel gets: Cin >= 16 padded to a multiple of 16
         cin_k = cin + -cin % 16 if cin >= 16 else cin
@@ -732,11 +812,12 @@ def phase_int8_kernels(usage: dict):
             continue
         xs, x2s = copies(x), copies(x2) if cin2 else None
         ms, host_ms = time_ms(lambda i: conv3x3_int8(xs[i % len(xs)], wp, mul, badd, out_dtype,
-                                                     x2s[i % len(x2s)] if cin2 else None),
+                                                     x2s[i % len(x2s)] if cin2 else None,
+                                                     act=act, inv_s=inv_s),
                               reps=20)
         plain_ms, _ = time_ms(lambda i: conv3x3_int8_reference(
-            xs[i % len(xs)], wp, mul, badd, out_dtype, x2s[i % len(x2s)] if cin2 else None),
-            reps=2, warmup=1)
+            xs[i % len(xs)], wp, mul, badd, out_dtype, x2s[i % len(x2s)] if cin2 else None,
+            act=act, inv_s=inv_s), reps=2, warmup=1)
         del xs, x2s
         cin_all = cin + cin2
         mm_ms = int_mm_ms(x if x2 is None else torch.cat([x, x2], dim=-1), wp, cout)
@@ -749,15 +830,17 @@ def phase_int8_kernels(usage: dict):
         del xbs, xb
         bound_ms, bound_by = int8_bound_ms(b, h, w, cin_all, cout, out_dtype)
         share = roofline(bound_ms, kernel=ms)
-        key = f"int8_{geo.route}<{geo.n},{0 if out == 'int8' else 2}>"
+        key = (f"int8_{geo.route}<{geo.n},{0 if out == 'int8' else 2}"
+               f"{',silu' if act == 'silu' else ''}>")
         rows.append(dict(name=name, path=path, shape=[b, h, w, cin_all, cout], cin2=cin2,
-                         out=out, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         out=out, act=act, ms=ms, plain_ms=plain_ms, library_ms=None,
                          int_mm_ms=mm_ms, bf16_path_ms=bf16_ms, bound_ms=bound_ms,
                          bound_by=bound_by, roofline=share, max_abs_err=err, host_ms=host_ms,
                          kernel=key, ptxas=usage.get(key, "not printed"), grid=geo.grid,
                          tile=list(geo.tile), stages=geo.stages, smem_bytes=geo.smem_bytes))
         mm = "refused" if mm_ms is None else f"{mm_ms:.4f} ms"
-        log(f"[int8-kernels] {name:16s} {str((b, h, w, cin_all, cout)):26s} -> {out:5s} equal; "
+        log(f"[int8-kernels] {name:16s} {str((b, h, w, cin_all, cout)):26s} -> {out:5s} "
+            f"{act} equal; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 path {bf16_ms:.4f} ms, "
             f"_int_mm {mm}, bound {bound_ms:.4f} ms ({bound_by}), roofline {share:.1%}, "
             f"host issue {host_ms * 1e3:.1f} us; {key}: {usage.get(key, 'not printed')}, "
@@ -2222,6 +2305,16 @@ PP_SPLIT_CONVS = [(f"x{i}_{j}.conv1", w * j, w, w, 2 ** i)
 # the card-vs-CPU int8 check of unet_pp_s runs the plain int8 conv (an f64
 # im2col product) on the CPU: 2 images cut to this size keep it to seconds
 PP_INT8_CPU_HW = 256
+# yolov8_seg_s int8 (C5), launches per forward: the proto scope runs p_c1..3
+# on the int8 kernel and c2f0's bottleneck (its folded float convs, 32->32)
+# on the bf16 kernel; the full scope runs its 20 bottleneck convs and
+# p_c1..3 on the int8 kernel and nothing on the bf16 one
+YOLO_INT8_PROTO, YOLO_BF16_PROTO = len(YOLO_PROTO_CONVS), 2
+YOLO_INT8_FULL = sum(n for *_, n in YOLO_SILU_CONVS)
+# card-vs-CPU int8 masks of yolov8_seg_s (f32 compute, TF32 off): the two
+# float backbones differ in f32 rounding, and a p_c input's quantise step
+# can then land one LSB apart at a .5 tie
+MIN_YOLO_CARD_VS_CPU = 0.9999
 
 
 def fwd_launches(n: int) -> dict:
@@ -2253,9 +2346,10 @@ def counted_masks(pred, images, want: dict, label: str) -> np.ndarray:
 
 def serve_numbers(pred, images, queued_reps: int = FORWARD_REPS) -> dict:
     """Host slices/s of ``pred.predict_array(images)`` (20 calls, host arrays
-    in and out), batch-1 p50 (50 calls), device forward + classes ms (CUDA
-    events, batch resident, ``queued_reps`` calls queued behind a sleep: the
-    device alone) and peak memory of the host-clock calls."""
+    in and out), batch-1 p50 (50 calls), device forward + classes ms (the
+    Predictor's own forward, int8 where it serves int8; CUDA events, batch
+    resident, ``queued_reps`` calls queued behind a sleep: the device alone)
+    and peak memory of the host-clock calls."""
     for _ in range(3):
         pred.predict_array(images)
     torch.cuda.synchronize()
@@ -2272,7 +2366,8 @@ def serve_numbers(pred, images, queued_reps: int = FORWARD_REPS) -> dict:
         lat.append((time.perf_counter() - t1) * 1e3)
     x = torch.from_numpy(images).cuda()
     with torch.inference_mode():
-        fwd_ms, _ = time_ms(lambda i: pred._classes(pred.model(x)), reps=queued_reps, warmup=2)
+        fwd_ms, _ = time_ms(lambda i: pred._classes(pred._logits(x)), reps=queued_reps,
+                            warmup=2)
     return dict(slices_per_s=rate, batch_ms=batch_ms, latency_p50_ms=float(np.median(lat)),
                 forward_ms=fwd_ms, peak_mib=peak)
 
@@ -2542,10 +2637,161 @@ def phase_yolo():
              "yolo_export": e_launches}, dict(serve=serve, train=train, export=export))
 
 
-def phase_launched_shapes() -> int:
+def int_mm_route_ms(qparams: dict, x: torch.Tensor) -> tuple:
+    """The int8 1x1 and stride-2 convs of one full-scope int8 forward
+    (``models/quantize.py:_int8_conv_sums``: the im2col rows and
+    ``torch._int_mm``): each call's input recorded in one forward, then
+    each call timed alone on copies rotated past the L2, queued behind a
+    sleep; -> (the sum of their device ms, the number of calls)."""
+    calls, sums = [], quantize_module._int8_conv_sums
+
+    def recorded(t, wm, k, stride):
+        calls.append((t.clone(), wm, k, stride))
+        return sums(t, wm, k, stride)
+
+    quantize_module._int8_conv_sums = recorded
+    try:
+        with torch.inference_mode():
+            apply_int8(qparams, x, torch.bfloat16)
+    finally:
+        quantize_module._int8_conv_sums = sums
+    total = 0.0
+    with torch.inference_mode():
+        for t, wm, k, stride in calls:
+            ts = copies(t)
+            total += time_ms(lambda i: sums(ts[i % len(ts)], wm, k, stride), reps=10)[0]
+            del ts
+    return total, len(calls)
+
+
+def phase_yolo_int8(profile_dir=None):
+    """C5: yolov8_seg_s (1 class, binary) int8 with seeded weights, bf16
+    compute, at (BATCH, HW, HW).  The proto scope (the Predictor's): the
+    first call calibrates on the CBS fold (YOLO_PER_FORWARD bf16 launches)
+    and serves; then YOLO_INT8_PROTO int8 and YOLO_BF16_PROTO bf16 launches a
+    forward; the card's int8 masks (f32 compute, TF32 off) against the
+    CPU's on one calibration >= MIN_YOLO_CARD_VS_CPU; masks against f32
+    reported; device forward int8 against bf16 (live BN, as served) and
+    against the BN-folded bf16 forward, one call queued at a time;
+    host slices/s and batch-1 p50.  The full scope from the same
+    calibration (``build_qparams_yolo(scope="full")``): YOLO_INT8_FULL int8
+    launches and no bf16 one, masks against f32, the device forward, and
+    the time of its ``torch._int_mm`` route.  Then the int8 .pt2 program
+    of the proto qparams at 512²: the Predictor's launches, masks 100% equal
+    to the live int8 Predictor's."""
+    from unet_medical_image_contour_segmentation_torch.engine.export import (
+        export_program_int8,
+    )
+    from unet_medical_image_contour_segmentation_torch.engine.predict import (
+        ExportedPredictor,
+    )
+
+    model = seeded_model("yolov8_seg_s", MODEL_SEED)
+    images = smooth_images(1, BATCH, HW)
+    q = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, quantize=True)
+    bf16 = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
+    reset_launches()
+    q.predict_array(images)
+    calib = int8_counts()
+    want = {"conv3x3_int8": YOLO_INT8_PROTO, "conv3x3_nhwc": YOLO_BF16_PROTO}
+    if calib != {"conv3x3_int8": YOLO_INT8_PROTO,
+                 "conv3x3_nhwc": YOLO_PER_FORWARD + YOLO_BF16_PROTO}:
+        raise RuntimeError(f"[C5] the calibrating first call launched {calib}")
+    reset_launches()
+    masks = q.predict_array(images)
+    launches = int8_counts()
+    if launches != want:
+        raise RuntimeError(f"[C5] a proto int8 forward launched {launches}, want {want}")
+    if masks.shape != (BATCH, HW, HW) or not set(np.unique(masks)) <= {0, 1}:
+        raise RuntimeError(f"[C5] masks {masks.shape} with values {np.unique(masks)}")
+    with exact_f32():
+        ref = Predictor(model, device="cuda").predict_array(images)
+    agree = float((masks == ref).mean())
+    agree_bf16 = float((bf16.predict_array(images) == ref).mean())
+    cut = images[:2, :PP_INT8_CPU_HW, :PP_INT8_CPU_HW]
+    card_vs_cpu = int8_card_vs_cpu(model, q._amax, cut)
+    if card_vs_cpu < MIN_YOLO_CARD_VS_CPU:
+        raise RuntimeError(f"[C5] the card's int8 masks agree with the CPU's on "
+                           f"{card_vs_cpu:.4%} < {MIN_YOLO_CARD_VS_CPU:.2%}")
+
+    full = build_qparams_yolo(q._qfolded, q._amax, scope="full", device="cuda")
+    x = torch.from_numpy(images).cuda()
+    reset_launches()
+    with torch.inference_mode():
+        full_masks = q._classes(apply_int8(full, x, torch.bfloat16)).cpu().numpy()
+    full_launches = int8_counts()
+    if full_launches != {"conv3x3_int8": YOLO_INT8_FULL, "conv3x3_nhwc": 0}:
+        raise RuntimeError(f"[C5] a full-scope int8 forward launched {full_launches}, want "
+                           f"{YOLO_INT8_FULL} int8 and no bf16 kernel launch")
+    full_agree = float((full_masks == ref).mean())
+    if not 0.0 < full_masks.mean() < 1.0:
+        raise RuntimeError(f"[C5] full-scope masks are all {full_masks.flat[0]}")
+    # one forward queued at a time (C4), in turns; "folded" is the int8
+    # walker on the f32 CBS fold with no int8 entry: the BN-folded bf16
+    # forward, which the proto scope's backbone and neck run
+    with torch.inference_mode():
+        fwd = {"bf16": lambda i: bf16._classes(bf16.model(x)),
+               "folded": lambda i: q._classes(apply_int8(q._qfolded, x, torch.bfloat16)),
+               "proto": lambda i: q._classes(apply_int8(q._qparams, x, torch.bfloat16)),
+               "full": lambda i: q._classes(apply_int8(full, x, torch.bfloat16))}
+        dev = {k: [] for k in fwd}
+        for k in ("bf16", "folded", "proto", "full", "full", "proto", "folded", "bf16"):
+            dev[k].append(time_ms(fwd[k], reps=1, warmup=2)[0])
+    route_ms, route_calls = int_mm_route_ms(full, x)
+    serve = serve_numbers(q, images, queued_reps=1)
+    bf16_rate = host_rate(bf16, images, reps=10)[0]
+    if profile_dir:
+        for name, k in (("yolo_int8_predict", "proto"), ("yolo_int8_full", "full"),
+                        ("yolo_folded_predict", "folded"), ("yolo_bf16_predict", "bf16")):
+            profile_forward(lambda: fwd[k](0), Path(profile_dir), name)
+    result = dict(agreement_f32=agree, bf16_agreement_f32=agree_bf16, card_vs_cpu=card_vs_cpu,
+                  foreground=float(masks.mean()), full_agreement_f32=full_agree,
+                  **{f"{k}_forward_ms": float(np.mean(v)) for k, v in dev.items()},
+                  forward_ms_runs=dev, int_mm_route_ms=route_ms, int_mm_route_calls=route_calls,
+                  bf16_slices_per_s=bf16_rate, **serve)
+    log(f"[C5 yolov8_seg_s int8] ({BATCH}, {HW}, {HW}) bf16 compute, proto scope: calibration "
+        f"{calib}, then {launches} a forward; masks vs f32 {agree:.4%} (bf16 vs f32 "
+        f"{agree_bf16:.4%}), foreground {result['foreground']:.3f}; card vs CPU int8 masks (f32 "
+        f"compute, {tuple(cut.shape)}) {card_vs_cpu:.4%}; full scope: {full_launches} a "
+        f"forward, masks vs f32 {full_agree:.4%}, its {route_calls} 1x1 / stride-2 convs on "
+        f"torch._int_mm {route_ms:.4f} ms; device forward+classes (one call queued) bf16 "
+        f"{dev['bf16']} ms, BN-folded bf16 {dev['folded']} ms, proto {dev['proto']} ms, full "
+        f"{dev['full']} ms (proto / folded "
+        f"{result['proto_forward_ms'] / result['folded_forward_ms']:.3f}, proto / bf16 "
+        f"{result['proto_forward_ms'] / result['bf16_forward_ms']:.3f}, full / bf16 "
+        f"{result['full_forward_ms'] / result['bf16_forward_ms']:.3f}); host slices/s int8 "
+        f"{serve['slices_per_s']:.1f}, bf16 {bf16_rate:.1f}; int8 batch-1 p50 "
+        f"{serve['latency_p50_ms']:.3f} ms; peak memory {serve['peak_mib']:.1f} MiB")
+
+    t0 = time.perf_counter()
+    data = export_program_int8(in_dtype(model, torch.bfloat16).eval(), q._qparams,
+                               example_hw=(HW, HW))
+    export_s = time.perf_counter() - t0
+    exported = ExportedPredictor(data, device="cuda")
+    exported.predict_array(images[:1])  # warm-up
+    reset_launches()
+    e_masks = exported.predict_array(images)
+    e_launches = int8_counts()
+    e_agree = float((e_masks == q.predict_array(images)).mean())
+    if e_launches != want or e_agree != 1.0:
+        raise RuntimeError(f"[C5 export int8] a program forward launched {e_launches}; masks "
+                           f"equal to the live int8 Predictor's on {e_agree:.6%}")
+    result["export"] = dict(bytes=len(data), export_s=export_s, agreement=e_agree,
+                            slices_per_s=host_rate(exported, images, reps=10)[0])
+    log(f"[C5 yolov8_seg_s int8 export] program at {HW}² ({len(data)} bytes, export "
+        f"{export_s:.1f} s): {e_launches} a forward; masks equal to the live int8 "
+        f"Predictor's on {e_agree:.4%}; host {result['export']['slices_per_s']:.1f} slices/s")
+    return ({"yolo_int8_predict": launches, "yolo_int8_full": full_launches,
+             "yolo_int8_export": e_launches}, result)
+
+
+def phase_launched_shapes() -> tuple:
     """Every shape at which a counted window of a main path launched the
     conv3x3 kernel (forward or dx) was held against the plain version in
-    phase 3 or 4; -> the number of such shapes."""
+    phase 3 or 4; every shape at which one launched the int8 kernel was held
+    against its plain version in phase 10, or is held here (equal outputs
+    on seeded operands, ReLU or SiLU as launched); -> the numbers of such
+    shapes (bf16 / f32 kernel, int8 kernel, int8 checked here)."""
     unchecked = sorted(LAUNCHED - CHECKED)
     if not LAUNCHED or unchecked:
         raise RuntimeError(f"the main paths launched conv3x3 at shapes that no phase held "
@@ -2554,7 +2800,22 @@ def phase_launched_shapes() -> int:
     log(f"[shapes] the main paths launched conv3x3 at {len(LAUNCHED)} (B, H, W, Cin, Cout, "
         f"dtype) shapes, each held against the plain version in phase 3 or 4: "
         f"{sorted(LAUNCHED)}")
-    return len(LAUNCHED)
+    rest = sorted(LAUNCHED8 - CHECKED8)
+    for i, (b, h, w, cin, cin2, cout, out, act) in enumerate(rest):
+        out_dtype = getattr(torch, out.removeprefix("torch."))
+        operands = silu_operands if act == "silu" else int8_operands
+        x, wp, mul, badd = operands(300 + i, b, h, w, cin + cin2, cout, "cuda")
+        x, x2 = (x[..., :cin].contiguous(), x[..., cin:].contiguous()) if cin2 else (x, None)
+        inv_s = (torch.tensor(SILU_INV_S, device="cuda")
+                 if act == "silu" and out_dtype == torch.int8 else None)
+        int8_check(x, wp, mul, badd, out_dtype, x2, act, inv_s)
+        CHECKED8.add(int8_key(x, x2, cout, out_dtype, act))
+    if not LAUNCHED8 or LAUNCHED8 - CHECKED8:
+        raise RuntimeError(f"int8 launch shapes left unchecked: {sorted(LAUNCHED8 - CHECKED8)}")
+    log(f"[shapes] the main paths launched conv3x3_int8 at {len(LAUNCHED8)} (B, H, W, Cin, "
+        f"Cin2, Cout, out, act) shapes, each equal to its plain version: "
+        f"{len(LAUNCHED8) - len(rest)} in phase 10, {len(rest)} checked here {rest}")
+    return len(LAUNCHED), len(LAUNCHED8), len(rest)
 
 
 def shape_row(r) -> dict:
@@ -2605,15 +2866,17 @@ def main(argv=None) -> int:
     pp8_launches, pp["unet_pp_s"]["int8"] = phase_pp_int8(pp_model)
     pp_train_launches, pp["unet_pp_s"]["train"] = phase_pp_train()
     yolo_launches, pp["yolov8_seg_s"] = phase_yolo()
-    n_shapes = phase_launched_shapes()
+    yolo8_launches, pp["yolov8_seg_s"]["int8"] = phase_yolo_int8(args.profile)
+    n_shapes, n_shapes8, n_shapes8_here = phase_launched_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
     train_paths = {"train": train_launches, "train_binary": binary_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
                    "train_remat": remat_launches}
-    # C1-C4: UNet++ and YOLOv8-seg serving, tiled, train and export
-    family_paths = {**pp_launches, **pp_train_launches, **yolo_launches}
+    # C1-C5: UNet++ and YOLOv8-seg serving, tiled, train, export and int8
+    family_paths = {**pp_launches, **pp_train_launches, **yolo_launches,
+                    **{k: fwd_launches(v["conv3x3_nhwc"]) for k, v in yolo8_launches.items()}}
     train_paths.update({k: v for k, v in family_paths.items() if "train" in k})
     by_path = {"predict": launches["conv3x3_nhwc"],
                **{k: v["conv3x3_nhwc"] for k, v in train_paths.items()},
@@ -2632,7 +2895,18 @@ def main(argv=None) -> int:
                     "int8_tiled": int8_tiled_launches["conv3x3_int8"],
                     "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0),
                     "int8_export": export8_launches["conv3x3_int8"],
-                    **{k: v["conv3x3_int8"] for k, v in pp8_launches.items()}}
+                    **{k: v["conv3x3_int8"] for k, v in pp8_launches.items()},
+                    **{k: v["conv3x3_int8"] for k, v in yolo8_launches.items()}}
+    # the SiLU instantiations (C5): per proto-scope forward (p_c1..3) and per
+    # full-scope forward (each shape as often as the forward runs it)
+    silu8 = {r["name"].removeprefix("yolo "): r for r in int8_rows if r["path"] == "yolo"}
+    counts = {name: n for name, *_, n in YOLO_SILU_CONVS}
+    proto8 = [silu8[name] for name in YOLO_PROTO_CONVS]
+
+    def per_full(key):
+        if any(r[key] is None for r in silu8.values()):
+            return None
+        return sum(counts[name] * r[key] for name, r in silu8.items())
     yolo_rows = [r for r in rows if r["path"] == "yolo"]
     kernels = [{
         "name": "conv3x3_nhwc",
@@ -2688,6 +2962,23 @@ def main(argv=None) -> int:
                         bf16_path_ms=r["bf16_path_ms"], int_mm_ms=r["int_mm_ms"],
                         bound_by=r["bound_by"], kernel=r["kernel"], ptxas=r["ptxas"])
                    for r in dense8 + list(split8.values())],
+        # the SiLU epilogues (yolov8_seg_s, C5): per proto-scope forward and per
+        # full-scope forward at (8, 512²), and per shape
+        "silu": {
+            "proto": {k: sum(r[k] for r in proto8)
+                      for k in ("ms", "plain_ms", "bound_ms", "bf16_path_ms")}
+            | {"int_mm_ms": (sum(r["int_mm_ms"] for r in proto8)
+                             if all(r["int_mm_ms"] is not None for r in proto8) else None)},
+            "full": {k: per_full(k) for k in ("ms", "plain_ms", "bound_ms", "bf16_path_ms",
+                                              "int_mm_ms")},
+            "shapes": [dict(shape_row(r), out=r["out"], per_full_forward=counts[name],
+                            plain_ms=r["plain_ms"], bf16_path_ms=r["bf16_path_ms"],
+                            int_mm_ms=r["int_mm_ms"], bound_by=r["bound_by"],
+                            kernel=r["kernel"], ptxas=r["ptxas"])
+                       for name, r in silu8.items()],
+        },
+        "launch_shapes_checked": n_shapes8,
+        "launch_shapes_checked_in_phase_17": n_shapes8_here,
     }, {
         # the same kernel as the input gradient in the train step's backward
         "name": "conv3x3_nhwc_dx",
@@ -2713,6 +3004,14 @@ def main(argv=None) -> int:
         f"one-input {k8['ms_one_input']:.4f}), bound {k8['bound_ms']:.4f} ms ({k8['bound_by']}; "
         f"roofline {k8['bound_ms'] / k8['ms']:.1%}), bf16 path {k8['bf16_path_ms']:.4f} ms, "
         f"kernel / bf16 path {k8['ms'] / k8['bf16_path_ms']:.3f}, torch._int_mm {int_mm}")
+    for scope, t in k8["silu"].items():
+        if scope == "shapes":
+            continue
+        int_mm = "refused" if t["int_mm_ms"] is None else f"{t['int_mm_ms']:.4f} ms"
+        log(f"[int8-kernels] SiLU, per yolov8_seg_s {scope}-scope int8 forward: kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
+            f"{t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, bf16 path "
+            f"{t['bf16_path_ms']:.4f} ms, torch._int_mm {int_mm}")
     log(f"[kernels] per forward: kernel {fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
         f"(roofline {fwd['bound_ms'] / fwd['ms']:.1%}), F.conv2d {fwd['library_ms']:.4f} ms, "
         f"kernel / library {fwd['ms'] / fwd['library_ms']:.3f}")

@@ -18,11 +18,13 @@ from chip_smoke import (
     INT8_CONVS,
     MODEL_SEED,
     PP_SPLIT_CONVS,
+    SILU_INV_S,
     build_model,
     int8_operands,
     rect_batch,
     seeded_model as seeded_family,
     seeded_unet_s,
+    silu_operands,
     smooth_images,
     tiled_logits,
     top2_margin,
@@ -335,6 +337,30 @@ def test_int8_kernel_at_unet_s_shapes(cuda, name, cin, cout, s, out):
     epilogue (int8, or dequant to bf16 as on the main path)."""
     out_dtype = torch.int8 if out == "int8" else torch.bfloat16
     _int8_check(cuda, 60, 2, 256 // s, 256 // s, cin, cout, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 32, 48), 32, 32),     # YOLO's p_c2 / p_c3 and c2f0 bottleneck: N = 32
+    ((1, 17, 70), 64, 64),     # p_c1 and c2f1's bottleneck, W and H off the tile
+    ((1, 9, 21), 8, 24),       # Cin < 16: padded to 16 for the TMA kernel
+])
+def test_int8_kernel_silu_epilogues_match_plain(cuda, shape, cin, cout, out_dtype):
+    """The SiLU epilogues (yolov8_seg_s: true-scale dequant to f32 / bf16,
+    or the signed requant with ``inv_s``) against the plain version run on
+    the card, exactly: the kernel computes torch's CUDA sigmoid."""
+    x, wp, mul, badd = silu_operands(67, *shape, cin, cout, cuda)
+    inv_s = torch.tensor(SILU_INV_S, device=cuda) if out_dtype == torch.int8 else None
+    before = K8.conv3x3_int8.launches
+    got = K8.conv3x3_int8(x, wp, mul, badd, out_dtype, act="silu", inv_s=inv_s)
+    want = K8.conv3x3_int8_reference(x, wp, mul, badd, out_dtype, act="silu", inv_s=inv_s)
+    torch.cuda.synchronize()
+    assert K8.conv3x3_int8.launches == before + 1 and got.dtype == out_dtype
+    assert torch.equal(got, want)
+    if out_dtype == torch.int8:  # the signed grid: both ends of SiLU's range
+        assert (want < 0).any() and (want == 127).any()
+    else:
+        assert (want < 0).any()
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32, torch.bfloat16])

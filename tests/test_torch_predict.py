@@ -174,9 +174,13 @@ def test_cli_predicts_a_directory(model, png_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--viz"], ["--model", "m.stablehlo"],
-                                   ["--arch", "yolov8_seg_s", "--int8"],
-                                   ["--num-devices", "2"], ["--int8", "--arch", "yolov8_seg_s"]])
+                                   ["--model", "m.stablehlo", "--arch", "yolov8_seg_s", "--int8"],
+                                   ["--num-devices", "2"],
+                                   ["--num-devices", "2", "--int8", "--arch", "yolov8_seg_s"]])
 def test_cli_rejects_what_is_not_ported(extra, capsys):
+    """Visualisation, JAX's StableHLO programs and data-parallel serving,
+    whatever the architecture and precision (YOLOv8-seg's --int8 serves:
+    tests/test_torch_yolo_int8.py)."""
     with pytest.raises(SystemExit) as exc:
         cli.get_args(["-m", "w.npz", "-i", "x.png", *extra])
     assert exc.value.code == 2

@@ -4,8 +4,8 @@ f32 on the CPU, on seeded numpy weights in the JAX layout (``chip_smoke``'s
 
 Tolerances: eval logits to 1e-4; train-mode forward to 1e-3 (one-pass
 against two-pass BN variance); the binary train step's gradients to 1e-5 of
-JAX's f64 gradients.  YOLOv8-seg serves with live BN (nothing folds), and
-its int8 path is not ported: every entry point refuses it.
+JAX's f64 gradients.  YOLOv8-seg serves with live BN (nothing folds); its
+int8 path is held against JAX's in ``tests/test_torch_yolo_int8.py``.
 """
 
 import os
@@ -22,11 +22,7 @@ from unet_medical_image_contour_segmentation_torch.cli import predict as predict
 from unet_medical_image_contour_segmentation_torch.cli import train as train_cli
 from unet_medical_image_contour_segmentation_torch.engine import checkpoint as TC
 from unet_medical_image_contour_segmentation_torch.engine import onnx_export as TO
-from unet_medical_image_contour_segmentation_torch.engine.export import (
-    _dims,
-    export_program,
-    export_program_int8,
-)
+from unet_medical_image_contour_segmentation_torch.engine.export import _dims, export_program
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig
 from unet_medical_image_contour_segmentation_torch.engine.predict import (
     ExportedPredictor,
@@ -294,21 +290,6 @@ def test_program_serves_on_the_cpu():
                                   Predictor(model, device="cpu").predict_array(x))
     dims = _dims(True, True, model.hw_divisor)
     assert "32*" in str(dims[1]) and "32*" in str(dims[2])
-
-
-def test_int8_is_refused_everywhere(seeded, capsys):
-    """Predictor(quantize=True), the int8 program and both CLIs' --int8 raise
-    for YOLOv8-seg, naming the work its int8 path needs."""
-    model, _, _ = seeded
-    with pytest.raises(NotImplementedError, match="SiLU epilogue"):
-        Predictor(model, device="cpu", quantize=True)
-    with pytest.raises(NotImplementedError, match="SPPF"):
-        export_program_int8(model, {})
-    for cli, args in ((predict_cli, ["-m", "w.npz", "-i", "x.png"]),
-                      (export_cli, ["-m", "w.npz"])):
-        with pytest.raises(SystemExit) as exc:
-            cli.get_args([*args, "--arch", "yolov8_seg_s", "--int8"])
-        assert exc.value.code == 2 and "not ported" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -17,9 +17,9 @@ deployment contract: opset 11, NCHW, dynamic batch / height / width) or
 ``both``; without ``--format`` the output's extension decides.  ``--int8``
 exports the int8 program instead (weights and requant scales baked in,
 static ``--int8-hw``, dynamic batch) from ``--int8-scales`` or from
-``--calib`` images (not for yolov8_seg_s, whose int8 path is not ported
-yet).  The program is traced on ``--device`` (default cuda) and serves
-there.  ``stablehlo`` is refused: it is the JAX package's.
+``--calib`` images; there is no int8 ONNX, as in JAX.  The program is
+traced on ``--device`` (default cuda) and serves there.  ``stablehlo`` is
+refused: it is the JAX package's.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import logging
 import os
 import sys
 
-from .predict import ARCHS, INT8_NOT_PORTED
+from .predict import ARCHS
 
 
 def get_args(argv=None):
@@ -64,10 +64,6 @@ def get_args(argv=None):
     if args.format == "stablehlo":
         parser.error("--format stablehlo: StableHLO is the JAX package's artifact (its "
                      "umics-export); the PyTorch package exports .pt2 programs and ONNX")
-    if args.int8 and args.arch in INT8_NOT_PORTED:
-        parser.error(f"--arch {args.arch} --int8: the int8 program of {args.arch} is not "
-                     "ported to the PyTorch package yet; export it in float, or use the JAX "
-                     "package's umics-export")
     if args.format is None:
         args.format = "onnx" if (args.output or "").endswith(".onnx") else "pt2"
     return args
@@ -131,11 +127,11 @@ def _export_int8(args, model, base: str) -> int:
     with torch.no_grad():
         got = load_exported(data).module()(x)
     want = apply_int8(predictor._qparams, x, predictor.compute_dtype)
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    agree = float((predictor._classes(got) == predictor._classes(want)).float().mean())
     if agree == 1.0:
-        logging.info("int8 program sanity forward passed (argmax identical to live int8).")
+        logging.info("int8 program sanity forward passed (classes identical to live int8).")
         return 0
-    logging.error("int8 sanity forward FAILED: argmax agreement %.5f", agree)
+    logging.error("int8 sanity forward FAILED: class agreement %.5f", agree)
     return 1
 
 

@@ -12,8 +12,7 @@ post-processing on by default, masks saved as {0,128,255} PNGs (next to the
 inputs when ``-o`` is omitted), batches grouped by image size, and tiled
 serving of images above ``--tile-threshold`` pixels, and int8 serving
 (``--int8``, with ``--int8-scales s.json``: load the calibration if the file
-exists, else calibrate on the first batch and save it there; not for
-yolov8_seg_s, whose int8 path is not ported yet).  A ``.pt2``
+exists, else calibrate on the first batch and save it there).  A ``.pt2``
 program of the export CLI serves through ``ExportedPredictor`` (its
 precision, int8 included, was fixed at export time, so ``--int8`` is ignored
 with a warning; tile 512 unless ``--tile`` says otherwise).  JAX's
@@ -29,8 +28,6 @@ import os
 import sys
 
 ARCHS = ["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s", "yolov8_seg_s"]
-# architectures whose int8 path is not ported yet
-INT8_NOT_PORTED = ("yolov8_seg_s",)
 # flags of the JAX CLI that the port does not serve yet (with their aliases)
 _NOT_PORTED = {
     ("--viz", "-v"): "visualisation", ("--num-devices",): "data-parallel serving",
@@ -83,10 +80,6 @@ def get_args(argv=None):
         if getattr(args, f"not_ported_{flags[0][2:].replace('-', '_')}") is not None:
             parser.error(f"{flags[0]}: {what} is not ported to the PyTorch package yet; "
                          "use the JAX package's umics-predict")
-    if args.int8 and args.arch in INT8_NOT_PORTED:
-        parser.error(f"--arch {args.arch} --int8: int8 serving of {args.arch} is not ported to "
-                     "the PyTorch package yet; serve it in float, or use the JAX package's "
-                     "umics-predict")
     if args.model.endswith(".stablehlo"):
         parser.error("--model: .stablehlo programs are the JAX package's (its umics-predict "
                      "serves them); export a .pt2 program with this package's export CLI")

@@ -4,13 +4,20 @@
 //
 // Replaces XLA ops of the JAX package, not a Pallas kernel: the int8 conv
 // ops/wide.py:conv_wide_int8 (:255-307) and its split-input form
-// conv_wide_split_int8 (:309-326), and the epilogue of
-// models/quantize.py:_qconv (:65-82).  Per output element
+// conv_wide_split_int8 (:309-326), and the epilogues of
+// models/quantize.py:_qconv (:65-82) and of _forward_yolo's cbs (:374-392).
+// Per output element
 //
 //   acc = sum_{u,v,ci} xc[b,h+u-1,w+v-1,ci] * W[co,u,v,ci]      (int32, exact)
-//   yf  = max(fp32(acc) * mul[co] + badd[co], 0)                 (two roundings)
+//   z   = fp32(acc) * mul[co] + badd[co]                         (two roundings)
+//   ReLU (the UNets):
+//   yf  = max(z, 0)
 //   y   = requant: clip(round_half_even(yf), 0, 127) -> int8
 //         dequant: yf -> f32 or bf16 (one rounding of the same f32)
+//   SiLU (YOLOv8-seg, z at true scale):
+//   yf  = z * (1 / (1 + expf(-z)))        torch's CUDA sigmoid, then a multiply
+//   y   = requant: clip(round_half_even(yf * inv_s), -127, 127) -> int8
+//         dequant: yf -> f32 or bf16
 //
 // zero padded, where xc is x, or the channel concatenation [x, x2] of a
 // split input (the decoder's skip and upsample, summed in one K walk without
@@ -21,7 +28,13 @@
 // of 16-byte rows, one row per output channel (K-major, as wgmma wants B),
 // rows = Cout up to 256.  The epilogue multiplies and adds with __fmul_rn /
 // __fadd_rn, so nvcc cannot contract them into one FMA: the result is
-// bit-equal to the plain version's separate f32 multiply and add.
+// bit-equal to the plain version's separate f32 multiply and add.  The SiLU
+// is written as torch's CUDA sigmoid computes it for f32 (1 / (1 + exp(-z)),
+// IEEE division, the accurate expf: no --use_fast_math), so the plain
+// version run on the card gives the same bits.  The activation is a template
+// parameter: the ReLU instantiations compile as they did before it.  Only
+// the TMA kernel is built with SiLU; the wrapper pads a SiLU conv's Cin < 16
+// to 16 channels (YOLOv8-seg's 3x3 stride-1 convs all have Cin >= 32).
 //
 // Bound.  The int8 conv moves half the bytes of the bf16 one and the tensor
 // cores run int8 at twice the bf16 rate (1,979 TOPS dense on the H100): at
@@ -112,6 +125,7 @@ constexpr int PIECE_MAX = 64;            // channels per epilogue pass (py: _PIE
 constexpr int ERR_ENCODE = 10000;        // + CUresult: cuTensorMapEncodeTiled failed
 
 enum OutKind { OUT_INT8 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
+enum Act { ACT_RELU = 0, ACT_SILU = 1 };
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ constexpr int cin_padded(int cin) { return round_up(cin, KC); }
@@ -204,6 +218,7 @@ struct Params {
   const int8_t* w;        // packed (pieces, chunks, 9, 2, rows, 16)
   const float* mul;
   const float* badd;
+  const float* inv_s;     // SiLU requant: the output's 1 / scale (one f32), else null
   void* y;
   int H, W, cin, cout;
   int rows;               // weight rows per Cout piece in the pack
@@ -446,17 +461,30 @@ struct OutType<OUT_F32> { using T = float; };
 template <>
 struct OutType<OUT_BF16> { using T = __nv_bfloat16; };
 
-__device__ __forceinline__ float dequant(int acc, float m, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), m), b), 0.f);
+// The activation of one sum at true or requant scale (see the top).
+template <int ACT>
+__device__ __forceinline__ float activate(int acc, float m, float b) {
+  const float z = __fadd_rn(__fmul_rn(__int2float_rn(acc), m), b);
+  if constexpr (ACT == ACT_RELU) {
+    return fmaxf(z, 0.f);
+  } else {
+    return __fmul_rn(z, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z))));
+  }
 }
 
-// Two neighbouring channels of one pixel into the staging row.
-template <int OUT>
-__device__ __forceinline__ void stage_pair(unsigned char* dst, float y0, float y1) {
-  if constexpr (OUT == OUT_INT8) {
+// Two neighbouring channels of one pixel into the staging row; inv_s is read
+// by the SiLU requant only.
+template <int OUT, int ACT>
+__device__ __forceinline__ void stage_pair(unsigned char* dst, float y0, float y1,
+                                           float inv_s) {
+  if constexpr (OUT == OUT_INT8 && ACT == ACT_RELU) {
     const int r0 = min(max(__float2int_rn(y0), 0), 127);
     const int r1 = min(max(__float2int_rn(y1), 0), 127);
     *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(r0 | (r1 << 8));
+  } else if constexpr (OUT == OUT_INT8) {
+    const int r0 = min(max(__float2int_rn(__fmul_rn(y0, inv_s)), -127), 127);
+    const int r1 = min(max(__float2int_rn(__fmul_rn(y1, inv_s)), -127), 127);
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>((r0 & 0xff) | ((r1 & 0xff) << 8));
   } else if constexpr (OUT == OUT_F32) {
     *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
   } else {
@@ -475,9 +503,9 @@ __device__ __forceinline__ void wg_barrier(int id) {
 // the tile at (b, h0, w0), channels n0 ..) through the epilogue into y: per
 // row and 64-channel piece, into the staging buffer, then out in 16-byte
 // stores where Cout * itemsize and the piece allow, else element by element.
-template <int NP, int OUT>
+template <int NP, int OUT, int ACT>
 __device__ __forceinline__ void store_tile(int (&acc)[m_tiles(NP)][NP / 2], unsigned char* stg,
-                                           const float* mul_s, const float* badd_s,
+                                           const float* mul_s, const float* badd_s, float inv_s,
                                            const Params& p, int b, int h0, int w0, int n0,
                                            int row0, int bar_id) {
   using T = typename OutType<OUT>::T;
@@ -500,9 +528,9 @@ __device__ __forceinline__ void store_tile(int (&acc)[m_tiles(NP)][NP / 2], unsi
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int px = 16 * warp + g + 8 * i;
-          stage_pair<OUT>(stg + px * PITCH + (8 * kk + 2 * q) * ES,
-                          dequant(acc[mt][4 * k + 2 * i], m0, b0),
-                          dequant(acc[mt][4 * k + 2 * i + 1], m1, b1));
+          stage_pair<OUT, ACT>(stg + px * PITCH + (8 * kk + 2 * q) * ES,
+                               activate<ACT>(acc[mt][4 * k + 2 * i], m0, b0),
+                               activate<ACT>(acc[mt][4 * k + 2 * i + 1], m1, b1), inv_s);
         }
       }
       wg_barrier(bar_id);
@@ -560,7 +588,7 @@ __device__ __forceinline__ void stage_scales(const Params& p, int n0, int np, fl
 
 // -- the TMA kernel: Cin (and Cin2) multiples of 16 ------------------------------
 
-template <int NP, int OUT>
+template <int NP, int OUT, int ACT>
 __global__ void __launch_bounds__(tma_threads(NP), tma_blocks(NP))
 conv3x3_int8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                         const __grid_constant__ CUtensorMap map_x2, const Params p) {
@@ -638,6 +666,8 @@ conv3x3_int8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     stage_scales(p, n0, NP, mul_s, badd_s, ctid, CONS * 128);
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONS * 128) : "memory");
     unsigned char* my_stg = stg + wg * TW * (piece(NP) * 4 + 16);
+    float inv_s = 0.f;
+    if constexpr (OUT == OUT_INT8 && ACT == ACT_SILU) inv_s = *p.inv_s;
     int acc[MT][NP / 2] = {};
     int stage = 0, prev = 0;
     uint32_t phase = 0;
@@ -693,8 +723,8 @@ conv3x3_int8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
       mbar_arrive(bars + 8 * (STAGES + prev));
-      store_tile<NP, OUT>(acc, my_stg, mul_s, badd_s, p, tl.b, tl.h0, tl.w0, tl.n0, wg * MT,
-                          2 + wg);
+      store_tile<NP, OUT, ACT>(acc, my_stg, mul_s, badd_s, inv_s, p, tl.b, tl.h0, tl.w0, tl.n0,
+                               wg * MT, 2 + wg);
     }
   }
 }
@@ -788,16 +818,16 @@ conv3x3_int8_im2col_kernel(const Params p) {
       for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
       __syncthreads();  // A and the halo are read before they are rebuilt
     }
-    store_tile<NP, OUT>(acc, my_stg, mul_s, badd_s, p, tl.b, tl.h0, tl.w0, tl.n0, wg * MT,
-                        2 + wg);
+    store_tile<NP, OUT, ACT_RELU>(acc, my_stg, mul_s, badd_s, 0.f, p, tl.b, tl.h0, tl.w0,
+                                  tl.n0, wg * MT, 2 + wg);
   }
 }
 
 // -- host ------------------------------------------------------------------------
 
-template <int NP, int OUT>
+template <int NP, int OUT, int ACT>
 const void* tma_ptr() {
-  return reinterpret_cast<const void*>(conv3x3_int8_tma_kernel<NP, OUT>);
+  return reinterpret_cast<const void*>(conv3x3_int8_tma_kernel<NP, OUT, ACT>);
 }
 
 template <int NP, int OUT>
@@ -817,14 +847,21 @@ auto with_n(int cout, F f) {
   }
 }
 
+// the 9 kernels of one N: TMA with ReLU and with SiLU, im2col (ReLU), each
+// out kind
+constexpr int KERNELS_PER_N = 9;
+
 template <int NP>
 void add_kernels(const void** out) {
-  out[0] = tma_ptr<NP, OUT_INT8>();
-  out[1] = tma_ptr<NP, OUT_F32>();
-  out[2] = tma_ptr<NP, OUT_BF16>();
+  out[0] = tma_ptr<NP, OUT_INT8, ACT_RELU>();
+  out[1] = tma_ptr<NP, OUT_F32, ACT_RELU>();
+  out[2] = tma_ptr<NP, OUT_BF16, ACT_RELU>();
   out[3] = im2col_ptr<NP, OUT_INT8>();
   out[4] = im2col_ptr<NP, OUT_F32>();
   out[5] = im2col_ptr<NP, OUT_BF16>();
+  out[6] = tma_ptr<NP, OUT_INT8, ACT_SILU>();
+  out[7] = tma_ptr<NP, OUT_F32, ACT_SILU>();
+  out[8] = tma_ptr<NP, OUT_BF16, ACT_SILU>();
 }
 
 struct DeviceState {
@@ -841,12 +878,12 @@ int prepare_device(cudaError_t* err) {
   if (*err != cudaSuccess) return 0;
   DeviceState* st = dev < MAX_DEVICES ? &state[dev] : nullptr;
   if (st && st->ready.load(std::memory_order_acquire)) return st->sms;
-  const void* kernels[30];
+  const void* kernels[5 * KERNELS_PER_N];
   add_kernels<16>(kernels);
-  add_kernels<32>(kernels + 6);
-  add_kernels<64>(kernels + 12);
-  add_kernels<128>(kernels + 18);
-  add_kernels<256>(kernels + 24);
+  add_kernels<32>(kernels + KERNELS_PER_N);
+  add_kernels<64>(kernels + 2 * KERNELS_PER_N);
+  add_kernels<128>(kernels + 3 * KERNELS_PER_N);
+  add_kernels<256>(kernels + 4 * KERNELS_PER_N);
   for (const void* kernel : kernels) {
     *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 SMEM_OPT_IN);
@@ -944,9 +981,9 @@ Geometry geometry(int B, int H, int W, int cin, int cin2, int cout, int sms) {
   return g;
 }
 
-template <int NP, int OUT>
+template <int NP, int OUT, int ACT>
 int launch(const void* x, const void* x2, const void* w, const void* mul, const void* badd,
-           void* y, int B, int H, int W, int cin, int cin2, int cout, int sms,
+           const void* inv_s, void* y, int B, int H, int W, int cin, int cin2, int cout, int sms,
            cudaStream_t stream) {
   const Geometry g = geometry(B, H, W, cin, cin2, cout, sms);
   Params p;
@@ -954,6 +991,7 @@ int launch(const void* x, const void* x2, const void* w, const void* mul, const 
   p.w = static_cast<const int8_t*>(w);
   p.mul = static_cast<const float*>(mul);
   p.badd = static_cast<const float*>(badd);
+  p.inv_s = static_cast<const float*>(inv_s);
   p.y = y;
   p.H = H;
   p.W = W;
@@ -970,6 +1008,7 @@ int launch(const void* x, const void* x2, const void* w, const void* mul, const 
   p.n_tiles = g.n_tiles;
   if (g.n_tiles == 0) return 0;
   if (g.route == 1) {
+    if constexpr (ACT != ACT_RELU) return (int)cudaErrorInvalidValue;  // built with ReLU only
     p.n_chunks = im2col_steps(cin);
     conv3x3_int8_im2col_kernel<NP, OUT><<<g.grid, im2col_threads(NP), g.smem, stream>>>(p);
     return (int)cudaGetLastError();
@@ -988,24 +1027,31 @@ int launch(const void* x, const void* x2, const void* w, const void* mul, const 
   if (!err && cin2) err = encode_halo(enc, &map_x2, x2, B, H, W, cin2, g.tile_rows, p.x2_rows);
   if (!cin2) map_x2 = map_x;
   if (err) return err;
-  conv3x3_int8_tma_kernel<NP, OUT><<<g.grid, tma_threads(NP), g.smem, stream>>>(map_x, map_x2,
-                                                                                  p);
+  conv3x3_int8_tma_kernel<NP, OUT, ACT><<<g.grid, tma_threads(NP), g.smem, stream>>>(
+      map_x, map_x2, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  out_kind: 0 = int8 (requant), 1 = f32,
-// 2 = bf16 (dequant).  x2 (cin2 channels, or null and 0) is the second part
-// of a split input.  Cin < 16 without x2 reads x as it is; otherwise x and
-// x2 must have 16-multiples of channels and 16-byte aligned bases, as must
-// the weight.  A launch returns its cudaError_t (0 = success), or ERR_ENCODE
-// + the CUresult of a tensor map that would not encode.
+// 2 = bf16 (dequant); act: 0 = ReLU, 1 = SiLU, whose int8 requant reads
+// inv_s (one f32 on the device; null otherwise).  x2 (cin2 channels, or
+// null and 0) is the second part of a split input.  Cin < 16 without x2
+// reads x as it is (ReLU only); otherwise x and x2 must have 16-multiples
+// of channels and 16-byte aligned bases, as must the weight.  A launch
+// returns its cudaError_t (0 = success), or ERR_ENCODE + the CUresult of a
+// tensor map that would not encode.
 extern "C" int conv3x3_int8_nhwc(const void* x, const void* x2, const void* w, const void* mul,
-                                 const void* badd, void* y, int B, int H, int W, int cin,
-                                 int cin2, int cout, int out_kind, void* stream) {
+                                 const void* badd, const void* inv_s, void* y, int B, int H,
+                                 int W, int cin, int cin2, int cout, int out_kind, int act,
+                                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cin < 1 || cin2 < 0 || cout < 1 || (cin2 > 0) != (x2 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (act != ACT_RELU && act != ACT_SILU) return (int)cudaErrorInvalidValue;
+  if (act == ACT_SILU && (cin2 == 0 && cin < 16)) return (int)cudaErrorInvalidValue;
+  if ((act == ACT_SILU && out_kind == OUT_INT8) != (inv_s != nullptr))
     return (int)cudaErrorInvalidValue;
   if (cin2 > 0 || cin >= 16) {
     if (cin % 16 != 0 || cin2 % 16 != 0) return (int)cudaErrorInvalidValue;
@@ -1017,14 +1063,18 @@ extern "C" int conv3x3_int8_nhwc(const void* x, const void* x2, const void* w, c
   const int sms = prepare_device(&err);
   if (err != cudaSuccess) return (int)err;
   return with_n(cout, [&](auto n) {
-    constexpr int NP = decltype(n)::value;
+    auto go = [&](auto out, auto a) {
+      return launch<decltype(n)::value, decltype(out)::value, decltype(a)::value>(
+          x, x2, w, mul, badd, inv_s, y, B, H, W, cin, cin2, cout, sms, s);
+    };
+    auto with_act = [&](auto out) {
+      return act == ACT_SILU ? go(out, std::integral_constant<int, ACT_SILU>{})
+                             : go(out, std::integral_constant<int, ACT_RELU>{});
+    };
     switch (out_kind) {
-      case OUT_INT8:
-        return launch<NP, OUT_INT8>(x, x2, w, mul, badd, y, B, H, W, cin, cin2, cout, sms, s);
-      case OUT_F32:
-        return launch<NP, OUT_F32>(x, x2, w, mul, badd, y, B, H, W, cin, cin2, cout, sms, s);
-      case OUT_BF16:
-        return launch<NP, OUT_BF16>(x, x2, w, mul, badd, y, B, H, W, cin, cin2, cout, sms, s);
+      case OUT_INT8: return with_act(std::integral_constant<int, OUT_INT8>{});
+      case OUT_F32: return with_act(std::integral_constant<int, OUT_F32>{});
+      case OUT_BF16: return with_act(std::integral_constant<int, OUT_BF16>{});
       default: return (int)cudaErrorInvalidValue;
     }
   });

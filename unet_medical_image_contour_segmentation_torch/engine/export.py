@@ -15,10 +15,12 @@ reference exports ONNX opset 11 with dynamic batch, H and W
   ``umics::conv3x3_nhwc``, so the program launches the hand kernel on the
   card and runs its plain version on the CPU.
 * :func:`export_program_int8`: the int8 forward (``models/quantize.py:
-  apply_int8``, the UNet family's or UNet++'s) with its qparams baked in as
-  buffers, a static H and W (one program per serving size, as JAX's) and a
-  symbolic batch; every DoubleConv conv is the custom op
-  ``umics::conv3x3_int8``.  YOLOv8-seg has no int8 program yet.
+  apply_int8``, the UNet family's, UNet++'s or YOLOv8-seg's) with its
+  qparams baked in as buffers, a static H and W (one program per serving
+  size, as JAX's) and a symbolic batch; every int8 3x3 stride-1 conv is the
+  custom op ``umics::conv3x3_int8`` (YOLO's SiLU epilogue included), and
+  YOLO's int8 1x1 and stride-2 convs trace as ``torch._int_mm`` on the
+  card.
 
 The weights sit on the device the program was exported on, and the program
 runs there.  :func:`load_exported` registers both custom ops before it
@@ -122,14 +124,15 @@ def export_program_int8(model: nn.Module, qparams: dict, *,
     ``example_hw``, batch symbolic with ``dynamic_batch``, on the qparams'
     device.  The quantised weights and the requant scales are baked in: the
     program needs no calibration at serve time and loads as a float program
-    does.  NotImplementedError for YOLOv8-seg (no int8 path yet)."""
+    does.  ``example_hw`` must be multiples of the model's ``hw_divisor``."""
     from ..kernels import conv3x3_int8  # noqa: F401  (registers umics::conv3x3_int8)
-    from ..models.quantize import refuse_int8
 
-    refuse_int8(model)
+    if example_hw[0] % model.hw_divisor or example_hw[1] % model.hw_divisor:
+        raise ValueError(f"example_hw {tuple(example_hw)} must be multiples of "
+                         f"{model.hw_divisor}")
     net = _Int8Forward(qparams, model.compute_dtype).eval()
     x = torch.zeros((2, *example_hw, model.n_channels), dtype=torch.float32,
-                    device=qparams["s_x"].device)
+                    device=next(net.buffers()).device)
     with torch.no_grad():
         program = torch.export.export(
             net, (x,), dynamic_shapes={"x": _dims(dynamic_batch, False, model.hw_divisor)})

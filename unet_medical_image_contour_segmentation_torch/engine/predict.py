@@ -23,15 +23,18 @@ follows the JAX package here, tile for tile.
 
 ``quantize=True`` serves in int8 (``models/quantize.py``): the activation
 scales calibrate on the first batch predicted (at most 4 images, H and W cut
-to multiples of the model's ``hw_divisor``, 16 for the UNets and UNet++; a
-batch whose cut is under 32 pixels serves in float and waits for the next)
-or explicitly (:meth:`Predictor.calibrate`, :meth:`Predictor.load_calibration`),
-the weights quantise per output channel from an f32 BN fold, and every
-DoubleConv conv runs on the int8 kernel (``kernels/conv3x3_int8.py``).  A
-batch goes to the float program instead where the JAX package's rules send
-it there: H or W not a multiple of ``hw_divisor``, or a dense batch smaller
-than ``INT8_MIN_BATCH`` of its architecture.  YOLOv8-seg has no int8 path
-in the port yet: ``quantize=True`` raises for it.
+to multiples of the model's ``hw_divisor``, 16 for the UNets, 2^(depth-1)
+for UNet++, 32 for YOLOv8-seg; a batch whose cut is under 32 pixels serves
+in float and waits for the next) or explicitly (:meth:`Predictor.calibrate`,
+:meth:`Predictor.load_calibration`), on the forward of an f32 BN fold (the
+CBS fold for YOLOv8-seg, ``fold_bn.py:fold_yolo``), and the weights
+quantise per output channel from that fold.  Every DoubleConv conv runs on
+the int8 kernel (``kernels/conv3x3_int8.py``); for YOLOv8-seg the proto
+head's three 3x3 convs do (``build_qparams_yolo``'s default scope, as
+JAX's Predictor), with the SiLU epilogue.  A batch goes to the float program
+instead where the JAX package's rules send it there: H or W not a multiple
+of ``hw_divisor``, or a dense batch smaller than ``INT8_MIN_BATCH`` of its
+architecture.
 
 :class:`ExportedPredictor` serves a ``torch.export`` program
 (``engine/export.py``, the ``.pt2`` counterpart of the JAX package's
@@ -54,15 +57,8 @@ from torch import nn
 
 from ..data.dataset import BasicDataset
 from ..device import resolve_device
-from ..models.fold_bn import fold_bn, serving_copy
-from ..models.quantize import (
-    apply_int8,
-    build_qparams,
-    build_qparams_pp,
-    calibrate_amax,
-    folded_tree,
-    refuse_int8,
-)
+from ..models.fold_bn import fold_for_quantize, serving_copy
+from ..models.quantize import apply_int8, build_for, calibrate_amax, folded_tree
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
 
@@ -384,8 +380,6 @@ class Predictor(_Serving):
         # the spatial divisor of the int8 program and of the calibration crop
         self.hw_divisor = model.hw_divisor
         cd = model.compute_dtype if compute_dtype is None else compute_dtype
-        if quantize:
-            refuse_int8(model)
         net = serving_copy(model, cd)
         net.compute_dtype = cd
         self.model = net.to(self.device)
@@ -394,31 +388,34 @@ class Predictor(_Serving):
         self.quantize = quantize
         self._qparams: Optional[dict] = None
         self._amax: Optional[Dict[str, float]] = None
-        # quantisation reads an f32 fold (the JAX package quantises f32
-        # folded params), never self.model's fold in the compute dtype
-        self._qfolded = folded_tree(fold_bn(model, torch.float32)) if quantize else None
+        # calibration and quantisation read an f32 fold on the device (the
+        # JAX package's folded params); for the UNets its forward in the
+        # compute dtype is the serving fold's, for YOLOv8-seg the CBS fold
+        self._qfolded = (folded_tree(fold_for_quantize(model).to(self.device))
+                         if quantize else None)
 
     # -- int8 serving (models/quantize.py) ----------------------------------
 
     def calibrate(self, images: np.ndarray) -> None:
         """Calibrate the int8 activation scales on (B, H, W[, C]) float or
         uint8 images, cut to multiples of ``hw_divisor`` (per-tensor scales do
-        not depend on the cut): the float fold's forward in the compute dtype."""
+        not depend on the cut): the f32 fold's forward in the compute dtype."""
         x = torch.from_numpy(np.ascontiguousarray(images))
         x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
         div = self.hw_divisor
         hc, wc = x.shape[1] // div * div, x.shape[2] // div * div
         if hc < div or wc < div:
             raise ValueError(f"calibration images too small: {tuple(x.shape)}")
+        if self._qfolded is None:
+            raise ValueError("int8 serving needs a Predictor built with quantize=True")
         x = x[:, :hc, :wc].contiguous().to(self.device)
-        self._set_amax(calibrate_amax(folded_tree(self.model), x, self.compute_dtype))
+        self._set_amax(calibrate_amax(self._qfolded, x, self.compute_dtype))
 
     def _set_amax(self, amax: Dict[str, float]) -> None:
         """Build the int8 qparams on the device from calibration amaxes."""
         if self._qfolded is None:
             raise ValueError("int8 serving needs a Predictor built with quantize=True")
-        build = build_qparams_pp if "x0_0" in self._qfolded else build_qparams
-        self._qparams = build(self._qfolded, amax, self.device)
+        self._qparams = build_for(self._qfolded)(self._qfolded, amax, device=self.device)
         self._amax = dict(amax)
 
     def save_calibration(self, path: str) -> None:

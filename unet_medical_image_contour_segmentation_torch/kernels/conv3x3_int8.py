@@ -4,14 +4,21 @@ requant / dequant epilogue fused in, as a hand-written Hopper kernel.
 Replaces XLA ops of the JAX package, not a Pallas kernel: the int8 x int8 ->
 int32 convolution ``ops/wide.py:conv_wide_int8`` (:255-307), its split-input
 form ``conv_wide_split_int8`` (:309-326; here the optional second input
-``x2``, summed in the same K walk) and the epilogue of
-``models/quantize.py:_qconv`` (:65-82).  For the input xc = x, or the
-channel concatenation [x, x2]::
+``x2``, summed in the same K walk) and the epilogues of
+``models/quantize.py:_qconv`` (:65-82, ``act="relu"``) and of
+``_forward_yolo``'s CBS (:374-392, ``act="silu"``).  For the input xc = x,
+or the channel concatenation [x, x2]::
 
     acc = conv3x3(xc, w)                     int32, exact
-    yf  = max(f32(acc) * mul + badd, 0)      a multiply, then an add, in f32
+    z   = f32(acc) * mul + badd              a multiply, then an add, in f32
+    relu:
+    yf  = max(z, 0)
     y   = clip(round_half_even(yf), 0, 127)  int8     (out_dtype int8: requant)
         = yf                                 f32/bf16 (otherwise: dequant)
+    silu (z at true scale):
+    yf  = z * sigmoid(z)                     torch.sigmoid's f32, then a multiply
+    y   = clip(round_half_even(yf * inv_s), -127, 127)   int8 (requant)
+        = yf                                 f32/bf16 (dequant)
 
 Bound: bytes at most of unet_s's levels (int8 activations in and out), the
 operations at the deep ones (Cin >= 64 at <= 64^2) at the H100's 1,979 TOPS
@@ -71,6 +78,7 @@ CIN_CHUNK = 32                 # input channels per K step of the kernel
 SMEM_MAX = 232_448             # dynamic shared memory a block may use on sm_90
 H100_SMS = 132
 _OUT_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+_ACT = {"relu": 0, "silu": 1}
 # the patch rows the plain version multiplies at once (float64: 8 bytes each)
 _REFERENCE_ROWS = 1 << 20
 
@@ -195,7 +203,8 @@ def launch_geometry(b: int, h: int, w: int, cin: int, cout: int, cin2: int = 0,
 
 
 def _check(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: torch.Tensor,
-           out_dtype: torch.dtype, x2: Optional[torch.Tensor] = None) -> None:
+           out_dtype: torch.dtype, x2: Optional[torch.Tensor] = None, act: str = "relu",
+           inv_s: Optional[torch.Tensor] = None) -> None:
     for name, t in (("x", x), ("x2", x2)):
         if t is not None and (t.dim() != 4 or t.dtype != torch.int8 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int8 (B, H, W, C) tensor, got "
@@ -216,19 +225,40 @@ def _check(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: torch.Ten
                          f"Cout = {cout}, got {wp.dtype} {tuple(wp.shape)}")
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"out_dtype must be one of {tuple(_OUT_KIND)}, not {out_dtype}")
+    if act not in _ACT:
+        raise ValueError(f"act must be one of {tuple(_ACT)}, not {act!r}")
+    if (act == "silu" and out_dtype == torch.int8) != (inv_s is not None):
+        raise ValueError("inv_s is the SiLU requant's scale: give it exactly when act is "
+                         "'silu' and out_dtype int8")
+    if inv_s is not None and (inv_s.numel() != 1 or inv_s.dim() > 1
+                              or inv_s.dtype != torch.float32):
+        raise ValueError(f"inv_s must be a 0-dim or (1,) f32 tensor, got {inv_s.dtype} "
+                         f"{tuple(inv_s.shape)}")
     devices = {x.device, wp.device, mul.device, badd.device}
-    if len(devices | ({x2.device} if x2 is not None else set())) != 1:
-        raise ValueError("x, x2, w, mul and badd must lie on one device")
+    for t in (x2, inv_s):
+        if t is not None:
+            devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError("x, x2, w, mul, badd and inv_s must lie on one device")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_int8 runs on cuda or cpu, not {x.device}")
 
 
 def epilogue(acc: torch.Tensor, mul: torch.Tensor, badd: torch.Tensor,
-             out_dtype: torch.dtype) -> torch.Tensor:
+             out_dtype: torch.dtype, act: str = "relu",
+             inv_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int32 sums -> the requant (int8) or dequant (f32/bf16) output: the
-    multiply and the add as two f32 roundings, ReLU, then round half to even
-    and clip to [0, 127] for int8."""
-    yf = torch.clamp_min(acc.float() * mul + badd, 0.0)
+    multiply and the add as two f32 roundings, then ReLU and, for int8,
+    round half to even and clip to [0, 127]; or SiLU (``silu_f32``'s ``z *
+    torch.sigmoid(z)`` in f32) and, for int8, ``z * inv_s`` rounded half to
+    even and clipped to [-127, 127] (JAX ``_requant_signed``)."""
+    z = acc.float() * mul + badd
+    if act == "silu":
+        yf = z * torch.sigmoid(z)
+        if out_dtype == torch.int8:
+            return torch.clamp(torch.round(yf * inv_s.reshape(())), -127, 127).to(torch.int8)
+        return yf.to(out_dtype)
+    yf = torch.clamp_min(z, 0.0)
     if out_dtype == torch.int8:
         return torch.clamp(torch.round(yf), 0, 127).to(torch.int8)
     return yf.to(out_dtype)
@@ -250,29 +280,31 @@ def conv3x3_int8_sums(x: torch.Tensor, wp: torch.Tensor, cout: int) -> torch.Ten
 
 def conv3x3_int8_reference(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor,
                            badd: torch.Tensor, out_dtype: torch.dtype,
-                           x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           x2: Optional[torch.Tensor] = None, act: str = "relu",
+                           inv_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: :func:`conv3x3_int8_sums` of x, or of the channel
     concatenation [x, x2] (exact in integers), then :func:`epilogue`."""
-    _check(x, wp, mul, badd, out_dtype, x2)
+    _check(x, wp, mul, badd, out_dtype, x2, act, inv_s)
     xc = x if x2 is None else torch.cat([x, x2], dim=-1)
-    return epilogue(conv3x3_int8_sums(xc, wp, mul.shape[0]), mul, badd, out_dtype)
+    return epilogue(conv3x3_int8_sums(xc, wp, mul.shape[0]), mul, badd, out_dtype, act, inv_s)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _launch(x, wp, mul, badd, out_dtype, x2) -> torch.Tensor:
+def _launch(x, wp, mul, badd, out_dtype, x2, act, inv_s) -> torch.Tensor:
     b, h, w, cin = x.shape
     cin2 = 0 if x2 is None else x2.shape[3]
     cout = mul.shape[0]
     # TMA reads x (and x2) as 16-channel pieces from a 16-byte aligned base:
     # a split whose parts are not 16-multiples is concatenated, other Cin >=
     # 16 padded with zero channels (they meet the packed weight's zero rows);
-    # Cin < 16 without x2 goes to the im2col kernel as it is.
+    # Cin < 16 without x2 goes to the im2col kernel as it is, under ReLU (the
+    # im2col kernel is built with ReLU only: a SiLU conv pads to 16).
     if cin2 and (cin % 16 or cin2 % 16):
         x, x2, cin, cin2 = torch.cat([x, x2], dim=-1), None, cin + cin2, 0
-    if cin2 == 0 and cin >= 16:
+    if cin2 == 0 and (cin >= 16 or act == "silu"):
         pad = -cin % 16
         x, cin = (F.pad(x, (0, pad)), cin + pad) if pad else (_aligned(x), cin)
     if x2 is not None:
@@ -283,8 +315,9 @@ def _launch(x, wp, mul, badd, out_dtype, x2) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv3x3_int8_nhwc(x.data_ptr(), None if x2 is None else x2.data_ptr(),
                                     wp.data_ptr(), mul.data_ptr(), badd.data_ptr(),
+                                    None if inv_s is None else inv_s.data_ptr(),
                                     y.data_ptr(), b, h, w, cin, cin2, cout,
-                                    _OUT_KIND[out_dtype], stream)
+                                    _OUT_KIND[out_dtype], _ACT[act], stream)
     if err:
         raise RuntimeError(f"conv3x3_int8 launch failed: "
                            f"{lib.conv3x3_int8_error_string(err).decode()} ({err})")
@@ -293,17 +326,20 @@ def _launch(x, wp, mul, badd, out_dtype, x2) -> torch.Tensor:
 
 def conv3x3_int8(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: torch.Tensor,
                  out_dtype: torch.dtype = torch.int8,
-                 x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x2: Optional[torch.Tensor] = None, act: str = "relu",
+                 inv_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: contiguous int8 (B, H, W, Cin), and optionally x2 (B, H, W, Cin2),
     the second part of a split input; wp: :func:`pack_weight` of the int8
     HWIO weight over Cin + Cin2 channels; mul, badd: f32 (Cout,) -> (B, H,
-    W, Cout) in ``out_dtype``: int8 requantised, or f32 / bf16 dequantised
-    (see the module docstring).
+    W, Cout) in ``out_dtype``: int8 requantised, or f32 / bf16 dequantised,
+    through ``act``, "relu" or "silu"; ``inv_s`` (a 0-dim or (1,) f32
+    tensor, the output's 1 / scale) for a SiLU requant only (see the module
+    docstring).
 
     A CUDA tensor launches ``csrc/conv3x3_int8.cu`` (and adds one to
     ``conv3x3_int8.launches``); a CPU tensor runs the plain version."""
-    _check(x, wp, mul, badd, out_dtype, x2)
-    return _conv3x3_int8_op(x, wp, mul, badd, out_dtype, x2)
+    _check(x, wp, mul, badd, out_dtype, x2, act, inv_s)
+    return _conv3x3_int8_op(x, wp, mul, badd, out_dtype, x2, act, inv_s)
 
 
 conv3x3_int8.launches = 0
@@ -312,20 +348,21 @@ conv3x3_int8.launches = 0
 @torch.library.custom_op("umics::conv3x3_int8", mutates_args=(), device_types="cuda")
 def _conv3x3_int8_op(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor,
                      badd: torch.Tensor, out_dtype: torch.dtype,
-                     x2: Optional[torch.Tensor]) -> torch.Tensor:
+                     x2: Optional[torch.Tensor], act: str = "relu",
+                     inv_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv on the card: one launch of csrc/conv3x3_int8.cu, counted."""
-    y = _launch(x, wp, mul, badd, out_dtype, x2)
+    y = _launch(x, wp, mul, badd, out_dtype, x2, act, inv_s)
     conv3x3_int8.launches += 1
     return y
 
 
 @_conv3x3_int8_op.register_kernel("cpu")
-def _conv3x3_int8_cpu(x, wp, mul, badd, out_dtype, x2):
-    return conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2)
+def _conv3x3_int8_cpu(x, wp, mul, badd, out_dtype, x2, act="relu", inv_s=None):
+    return conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2, act, inv_s)
 
 
 @_conv3x3_int8_op.register_fake
-def _conv3x3_int8_fake(x, wp, mul, badd, out_dtype, x2):
+def _conv3x3_int8_fake(x, wp, mul, badd, out_dtype, x2, act="relu", inv_s=None):
     return x.new_empty((x.shape[0], x.shape[1], x.shape[2], mul.shape[0]), dtype=out_dtype)
 
 
@@ -335,7 +372,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("conv3x3_int8")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_int8_nhwc.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.conv3x3_int8_nhwc.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.conv3x3_int8_nhwc.restype = i32
     lib.conv3x3_int8_geometry.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.conv3x3_int8_geometry.restype = i32

@@ -1,11 +1,11 @@
-"""Post-training int8 quantisation of the UNet family's and UNet++'s eval forward.
+"""Post-training int8 quantisation of the eval forward of the UNet family,
+UNet++ and YOLOv8-seg.
 
 The port of the JAX package's ``models/quantize.py`` for the UNet family
-(unet, unet_t, unet_s, unet_sa, bilinear or ConvTranspose ups) and UNet++
-(unet_pp_s, unet_pp; bilinear, deep supervision), on NHWC tensors in place
-of the wide layout.  ``Predictor(quantize=True)`` serves through it.  The
-YOLOv8-seg walker (JAX ``_forward_yolo``) is not ported.  The scheme is
-JAX's:
+(unet, unet_t, unet_s, unet_sa, bilinear or ConvTranspose ups), UNet++
+(unet_pp_s, unet_pp; bilinear, deep supervision) and YOLOv8-seg, on NHWC
+tensors in place of the wide layout.  ``Predictor(quantize=True)`` serves
+through it.  The scheme is JAX's:
 
 * **Weights**: symmetric per-output-channel int8, quantised from the f32
   BN-folded kernels with each input part's activation scale folded into the
@@ -36,10 +36,31 @@ up path (ConvTranspose or bilinear, float) runs on the dequantised source
 node and is quantised with its own scale; the heads read their nodes
 dequantised.
 
+YOLOv8-seg (JAX ``_forward_yolo``): SiLU does not commute with a scale, so
+an int8 CBS conv's epilogue dequantises at true scale (``mul = s_w``,
+``badd = b``), applies SiLU in f32, and either casts to the compute dtype
+or requantises with its own ``inv_s`` onto the signed grid [-127, 127].
+The entry's format decides per conv: ``{w, mul, badd[, inv_s]}`` runs
+int8, a folded ``{w, b}`` runs in float, so one walker serves both
+placements of :func:`build_qparams_yolo`: ``scope="proto"`` (the default:
+the proto head's three 3x3 convs int8, the backbone and neck the folded
+float tree) and ``"full"`` (every CBS int8; the bottlenecks' residual adds
+dequantise both sides, add in f32 and requantise to the sum's scale; SPPF
+pools int8; the neck upsamples int8 by nearest neighbour and concatenates
+parts of different scales, each folded into its Cin slice of the weight).
+Its 3x3 stride-1 convs run on the int8 kernel with ``act="silu"``; the
+stride-2 stem and downsamples and the 1x1 convs, which JAX leaves to XLA
+(``ops/wide.py:conv_wide_int8`` with stride 2, ``conv1x1_wide_int8``),
+are int8 matrix products (:func:`int8_matmul_sums`: ``torch._int_mm`` on
+the card, an exact float64 product on the CPU) with the same epilogue as
+plain torch ops.
+
 The qparams are a plain nested dict with the JAX tree's keys: ``s_x``,
 ``inc/conv1/{w, mul, badd}``, ..., ``up{i}/{conv, s_up, upconv, att,
 s_skip}``, ``outc`` for the UNet family; ``s_x``, ``s_nodes``, ``s_ups``,
-``x{i}_{j}/conv{1,2}``, ``up{i}_{j}``, ``outc`` or ``out{j}`` for UNet++.
+``x{i}_{j}/conv{1,2}``, ``up{i}_{j}``, ``outc`` or ``out{j}`` for UNet++;
+``[s_x], stem, down{i}, c2f{i}/{cv1, cv2, m{k}/{cv1, cv2[, res_s,
+add_inv_s]}}, sppf, n4, n3, p_up{k}, s_pc{k}, p_c{k}, head`` for YOLOv8-seg.
 The walker follows the tree's keys (JAX ``_walker_for``), and
 :func:`apply_int8` returns f32 NHWC logits.
 """
@@ -50,28 +71,22 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.conv3x3_int8 import conv3x3_int8, pack_weight
+from ..kernels.conv3x3_int8 import conv3x3_int8, epilogue, pack_weight
 from ..ops.nn import conv2d, conv_transpose2d, max_pool2d
 from ..ops.resize import upsample_x2_align_corners
-from .blocks import DoubleConv, attention_gate
+from .blocks import attention_gate
+from .yolov8_seg import maxpool5_same, silu_f32, upsample_nearest2
 
 __all__ = ["folded_tree", "calibrate_amax", "build_qparams", "build_qparams_pp",
-           "quantize_unet", "apply_int8", "refuse_int8"]
+           "build_qparams_yolo", "build_for", "quantize_unet", "apply_int8",
+           "int8_matmul_sums", "int8_conv_weight"]
 
 _ENCODER = ("inc", "down1", "down2", "down3", "down4")
-
-
-def refuse_int8(model: nn.Module) -> None:
-    """Raise NotImplementedError for a model the port has no int8 path for
-    (YOLOv8-seg: no DoubleConv); the UNet family and UNet++ pass."""
-    if not any(isinstance(m, DoubleConv) for m in model.modules()):
-        raise NotImplementedError(
-            f"int8 serving of {getattr(model, 'name', type(model).__name__)} is not ported to "
-            "the PyTorch package yet: it needs the int8 kernel's SiLU epilogue on a signed "
-            "grid, stride-2 and 1x1 int8 convs, residual requant-adds and the int8 SPPF pool "
-            "(the JAX package's models/quantize.py:_forward_yolo); serve it in float")
+# YOLOv8-seg's stride-2 CBS convs (the stem and the four downsamples)
+_YOLO_STRIDE2 = ("stem", "down0", "down1", "down2", "down3")
 
 
 def _amax(t: torch.Tensor) -> torch.Tensor:
@@ -115,8 +130,13 @@ def folded_tree(net: nn.Module) -> dict:
     module's tensors, no copies): ``{inc: {conv1: {w, b}, conv2: {w, b}},
     down1.., up{i}: {conv, upconv: {w, b}, att: {conv: {w}}}, outc: {w, b}}``
     for the UNet family, ``{x{i}_{j}: {conv1, conv2}, up{i}_{j}: {w, b},
-    outc or out{j}: {w, b}}`` for UNet++."""
+    outc or out{j}: {w, b}}`` for UNet++; for a YOLOv8-seg folded by
+    ``fold_bn.py:fold_yolo``, JAX ``fold_yolo_params``'s tree: ``{stem,
+    down{i}: {w, b}, c2f{i}, n4, n3: {cv1, cv2, m{k}: {cv1, cv2}}, sppf:
+    {cv1, cv2}, p_up{k}: {w, b}, p_c{k}: {w, b}, head: {w, b}}``."""
     dc = _folded_dc
+    if hasattr(net, "stem"):  # YOLOv8-seg
+        return _folded_yolo(net)
     if hasattr(net, "x0_0"):  # UNet++
         tree = {}
         for name, m in net.named_children():
@@ -140,6 +160,29 @@ def folded_tree(net: nn.Module) -> dict:
             entry["att"] = {"conv": {"w": up.attention.conv1.weight.permute(2, 3, 1, 0)}}
         tree[f"up{i}"] = entry
     tree["outc"] = _head(net.outc)
+    return tree
+
+
+def _folded_yolo(net: nn.Module) -> dict:
+    def cbs(m):
+        return {"w": m.w, "b": m.b}
+
+    def c2f(m):
+        return {"cv1": cbs(m.cv1), "cv2": cbs(m.cv2),
+                **{f"m{k}": {"cv1": cbs(getattr(m, f"m{k}").cv1),
+                             "cv2": cbs(getattr(m, f"m{k}").cv2)} for k in range(m.n)}}
+
+    tree = {"stem": cbs(net.stem)}
+    for i in range(4):
+        tree[f"down{i}"] = cbs(getattr(net, f"down{i}"))
+        tree[f"c2f{i}"] = c2f(getattr(net, f"c2f{i}"))
+    tree["sppf"] = {"cv1": cbs(net.sppf.cv1), "cv2": cbs(net.sppf.cv2)}
+    tree["n4"], tree["n3"] = c2f(net.n4), c2f(net.n3)
+    for k in (1, 2, 3):
+        up = getattr(net, f"p_up{k}")
+        tree[f"p_up{k}"] = {"w": up.weight.permute(2, 3, 0, 1), "b": up.bias}
+        tree[f"p_c{k}"] = cbs(getattr(net, f"p_c{k}"))
+    tree["head"] = _head(net.head)
     return tree
 
 
@@ -296,7 +339,174 @@ def _forward_pp(p: dict, x: torch.Tensor, cd: torch.dtype, *, quant: bool,
     return logits.float()
 
 
+# -- YOLOv8-seg ---------------------------------------------------------------
+
+
+def int8_conv_weight(w_q: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """An int8 HWIO weight in the form its int8 conv reads: a 3x3 stride-1
+    conv's :func:`pack_weight` for the kernel, else (a 1x1 conv, or a 3x3
+    stride-2 one) the (Cout_p, K_p) matrix of :func:`int8_matmul_sums`,
+    element [co, (u * k + v) * Cin + ci], zeros past Cout and K (both
+    padded to multiples of 8, ``torch._int_mm``'s rule)."""
+    kh, kw, cin, cout = w_q.shape
+    if kh == 3 and stride == 1:
+        return pack_weight(w_q)
+    k = kh * kw * cin
+    m = torch.zeros((_round8(cout), _round8(k)), dtype=torch.int8, device=w_q.device)
+    m[:cout, :k] = w_q.reshape(k, cout).T
+    return m
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_matmul_sums(a: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K_p) rows times the (Cout_p, K_p) matrix of
+    :func:`int8_conv_weight`, transposed -> int32 (M, Cout_p), exact: on
+    the card ``torch._int_mm`` (cuBLASLt's int8 GEMM; M padded past 16,
+    its rule), on the CPU a float64 product (|sum| < 2^53)."""
+    if a.is_cuda:
+        m = a.shape[0]
+        if m <= 16:
+            a = F.pad(a, (0, 0, 0, 17 - m))
+        return torch._int_mm(a, wm.t())[:m]
+    return (a.double() @ wm.double().T).to(torch.int32)
+
+
+def _int8_conv_sums(x: torch.Tensor, wm: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """The int32 sums of a k x k conv (k = 1, or 3 with pad 1) of int8 NHWC x
+    at ``stride`` through :func:`int8_matmul_sums` on the im2col rows
+    (JAX ``conv1x1_wide_int8`` / ``conv_wide_int8`` with stride 2)."""
+    b, h, w, cin = x.shape
+    if k == 1:
+        ho, wo, rows = h, w, x
+    else:
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        rows = torch.cat([xp[:, u:u + stride * (ho - 1) + 1:stride,
+                             v:v + stride * (wo - 1) + 1:stride] for u in range(3)
+                          for v in range(3)], dim=-1)
+    kp = wm.shape[1]
+    rows = rows.reshape(b * ho * wo, -1)
+    if rows.shape[1] != kp:
+        rows = F.pad(rows, (0, kp - rows.shape[1]))
+    return int8_matmul_sums(rows.contiguous(), wm).reshape(b, ho, wo, -1)
+
+
+def _requant_signed(yf: torch.Tensor, inv_s: torch.Tensor) -> torch.Tensor:
+    """f32 -> int8 on the signed grid [-127, 127] (JAX ``_requant_signed``)."""
+    return torch.clamp(torch.round(yf * inv_s), -127, 127).to(torch.int8)
+
+
+def _requant_add(t: torch.Tensor, yf: torch.Tensor, res_s: torch.Tensor,
+                 add_inv_s: torch.Tensor) -> torch.Tensor:
+    """A bottleneck's residual ``t + yf`` on the int8 path: int8 ``t``
+    dequantised with ``res_s``, plus ``yf`` (cv2's dequantised output), in
+    f32 with two roundings, requantised to the sum's scale."""
+    return _requant_signed(t.float() * res_s + yf.float(), add_inv_s)
+
+
+def _maxpool5_same_int8(x: torch.Tensor) -> torch.Tensor:
+    """SPPF's 5x5 stride-1 SAME max pool of int8 NHWC x, staying int8 (JAX
+    ``_maxpool5_same_int8``, padding -128).  PyTorch's max pool takes no
+    int8, so it pools the values as float16, where -127..127 are exact;
+    its -inf padding picks what -128 does, since every window holds a
+    pixel of the image."""
+    y = F.max_pool2d(x.to(torch.float16).permute(0, 3, 1, 2), 5, stride=1, padding=2)
+    return y.permute(0, 2, 3, 1).to(torch.int8)
+
+
+def _c2f_depth(entry: dict) -> int:
+    return sum(1 for k in entry if k.startswith("m"))
+
+
+def _forward_yolo(p: dict, x: torch.Tensor, cd: torch.dtype, *, quant: bool,
+                  amax: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """YOLOv8-seg's walker (JAX ``_forward_yolo`` on NHWC): calibration
+    (quant=False, p = a folded tree, fills ``amax`` with JAX's tap names)
+    and execution (quant=True, p = :func:`build_qparams_yolo`'s qparams,
+    each conv int8 or float as its entry's format says)."""
+    if x.dim() == 3:
+        x = x.unsqueeze(-1)
+
+    def cbs(name, entry, t, stride=1, *, requant):
+        if isinstance(t, list):
+            t = torch.cat(t, dim=-1)
+        if quant and "mul" in entry:
+            out_dtype = torch.int8 if requant else cd
+            inv_s = entry["inv_s"] if requant else None
+            w = entry["w"]
+            if w.dim() == 6:  # a packed 3x3 stride-1 weight: the int8 kernel
+                return conv3x3_int8(t.contiguous(), w, entry["mul"], entry["badd"], out_dtype,
+                                    act="silu", inv_s=inv_s)
+            # a matrix: the stride-2 convs are 3x3, the stride-1 ones 1x1
+            acc = _int8_conv_sums(t, w, 3 if stride == 2 else 1, stride)
+            acc = acc[..., :entry["mul"].shape[0]]
+            return epilogue(acc, entry["mul"], entry["badd"], out_dtype, "silu", inv_s)
+        w = entry["w"]
+        y = silu_f32(conv2d(t, w, entry["b"], stride=stride, padding=w.shape[0] // 2,
+                            compute_dtype=cd))
+        if not quant:
+            amax[name] = _amax(y)
+        return y
+
+    def bottleneck(base, k, entry, t):
+        y = cbs(f"{base}.m{k}.cv1", entry["cv1"], t, requant=True)
+        yf = cbs(f"{base}.m{k}.cv2", entry["cv2"], y, requant=False)
+        if quant and "res_s" in entry:
+            return _requant_add(t, yf, entry["res_s"], entry["add_inv_s"])
+        out = t + yf.to(t.dtype)
+        if not quant:
+            amax[f"{base}.m{k}.add"] = _amax(out)
+        return out
+
+    def c2f(base, entry, t, *, requant_out=True):
+        y = cbs(f"{base}.cv1", entry["cv1"], t, requant=True)
+        c = y.shape[-1] // 2
+        parts = [y[..., :c], y[..., c:]]
+        for k in range(_c2f_depth(entry)):
+            parts.append(bottleneck(base, k, entry[f"m{k}"], parts[-1]))
+        return cbs(f"{base}.cv2", entry["cv2"], parts, requant=requant_out)
+
+    # -- backbone
+    if quant and "s_x" in p:
+        x = _quant_sym(x, p["s_x"])
+    elif not quant:
+        amax["x"] = _amax(x)
+    cur = cbs("stem", p["stem"], x, 2, requant=True)
+    feats = []
+    for i in range(4):
+        cur = cbs(f"d{i}", p[f"down{i}"], cur, 2, requant=True)
+        cur = c2f(f"c2f{i}", p[f"c2f{i}"], cur)
+        feats.append(cur)
+
+    # -- SPPF
+    y = cbs("sppf.cv1", p["sppf"]["cv1"], cur, requant=True)
+    pool = _maxpool5_same_int8 if y.dtype == torch.int8 else maxpool5_same
+    p1 = pool(y)
+    p2 = pool(p1)
+    y = cbs("sppf.cv2", p["sppf"]["cv2"], [y, p1, p2, pool(p2)], requant=True)
+
+    # -- FPN neck (nearest x2 is scale-preserving: int8 stays int8)
+    p4 = c2f("n4", p["n4"], [upsample_nearest2(y), feats[2]])
+    t = c2f("n3", p["n3"], [upsample_nearest2(p4), feats[1]], requant_out=False)
+
+    # -- proto head: the ConvT ups float; each p_c conv re-enters int8
+    for k in (1, 2, 3):
+        up = p[f"p_up{k}"]
+        t = conv_transpose2d(t.to(cd), up["w"], up.get("b"), stride=2, compute_dtype=cd)
+        if quant and f"s_pc{k}" in p:
+            t = _quant_sym(t, p[f"s_pc{k}"])
+        elif not quant:
+            amax[f"p_c{k}.in"] = _amax(t)
+        t = cbs(f"p_c{k}", p[f"p_c{k}"], t, requant=False)
+    return conv2d(t.to(cd), p["head"]["w"], p["head"].get("b"), compute_dtype=cd).float()
+
+
 def _walker_for(tree: dict):
+    if "stem" in tree:
+        return _forward_yolo
     return _forward_pp if "x0_0" in tree else _forward
 
 
@@ -305,7 +515,8 @@ def calibrate_amax(folded: dict, images: torch.Tensor,
                    compute_dtype: Optional[torch.dtype] = None) -> Dict[str, float]:
     """The float eval forward of ``folded`` (a :func:`folded_tree`) with amax
     taps, in ``compute_dtype`` (f32 when None), on ``images`` (B, H, W[, C])
-    float with H, W multiples of 16 -> {tap name: amax} as Python floats."""
+    float with H, W multiples of the model's ``hw_divisor`` -> {tap name:
+    amax} as Python floats."""
     amax: Dict[str, torch.Tensor] = {}
     _walker_for(folded)(folded, images, compute_dtype or torch.float32, quant=False,
                         amax=amax)
@@ -317,15 +528,20 @@ def _numpy(t) -> np.ndarray:
     return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _quantize_weight(w, s_in):
+    """HWIO kernel with the per-Cin input scales ``s_in`` folded in -> (int8
+    HWIO weight, per-Cout f32 scale s_w), in numpy f32, line for line the
+    JAX package's ``_quantize_kernel`` / ``build_qparams_yolo``'s ``qcbs``."""
+    w_eff = _numpy(w).astype(np.float32) * np.asarray(s_in, np.float32)[None, None, :, None]
+    s_w = np.maximum(np.abs(w_eff).max(axis=(0, 1, 2)) / 127.0, 1e-12)
+    return np.clip(np.round(w_eff / s_w), -127, 127).astype(np.int8), s_w
+
+
 def _quantize_kernel(w, b, s_in, s_out, device) -> dict:
     """HWIO kernel + bias -> {w: packed int8, mul, badd} with the input scales
-    folded in; ``s_out`` the output scale (requant) or None (dequant).  In
-    numpy f32, line for line the JAX package's ``_quantize_kernel``."""
-    w = _numpy(w).astype(np.float32)
+    folded in; ``s_out`` the output scale (requant) or None (dequant)."""
     b = _numpy(b).astype(np.float32)
-    w_eff = w * np.asarray(s_in, np.float32)[None, None, :, None]
-    s_w = np.maximum(np.abs(w_eff).max(axis=(0, 1, 2)) / 127.0, 1e-12)
-    w_q = np.clip(np.round(w_eff / s_w), -127, 127).astype(np.int8)
+    w_q, s_w = _quantize_weight(w, s_in)
     if s_out is None:
         mul, badd = s_w, b
     else:
@@ -454,20 +670,118 @@ def build_qparams_pp(folded: dict, amax: Dict[str, float], device=None) -> dict:
     return qp
 
 
+def build_qparams_yolo(folded: dict, amax: Dict[str, float], scope: str = "proto",
+                       device=None) -> dict:
+    """An f32 :func:`folded_tree` of a YOLOv8-seg + calibration amaxes -> the
+    int8 qparams on ``device`` (the folded tensors' device when None).  JAX
+    ``build_qparams_yolo``: each int8 CBS entry ``{w, mul, badd[, inv_s]}``
+    holds the true dequant (``mul = s_w``, ``badd = b``) and, where its
+    output requantises, ``inv_s = 1 / s_out``; each bottleneck ``res_s``
+    (its chain input's scale) and ``add_inv_s`` (1 / the sum's); the parts
+    of a concatenated input (C2f's cv2, the neck's cv1, SPPF's cv2) fold
+    their own scales into their Cin slices.  ``scope``: "proto" (only
+    ``p_c1..3`` int8; the backbone and neck stay the folded float tree) or
+    "full" (every CBS int8)."""
+    if scope not in ("proto", "full"):
+        raise ValueError(f"scope must be 'proto' or 'full', not {scope!r}")
+    device = device if device is not None else folded["stem"]["w"].device
+    s = {k: max(v, 1e-12) / 127.0 for k, v in amax.items()}
+
+    def qcbs(entry, s_in_vec, s_out, stride=1):
+        w_q, s_w = _quantize_weight(entry["w"], s_in_vec)
+        out = {"w": int8_conv_weight(torch.from_numpy(w_q), stride).to(device),
+               "mul": torch.from_numpy(np.asarray(s_w, np.float32)).to(device),
+               "badd": torch.from_numpy(_numpy(entry["b"]).astype(np.float32)).to(device)}
+        if s_out is not None:
+            out["inv_s"] = _scalar(1.0 / s_out, device)
+        return out
+
+    def const(entry, sv):
+        return np.full(entry["w"].shape[2], sv, np.float32)
+
+    def qc2f(base, entry, s_in_vec, requant_out):
+        out = {"cv1": qcbs(entry["cv1"], s_in_vec, s[f"{base}.cv1"])}
+        c = entry["cv1"]["w"].shape[3] // 2
+        chain_s = s[f"{base}.cv1"]
+        n = _c2f_depth(entry)
+        for k in range(n):
+            m, mk = entry[f"m{k}"], f"{base}.m{k}"
+            out[f"m{k}"] = {
+                "cv1": qcbs(m["cv1"], const(m["cv1"], chain_s), s[f"{mk}.cv1"]),
+                "cv2": qcbs(m["cv2"], const(m["cv2"], s[f"{mk}.cv1"]), None),
+                "res_s": _scalar(chain_s, device),
+                "add_inv_s": _scalar(1.0 / s[f"{mk}.add"], device),
+            }
+            chain_s = s[f"{mk}.add"]
+        parts_s = [s[f"{base}.cv1"]] * 2 + [s[f"{base}.m{k}.add"] for k in range(n)]
+        s_in2 = np.concatenate([np.full(c, ps, np.float32) for ps in parts_s])
+        out["cv2"] = qcbs(entry["cv2"], s_in2,
+                          s[f"{base}.cv2"] if requant_out else None)
+        return out
+
+    fp = folded
+    if scope == "full":
+        qp = {"s_x": _scalar(s["x"], device),
+              "stem": qcbs(fp["stem"], const(fp["stem"], s["x"]), s["stem"], 2)}
+        prev = "stem"
+        for i in range(4):
+            qp[f"down{i}"] = qcbs(fp[f"down{i}"], const(fp[f"down{i}"], s[prev]),
+                                  s[f"d{i}"], 2)
+            qp[f"c2f{i}"] = qc2f(f"c2f{i}", fp[f"c2f{i}"], const(fp[f"c2f{i}"]["cv1"],
+                                                                  s[f"d{i}"]), True)
+            prev = f"c2f{i}.cv2"
+        qp["sppf"] = {
+            "cv1": qcbs(fp["sppf"]["cv1"], const(fp["sppf"]["cv1"], s["c2f3.cv2"]),
+                        s["sppf.cv1"]),
+            "cv2": qcbs(fp["sppf"]["cv2"], const(fp["sppf"]["cv2"], s["sppf.cv1"]),
+                        s["sppf.cv2"]),
+        }
+        c5 = fp["sppf"]["cv2"]["w"].shape[3]
+        c4 = fp["c2f2"]["cv2"]["w"].shape[3]
+        c3 = fp["c2f1"]["cv2"]["w"].shape[3]
+        qp["n4"] = qc2f("n4", fp["n4"], np.concatenate([
+            np.full(c5, s["sppf.cv2"], np.float32), np.full(c4, s["c2f2.cv2"], np.float32)]),
+            True)
+        qp["n3"] = qc2f("n3", fp["n3"], np.concatenate([
+            np.full(c4, s["n4.cv2"], np.float32), np.full(c3, s["c2f1.cv2"], np.float32)]),
+            False)
+    else:  # "proto": the backbone and neck stay the folded float tree
+        qp = {k: _float_tensors(fp[k], device)
+              for k in ["stem", "sppf", "n4", "n3", *(f"down{i}" for i in range(4)),
+                        *(f"c2f{i}" for i in range(4))]}
+    for k in (1, 2, 3):
+        qp[f"p_up{k}"] = _float_tensors(fp[f"p_up{k}"], device)
+        qp[f"s_pc{k}"] = _scalar(s[f"p_c{k}.in"], device)
+        qp[f"p_c{k}"] = qcbs(fp[f"p_c{k}"], const(fp[f"p_c{k}"], s[f"p_c{k}.in"]),
+                             None)
+    qp["head"] = _float_tensors(fp["head"], device)
+    return qp
+
+
+def build_for(folded: dict):
+    """The qparams function of a :func:`folded_tree`'s topology: :func:`build_qparams_pp`
+    (UNet++), :func:`build_qparams_yolo` (YOLOv8-seg, its default scope) or
+    :func:`build_qparams` (the UNet family); JAX ``quantize_unet``'s
+    dispatch."""
+    if "x0_0" in folded:
+        return build_qparams_pp
+    return build_qparams_yolo if "stem" in folded else build_qparams
+
+
 def quantize_unet(folded: dict, calib_images: torch.Tensor,
                   compute_dtype: Optional[torch.dtype] = None) -> dict:
-    """Calibrate on ``calib_images`` and build, in one call (f32 folded tree
-    of a UNet or a UNet++)."""
-    build = build_qparams_pp if "x0_0" in folded else build_qparams
-    return build(folded, calibrate_amax(folded, calib_images, compute_dtype))
+    """Calibrate on ``calib_images`` and build, in one call (an f32 folded
+    tree of a UNet, a UNet++ or a YOLOv8-seg)."""
+    return build_for(folded)(folded, calibrate_amax(folded, calib_images, compute_dtype))
 
 
 @torch.inference_mode()
 def apply_int8(qparams: dict, x: torch.Tensor,
                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The int8 eval forward: (B, H, W[, C]) float images, H and W multiples
-    of 16 -> (B, H, W, n_classes) f32 logits, through the UNet family's or
-    UNet++'s walker as the qparams' keys say.  The float pieces run in
-    ``compute_dtype`` (f32 when None)."""
+    of the model's ``hw_divisor`` -> (B, H, W, n_classes) f32 logits,
+    through the UNet family's, UNet++'s or YOLOv8-seg's walker as the
+    qparams' keys say.  The float pieces run in ``compute_dtype`` (f32 when
+    None)."""
     return _walker_for(qparams)(qparams, x, compute_dtype or torch.float32, quant=True,
                                 amax={})

@@ -226,22 +226,24 @@ def tensors_from_params_tree(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
 
 
 def qparams_from_jax(tree, device="cpu") -> dict:
-    """The JAX package's ``build_qparams`` or ``build_qparams_pp`` output (the
-    UNet family's or UNet++'s int8 tree, numpy or jax arrays) -> the port's
-    qparams on ``device``: the same
-    keys, each int8 conv entry ``{w, mul, badd}`` with its HWIO weight packed
-    for the kernel (``kernels/conv3x3_int8.py:pack_weight``), every other
-    array (scales, ConvT, attention, head) an f32 tensor.  Both packages
-    then serve from identical int8 weights and scales."""
-    from ..kernels.conv3x3_int8 import pack_weight
+    """The JAX package's ``build_qparams``, ``build_qparams_pp`` or
+    ``build_qparams_yolo`` output (numpy or jax arrays) -> the port's qparams
+    on ``device``: the same keys, each int8 conv entry ``{w, mul, badd[,
+    inv_s]}`` with its HWIO weight in the form the port's int8 conv reads
+    (``models/quantize.py:int8_conv_weight``: packed for the kernel, or a
+    matrix for YOLO's 1x1 and stride-2 convs), every other array (scales,
+    float convs, ConvT, attention, heads) an f32 tensor.  Both packages then
+    serve from identical int8 weights and scales."""
+    from .quantize import _YOLO_STRIDE2, int8_conv_weight
 
-    def convert(t):
+    def convert(t, stride=1):
         if isinstance(t, dict):
             if {"w", "mul", "badd"} <= set(t):
-                return {"w": pack_weight(torch.from_numpy(np.array(t["w"], np.int8))).to(device),
-                        "mul": torch.tensor(np.asarray(t["mul"], np.float32), device=device),
-                        "badd": torch.tensor(np.asarray(t["badd"], np.float32), device=device)}
-            return {k: convert(v) for k, v in t.items()}
+                w = torch.from_numpy(np.array(t["w"], np.int8))
+                return {"w": int8_conv_weight(w, stride).to(device),
+                        **{k: convert(v) for k, v in t.items() if k != "w"}}
+            return {k: convert(v, 2 if k in _YOLO_STRIDE2 and "stem" in t else 1)
+                    for k, v in t.items()}
         return torch.tensor(np.asarray(t, np.float32), device=device)
 
     return convert(tree)
