@@ -102,17 +102,32 @@ Phases, in order; any failure exits nonzero before the last line:
      (3 int8 and 2 bf16 launches a forward, card vs CPU int8 masks >=
      99.99%, masks vs f32, device forward int8 against bf16, slices/s,
      batch-1 p50), one full-scope forward (23 int8 launches, none bf16;
-     its torch._int_mm route's time), and its int8 .pt2 program (masks
+     its torch._int_mm route's time and bound), and its int8 .pt2 program (masks
      100% of the live int8 Predictor's);
- 17. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
-     window of phases 5-16 launched the conv3x3 kernel must be one that
+ 17. data parallelism (parallel/), each phase's launches counted: D1 the
+     data-parallel train step at world size 1 (NCCL, one process) on unet_s
+     at (8, 512, 512) bf16 against the plain step from the same weights
+     (D1_TOL: not bit-equal, the BN variance is one-pass there and two-pass
+     here), 7 + 7 launches a step, both steps' ms (in turns), peak memory,
+     and the all-reduces a step with a lone one's host and device cost; D2
+     two ranks on the one card (spawned processes of 4 rows each, gloo:
+     whether NCCL takes two ranks on one device is tried first and logged)
+     taking one f32 step (TF32 off) of the multiclass and the binary
+     criterion against the single process's (8, 512, 512) step (D2_TOL),
+     each rank's launches (7 + 7) and launched shapes; D3 data-parallel
+     serving, Predictor(devices=["cuda:0", "cuda:0"]): a ragged dense batch
+     of 7, one 2048² scan tiled and int8 at (8, 512, 512), masks 100% equal
+     to the single-device Predictor's, launches, slices/s beside it;
+ 18. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
+     window of phases 5-17 launched the conv3x3 kernel must be one that
      phase 3 or 4 held against the plain version (phase 3 times YOLO's two
      shapes that unet_s lacks, 32->32 at 128² and at 512², and checks its
      exported program's and its calibration's); every shape at which one
      launched the int8 kernel was held against its plain version in phase
      10, or is held here;
- 18. a JSON ``kernels`` line (with per-shape rows), then the device line and
-     the result line.
+ 19. a JSON ``kernels`` line (with per-shape rows and the launches of every
+     path, the data-parallel ones included), then the device line and the
+     result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
 build into build/torch_kernels/.
@@ -134,6 +149,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -209,6 +226,11 @@ from unet_medical_image_contour_segmentation_torch.models.unet import (  # noqa:
     unet_sa,
 )
 from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.parallel import (  # noqa: E402
+    make_data_group,
+    make_parallel_train_step,
+    replicate,
+)
 from unet_medical_image_contour_segmentation_torch.pipeline.post_process import (  # noqa: E402
     postprocess_mask,
 )
@@ -564,9 +586,8 @@ def train_shapes() -> list:
 
 def phase_kernels(usage: dict):
     """Kernel vs plain at every shape that a main path gives it, both dtypes;
-    bf16 timings at the dense, ragged and tiled shapes.  The plain version
-    is timed at the dense shapes only (it is no yardstick of speed, and at
-    the tiled shapes its im2col patch takes seconds).  The other paths'
+    bf16 timings at the dense, ragged and tiled shapes, the plain version's
+    too (no yardstick of speed: its im2col patch).  The other paths'
     shapes (the train variants' own convs, the int8 calibration forward,
     the exported program's wide image) are checked, not timed."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -622,10 +643,11 @@ def phase_kernels(usage: dict):
             xs = copies(x)
             w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             ms, host_ms = time_ms(lambda i: conv3x3_nhwc(xs[i % len(xs)], wt), reps=20)
-            plain_ms = None
-            if not path.startswith("tiled"):
-                plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(xs[i % len(xs)], wt),
-                                      reps=3, warmup=1)
+            # the plain version's f32 im2col patch of a tiled group is ~9 GB:
+            # its calls are timed as issued, not queued behind a sleep
+            plain_ms, _ = time_ms(lambda i: conv3x3_nhwc_reference(xs[i % len(xs)], wt),
+                                  reps=2 if path.startswith("tiled") else 3, warmup=1,
+                                  queued=not path.startswith("tiled"))
             library_ms, library_host_ms = time_ms(
                 lambda i: F.conv2d(xs[i % len(xs)].permute(0, 3, 1, 2), w_oihw, padding=1),
                 reps=20)
@@ -638,9 +660,8 @@ def phase_kernels(usage: dict):
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                              roofline=share, max_abs_err=err, host_ms=host_ms,
                              library_host_ms=library_host_ms, **use))
-            plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
             log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} bf16 "
-                f"max_abs_err {err:.3g} ok; kernel {ms:.4f} ms, plain {plain}, "
+                f"max_abs_err {err:.3g} ok; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                 f"host issue {host_ms * 1e3:.1f} us (F.conv2d {library_host_ms * 1e3:.1f} us), "
                 f"roofline {share:.1%}; {use['kernel']}: {use['ptxas']}, "
@@ -662,8 +683,13 @@ def phase_backward(usage: dict):
     checked, not timed."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, max_err = [], 0.0
-    for i, (name, cin, cout, s) in enumerate(train_shapes()):
-        b, h, w = BATCH, HW // s, HW // s
+    rows_in = [(name, BATCH, cin, cout, s, i < len(MAIN_CONVS))
+               for i, (name, cin, cout, s) in enumerate(train_shapes())]
+    # D2: each rank's RANK_BATCH rows of unet_s's step
+    rows_in += [(f"{name}@rank", RANK_BATCH, cin, cout, s, False)
+                for name, cin, cout, s in MAIN_CONVS]
+    for name, b, cin, cout, s, timed in rows_in:
+        h, w = HW // s, HW // s
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
             wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
@@ -689,7 +715,7 @@ def phase_backward(usage: dict):
                                    f"{dx_err}, dw max abs err {dw_err} (atol {dw_atol})")
             max_err = max(max_err, dx_err)
             CHECKED.add((b, h, w, cout, cin, str(dtype)))  # dx launches Cout -> Cin
-            if dtype != torch.bfloat16 or i >= len(MAIN_CONVS):
+            if dtype != torch.bfloat16 or not timed:
                 log(f"[backward] {name:12s} {str((b, h, w, cin, cout)):26s} "
                     f"{'f32 ' if dtype == torch.float32 else 'bf16'} dx max_abs_err "
                     f"{dx_err:.3g}, dw max_abs_err {dw_err:.3g} ok")
@@ -1165,13 +1191,7 @@ def one_train_step(device: str, data: dict, n_classes: int = 3, build=None):
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
     with exact_f32():
         metrics = step(batch, TRAIN_LR)
-
-    def host(named):
-        return {n: t.detach().float().cpu() for n, t in named}
-
-    return ({k: v.item() for k, v in metrics.items()},
-            host((n, p.grad) for n, p in model.named_parameters()),
-            host(model.named_parameters()), host(model.named_buffers()))
+    return host_step(model, metrics)
 
 
 def phase_train_reference(n_classes: int = 3, build=None, label=None) -> None:
@@ -1467,9 +1487,11 @@ def phase_train_model_cc(n_train: int = 32) -> dict:
     return dict(cc_host_ms=cc_ms, worst_rel=worst, cc=[r["cc"] for r in steps])
 
 
-def profile_train(step, batch, out_dir: Path, name: str = "train") -> None:
+def profile_train(step, batch, out_dir: Path, name: str = "train", by_cpu: bool = False) -> None:
     """torch.profiler table of 3 steps; logs the table's head and its host
-    and device totals (the profiler's "Self CPU/CUDA time total")."""
+    and device totals (the profiler's "Self CPU/CUDA time total"); with
+    ``by_cpu``, also the table by self CPU time (where a host-bound step's
+    time goes)."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1484,6 +1506,10 @@ def profile_train(step, batch, out_dir: Path, name: str = "train") -> None:
     log(f"[profile] 3 bf16 {name} steps at ({BATCH}, {HW}, {HW}); table in "
         f"{out_dir}/{name}_profile.txt; {'; '.join(totals)}")
     log("\n".join(table.splitlines()[:30]))
+    if by_cpu:
+        cpu = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25)
+        (out_dir / f"{name}_profile_cpu.txt").write_text(cpu)
+        log("\n".join(cpu.splitlines()[:25]))
 
 
 class ArrayDataset:
@@ -2637,12 +2663,27 @@ def phase_yolo():
              "yolo_export": e_launches}, dict(serve=serve, train=train, export=export))
 
 
+def int_mm_bound_ms(t: torch.Tensor, wm: torch.Tensor, k: int, stride: int) -> tuple:
+    """(ms, "bytes" | "operations") of one ``_int8_conv_sums`` call: int8 x
+    and the (N, K) int8 weight read once, the int32 sums written once,
+    against 2 * k*k*Cin * N operations per output pixel at the int8 peak."""
+    b, h, w, cin = t.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    n = wm.shape[0]
+    nbytes = t.numel() + wm.numel() + b * ho * wo * n * 4
+    ops = 2 * b * ho * wo * k * k * cin * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def int_mm_route_ms(qparams: dict, x: torch.Tensor) -> tuple:
     """The int8 1x1 and stride-2 convs of one full-scope int8 forward
     (``models/quantize.py:_int8_conv_sums``: the im2col rows and
     ``torch._int_mm``): each call's input recorded in one forward, then
     each call timed alone on copies rotated past the L2, queued behind a
-    sleep; -> (the sum of their device ms, the number of calls)."""
+    sleep; -> (the sum of their device ms, the number of calls, the sum of
+    their bounds, what binds the most of that sum)."""
     calls, sums = [], quantize_module._int8_conv_sums
 
     def recorded(t, wm, k, stride):
@@ -2655,13 +2696,16 @@ def int_mm_route_ms(qparams: dict, x: torch.Tensor) -> tuple:
             apply_int8(qparams, x, torch.bfloat16)
     finally:
         quantize_module._int8_conv_sums = sums
-    total = 0.0
+    total, bound, by = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
     with torch.inference_mode():
         for t, wm, k, stride in calls:
             ts = copies(t)
             total += time_ms(lambda i: sums(ts[i % len(ts)], wm, k, stride), reps=10)[0]
             del ts
-    return total, len(calls)
+            ms, kind = int_mm_bound_ms(t, wm, k, stride)
+            bound += ms
+            by[kind] += ms
+    return total, len(calls), bound, max(by, key=by.get)
 
 
 def phase_yolo_int8(profile_dir=None):
@@ -2737,7 +2781,7 @@ def phase_yolo_int8(profile_dir=None):
         dev = {k: [] for k in fwd}
         for k in ("bf16", "folded", "proto", "full", "full", "proto", "folded", "bf16"):
             dev[k].append(time_ms(fwd[k], reps=1, warmup=2)[0])
-    route_ms, route_calls = int_mm_route_ms(full, x)
+    route_ms, route_calls, route_bound_ms, route_bound_by = int_mm_route_ms(full, x)
     serve = serve_numbers(q, images, queued_reps=1)
     bf16_rate = host_rate(bf16, images, reps=10)[0]
     if profile_dir:
@@ -2748,13 +2792,15 @@ def phase_yolo_int8(profile_dir=None):
                   foreground=float(masks.mean()), full_agreement_f32=full_agree,
                   **{f"{k}_forward_ms": float(np.mean(v)) for k, v in dev.items()},
                   forward_ms_runs=dev, int_mm_route_ms=route_ms, int_mm_route_calls=route_calls,
+                  int_mm_route_bound_ms=route_bound_ms, int_mm_route_bound_by=route_bound_by,
                   bf16_slices_per_s=bf16_rate, **serve)
     log(f"[C5 yolov8_seg_s int8] ({BATCH}, {HW}, {HW}) bf16 compute, proto scope: calibration "
         f"{calib}, then {launches} a forward; masks vs f32 {agree:.4%} (bf16 vs f32 "
         f"{agree_bf16:.4%}), foreground {result['foreground']:.3f}; card vs CPU int8 masks (f32 "
         f"compute, {tuple(cut.shape)}) {card_vs_cpu:.4%}; full scope: {full_launches} a "
         f"forward, masks vs f32 {full_agree:.4%}, its {route_calls} 1x1 / stride-2 convs on "
-        f"torch._int_mm {route_ms:.4f} ms; device forward+classes (one call queued) bf16 "
+        f"torch._int_mm {route_ms:.4f} ms (bound {route_bound_ms:.4f} ms, {route_bound_by}); "
+        f"device forward+classes (one call queued) bf16 "
         f"{dev['bf16']} ms, BN-folded bf16 {dev['folded']} ms, proto {dev['proto']} ms, full "
         f"{dev['full']} ms (proto / folded "
         f"{result['proto_forward_ms'] / result['folded_forward_ms']:.3f}, proto / bf16 "
@@ -2783,6 +2829,331 @@ def phase_yolo_int8(profile_dir=None):
         f"Predictor's on {e_agree:.4%}; host {result['export']['slices_per_s']:.1f} slices/s")
     return ({"yolo_int8_predict": launches, "yolo_int8_full": full_launches,
              "yolo_int8_export": e_launches}, result)
+
+
+# D1-D3: data parallelism on the one card.  D2 splits (BATCH, HW, HW) over
+# two ranks of RANK_BATCH rows, D3 each served batch over two replicas
+DP_RANKS = 2
+RANK_BATCH = BATCH // DP_RANKS
+DP_TIMEOUT_S = 300
+# D1 (bf16 compute): the data-parallel step at world size 1 against the
+# plain step from the same weights.  Not bit-equal: cross-replica BN takes
+# the variance one-pass (mean_sq - mean**2, JAX's formula), the plain step
+# two-pass (torch.var_mean), so the normalised activations round apart in
+# bf16.  The bounds are phase 6's card-vs-CPU f32 bounds widened for bf16:
+# loss 1e-3 relative, gradients 1e-2 of the largest, grad norm 1e-2, BN
+# buffers rtol 1e-3 / atol 1e-4, parameters 20 * lr.
+D1_TOL = dict(loss=1e-3, grads=1e-2, grad_norm=1e-2, buf_rtol=1e-3, buf_atol=1e-4)
+# D2 (f32, TF32 off): two ranks of RANK_BATCH rows against one process's
+# (BATCH, HW, HW) step; the same one-pass / two-pass difference in f32
+# (on the CPU at 64x64 the gradients agree to 3e-6 of the largest; the
+# gradients are held to phase 6's 1e-3 of the largest)
+D2_TOL = dict(loss=1e-5, grads=1e-3, grad_norm=1e-4, buf_rtol=1e-4, buf_atol=1e-5)
+
+
+def step_diffs(a: tuple, b: tuple) -> dict:
+    """The differences of two one_train_step-style results (metrics, grads,
+    params, buffers on the host)."""
+    (ma, ga, pa, ba), (mb, gb, pb, bb) = a, b
+    g_max = max(g.abs().max().item() for g in gb.values())
+    return dict(
+        loss=abs(ma["loss"] - mb["loss"]) / abs(mb["loss"]),
+        grad_norm=abs(ma["grad_norm"] - mb["grad_norm"]) / mb["grad_norm"],
+        grads=max((ga[n] - gb[n]).abs().max().item() for n in gb) / g_max,
+        params=max((pa[n] - pb[n]).abs().max().item() for n in pb),
+        buffers=max((ba[n].float() - bb[n].float()).abs().max().item() for n in bb),
+        g_max=g_max)
+
+
+def check_step_diffs(label: str, d: dict, tol: dict, a_buffers: dict, b_buffers: dict) -> None:
+    bufs_ok = all(torch.allclose(a_buffers[n].float(), b_buffers[n].float(), rtol=tol["buf_rtol"],
+                                 atol=tol["buf_atol"]) for n in b_buffers)
+    if (d["loss"] > tol["loss"] or d["grad_norm"] > tol["grad_norm"] or d["grads"] > tol["grads"]
+            or d["params"] > 20 * TRAIN_LR + 1e-6 or not bufs_ok):
+        raise RuntimeError(f"[{label}] the data-parallel step differs from the plain one: {d} "
+                           f"(bounds {tol}, params 20 * lr), BN buffers within bounds {bufs_ok}")
+
+
+def host_step(model, metrics) -> tuple:
+    """A step's (metrics, grads, params, buffers) on the host."""
+    def host(named):
+        return {n: t.detach().float().cpu() for n, t in named}
+
+    return ({k: v.item() for k, v in metrics.items() if v.dim() == 0},
+            host((n, p.grad) for n, p in model.named_parameters()),
+            host(model.named_parameters()), host(model.named_buffers()))
+
+
+def timed_steps(step, batch, n: int = TRAIN_STEPS) -> tuple:
+    """(ms per step, peak MiB) of ``n`` steps on a resident batch after
+    TRAIN_WARMUP warm-ups, CUDA events."""
+    for _ in range(TRAIN_WARMUP):
+        step(batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step(batch, TRAIN_LR)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, torch.cuda.max_memory_allocated() / 2**20
+
+
+def collective_cost(step, batch) -> dict:
+    """Where D1's extra step time goes: the all-reduces of one data-parallel
+    step (counted by wrapping ``dist.all_reduce``), and one lone all-reduce
+    of a BN layer's (2, 16) statistics: host issue µs and device ms (CUDA
+    events, 50 calls as a caller issues them)."""
+    calls, all_reduce = [], dist.all_reduce
+
+    def counted(t, *args, **kw):
+        calls.append(t.numel())
+        return all_reduce(t, *args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        step(batch, TRAIN_LR)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    t = torch.zeros(2, 16, device="cuda")
+    device_ms, host_ms = time_ms(lambda i: dist.all_reduce(t), reps=50, queued=False)
+    return dict(per_step=len(calls), elements=sum(calls), host_us=host_ms * 1e3,
+                device_ms=device_ms)
+
+
+def phase_dp_world1(profile_dir=None):
+    """D1: make_parallel_train_step at world size 1 (NCCL, one process) on
+    the seeded unet_s at (BATCH, HW, HW), bf16 compute / f32 master, against
+    the plain step from the same weights (D1_TOL); 7 + 7 kernel launches a
+    step on the tensor cores; step ms as a caller sees it (CUDA events,
+    steps issued one after another) and peak memory of both, in turns
+    (plain, dp, dp, plain); the all-reduces a step and one's cost; with
+    ``profile_dir``, both steps' profiler tables (their device time).
+    (Queued behind a sleep, the data-parallel steps are not the device
+    alone: the host then waits in them, see PERF.md.)  -> (launches,
+    numbers)."""
+    per_step = len(MAIN_CONVS)
+    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": per_step,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            group = make_data_group()
+            batch = device_batch(6)
+            models = {k: seeded_unet_s(torch.bfloat16).cuda() for k in ("plain", "dp")}
+            opt = RMSpropConfig(learning_rate=TRAIN_LR)
+            steps = {"plain": make_train_step(models["plain"], LossConfig(), opt),
+                     "dp": make_parallel_train_step(models["dp"], LossConfig(), opt, group)}
+            replicate(models["dp"], steps["dp"].optimizer, group)
+            reset_launches()
+            got = host_step(models["dp"], steps["dp"](batch, TRAIN_LR))
+            first = read_launches()
+            if first != want:
+                raise RuntimeError(f"[D1] one data-parallel step launched {first}, want {want}")
+            ref = host_step(models["plain"], steps["plain"](batch, TRAIN_LR))
+            diffs = step_diffs(got, ref)
+            check_step_diffs("D1", diffs, D1_TOL, got[3], ref[3])
+            collectives = collective_cost(steps["dp"], batch)
+            runs = {"plain": [], "dp": []}
+            timed = {k: 0 for k in want}
+            for k in ("plain", "dp", "dp", "plain"):
+                if k == "dp":
+                    reset_launches()
+                runs[k].append(timed_steps(steps[k], batch))
+                if k == "dp":
+                    timed = {n: timed[n] + v for n, v in read_launches().items()}
+            n_dp = 2 * (TRAIN_WARMUP + TRAIN_STEPS)
+            if timed != {n: v * n_dp for n, v in want.items()}:
+                raise RuntimeError(f"[D1] {n_dp} data-parallel steps launched {timed}, want "
+                                   f"{want} a step")
+            if profile_dir:
+                for k in ("plain", "dp"):
+                    profile_train(steps[k], batch, Path(profile_dir), f"train_{k}_world1",
+                                  by_cpu=True)
+        finally:
+            dist.destroy_process_group()
+    ms = {k: float(np.mean([r[0] for r in v])) for k, v in runs.items()}
+    peak = {k: max(r[1] for r in v) for k, v in runs.items()}
+    log(f"[D1 dp world 1] unet_s bf16 ({BATCH}, {HW}, {HW}), NCCL, one rank: {per_step} + "
+        f"{per_step} launches a step; vs the plain step from the same weights: loss rel "
+        f"{diffs['loss']:.3g}, grad norm rel {diffs['grad_norm']:.3g}, grads "
+        f"{diffs['grads']:.3g} of the largest ({diffs['g_max']:.3g}), params max "
+        f"{diffs['params']:.3g}, BN buffers max {diffs['buffers']:.3g} (one-pass vs two-pass "
+        f"BN variance); step {ms['dp']:.3f} ms (dp) vs {ms['plain']:.3f} ms (plain), ratio "
+        f"{ms['dp'] / ms['plain']:.4f} (runs {runs}), peak {peak['dp']:.1f} vs "
+        f"{peak['plain']:.1f} MiB; {collectives['per_step']} all-reduces a step "
+        f"({collectives['elements']} elements), a lone one {collectives['host_us']:.1f} us of "
+        f"host issue and {collectives['device_ms']:.4f} ms on the device: "
+        f"{collectives['per_step'] * collectives['host_us'] / 1e3:.2f} ms of host time a step")
+    launches = {n: first[n] + timed[n] for n in want}
+    return launches, dict(step_ms=ms["dp"], plain_step_ms=ms["plain"],
+                          ratio=ms["dp"] / ms["plain"], runs=runs, peak_mib=peak["dp"],
+                          plain_peak_mib=peak["plain"], diffs=diffs,
+                          collectives=collectives)
+
+
+def d2_rank(rank: int, rendezvous: str, backend: str, data: dict, out: str) -> None:
+    """One rank of D2 on cuda:0: for each criterion, the seeded f32 unet_s
+    takes one data-parallel step (TF32 off) on its RANK_BATCH rows of
+    ``data``; its results, launch counts and launched shapes go to ``out``.
+    With ``backend`` "nccl-probe" it only tries one NCCL all-reduce."""
+    torch.cuda.set_device(0)
+    record_launches()
+    if backend == "nccl-probe":
+        dist.init_process_group("nccl", init_method=rendezvous, world_size=DP_RANKS, rank=rank)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        torch.save({"sum": t.item()}, f"{out}.{rank}")
+        dist.destroy_process_group()
+        return
+    dist.init_process_group(backend, init_method=rendezvous, world_size=DP_RANKS, rank=rank)
+    group = make_data_group()
+    rows = slice(rank * RANK_BATCH, (rank + 1) * RANK_BATCH)
+    result = {}
+    for n_classes in (3, 1):
+        model = seeded_unet_s(n_classes=n_classes).cuda()
+        step = make_parallel_train_step(model, LossConfig(n_classes=n_classes),
+                                        RMSpropConfig(learning_rate=TRAIN_LR), group)
+        replicate(model, step.optimizer, group)
+        batch = {k: torch.from_numpy(v[rows]).cuda() for k, v in data.items()}
+        with exact_f32():
+            reset_launches()
+            metrics = step(batch, TRAIN_LR)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        result[n_classes] = (host_step(model, metrics), launches)
+    result["launched"] = sorted(LAUNCHED)
+    torch.save(result, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def spawn_ranks(backend: str, data: dict, tmp: str, timeout: float = DP_TIMEOUT_S) -> tuple:
+    """D2's two ranks as spawned processes on cuda:0 -> (exit codes, results
+    of the ranks that wrote them); a rank still running after ``timeout``
+    seconds is killed."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = os.path.join(tmp, backend)
+    procs = [ctx.Process(target=d2_rank, args=(r, f"file://{out}.rendezvous", backend, data,
+                                                out)) for r in range(DP_RANKS)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(timeout)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    results = [torch.load(f"{out}.{r}", weights_only=False) if os.path.exists(f"{out}.{r}")
+               else None for r in range(DP_RANKS)]
+    return [proc.exitcode for proc in procs], results
+
+
+def phase_dp_two_ranks():
+    """D2: two ranks on the one card, each a process with RANK_BATCH of the
+    (BATCH, HW, HW) rows on cuda:0, over gloo (NCCL first, to record whether
+    it takes two ranks on one device): one f32 step (TF32 off) of the
+    multiclass and of the binary criterion against the single process's
+    (BATCH, HW, HW) step on the card (D2_TOL); each rank's launches, 7 + 7
+    a step (f32: the CUDA-core kernel).  -> (launches by rank, numbers)."""
+    data = rect_batch(8, BATCH, HW, HW)
+    with tempfile.TemporaryDirectory() as tmp:
+        codes, probe = spawn_ranks("nccl-probe", {}, tmp, timeout=90)
+        nccl = ("two ranks on one device ran an all-reduce (sum "
+                f"{probe[0]['sum']})" if all(c == 0 for c in codes)
+                else f"refused (rank exit codes {codes})")
+        log(f"[D2 dp two ranks] NCCL with two ranks on cuda:0: {nccl}; D2 runs over gloo")
+        codes, ranks = spawn_ranks("gloo", data, tmp)
+    if any(c != 0 for c in codes) or any(r is None for r in ranks):
+        raise RuntimeError(f"[D2] a gloo rank failed: exit codes {codes}")
+    per_step = len(MAIN_CONVS)
+    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": 0,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": 0}
+    numbers, launches = {"nccl_two_ranks_one_device": nccl}, {}
+    for n_classes, label in ((3, "multiclass"), (1, "binary")):
+        (got, got_launches), (other, other_launches) = ranks[0][n_classes], ranks[1][n_classes]
+        if got_launches != want or other_launches != want:
+            raise RuntimeError(f"[D2 {label}] the ranks launched {got_launches} and "
+                               f"{other_launches}, want {want}")
+        same = all(torch.equal(got[2][n], other[2][n]) for n in got[2])
+        ref = one_train_step("cuda", data, n_classes)
+        diffs = step_diffs(got, ref)
+        if not same:
+            raise RuntimeError(f"[D2 {label}] the two ranks' parameters differ after the step")
+        check_step_diffs(f"D2 {label}", diffs, D2_TOL, got[3], ref[3])
+        for r in range(DP_RANKS):
+            launches[f"train_dp_rank{r}_{label}"] = ranks[r][n_classes][1]
+        numbers[label] = dict(diffs, loss_value=got[0]["loss"], grad_norm_value=got[0]["grad_norm"])
+        log(f"[D2 dp two ranks] {label} unet_s f32 step, 2 ranks x ({RANK_BATCH}, {HW}, {HW}) "
+            f"on cuda:0 over gloo vs one process at ({BATCH}, {HW}, {HW}): loss "
+            f"{got[0]['loss']:.6f} (rel {diffs['loss']:.3g}), global grad norm "
+            f"{got[0]['grad_norm']:.6f} (rel {diffs['grad_norm']:.3g}), grads max diff "
+            f"{diffs['grads']:.3g} of the largest ({diffs['g_max']:.3g}), params max "
+            f"{diffs['params']:.3g}, BN buffers max {diffs['buffers']:.3g}; ranks bit-equal; "
+            f"launches a rank {got_launches}")
+    for r in ranks:
+        LAUNCHED.update(r["launched"])
+    return launches, numbers
+
+
+def phase_dp_serve(model):
+    """D3: Predictor(devices=["cuda:0", "cuda:0"]) on unet_s bf16 against the
+    single-device Predictor: a ragged dense batch of 7 at HW² (padded to 8,
+    4 rows a replica), one 2048² scan tiled (auto tile 512: two groups of 8
+    windows, one a replica), and int8 at (BATCH, HW, HW), each calibrating
+    on its first 4 images; masks 100% equal; launches; host slices/s of
+    both at (BATCH, HW, HW), in turns.  -> (launches by path, numbers)."""
+    bf16 = dict(compute_dtype=torch.bfloat16, tile_halo=HALO)
+    one = Predictor(model, device="cuda", **bf16)
+    two = Predictor(model, devices=["cuda:0", "cuda:0"], **bf16)
+    q_one = Predictor(model, device="cuda", quantize=True, **bf16)
+    q_two = Predictor(model, devices=["cuda:0", "cuda:0"], quantize=True, **bf16)
+    ragged = smooth_images(31, BATCH - 1, HW)
+    scan = smooth_images(32, 1, 2048, cells=64)
+    images = smooth_images(33, BATCH, HW)
+    cases = [("dense", one, two, ragged), ("tiled", one, two, scan),
+             ("int8", q_one, q_two, images)]
+    for _, a, b, x in cases:  # warm-up: cuDNN picks its algorithms per shape
+        a.predict_array(x)
+        b.predict_array(x)
+    torch.cuda.synchronize()
+    per_forward = len(MAIN_CONVS)
+    tiled_forwards = group_forwards(two, *scan.shape)
+    want = {"dense": fwd_launches(DP_RANKS * per_forward),
+            "tiled": fwd_launches(tiled_forwards * per_forward),
+            "int8": {"conv3x3_int8": DP_RANKS * len(INT8_CONVS), "conv3x3_nhwc": 0}}
+    launches, numbers = {}, {}
+    for name, a, b, x in cases:
+        reset_launches()
+        got = b.predict_array(x)
+        launches[name] = int8_counts() if name == "int8" else read_launches()
+        if launches[name] != want[name]:
+            raise RuntimeError(f"[D3 {name}] data-parallel predict_array{x.shape} launched "
+                               f"{launches[name]}, want {want[name]}")
+        ref = a.predict_array(x)
+        check_masks(got, x.shape[:3])
+        agree = float((got == ref).mean())
+        numbers[f"{name}_agreement"] = agree
+        log(f"[D3 dp serve] {name} {tuple(x.shape)}: 2 replicas on cuda:0 vs one Predictor, "
+            f"masks agree on {agree:.6%} of pixels ({int((got != ref).sum())} differ); "
+            f"launches {launches[name]}")
+        if agree < 1.0:
+            raise RuntimeError(f"[D3 {name}] data-parallel masks differ from single-device "
+                               f"serving on {int((got != ref).sum())} pixels")
+    if q_one._amax != q_two._amax:
+        raise RuntimeError("[D3 int8] the two Predictors calibrated apart")
+    rates = {"one": [], "two": []}
+    for k, pred in (("one", one), ("two", two), ("two", two), ("one", one)):
+        rates[k].append(host_rate(pred, images, reps=10)[0])
+    numbers.update(slices_per_s=float(np.mean(rates["two"])),
+                   single_slices_per_s=float(np.mean(rates["one"])), rate_runs=rates)
+    log(f"[D3 dp serve] host slices/s at ({BATCH}, {HW}, {HW}): 2 replicas on cuda:0 "
+        f"{numbers['slices_per_s']:.1f}, one Predictor {numbers['single_slices_per_s']:.1f} "
+        f"(runs {rates})")
+    return launches, numbers
 
 
 def phase_launched_shapes() -> tuple:
@@ -2831,8 +3202,8 @@ def shape_rows(rows) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="write torch.profiler tables of the bf16 and int8 forwards and "
-                         "the train step to DIR")
+                    help="write torch.profiler tables of the bf16 and int8 forwards, the "
+                         "train step and the data-parallel step at world size 1 to DIR")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2867,13 +3238,19 @@ def main(argv=None) -> int:
     pp_train_launches, pp["unet_pp_s"]["train"] = phase_pp_train()
     yolo_launches, pp["yolov8_seg_s"] = phase_yolo()
     yolo8_launches, pp["yolov8_seg_s"]["int8"] = phase_yolo_int8(args.profile)
+    dp = {}
+    dp1_launches, dp["world1"] = phase_dp_world1(args.profile)
+    dp2_launches, dp["two_ranks"] = phase_dp_two_ranks()
+    dp3_launches, dp["serve"] = phase_dp_serve(model)
     n_shapes, n_shapes8, n_shapes8_here = phase_launched_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
     train_paths = {"train": train_launches, "train_binary": binary_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
-                   "train_remat": remat_launches}
+                   "train_remat": remat_launches,
+                   # D1, D2: the data-parallel step at world size 1, and each rank of two
+                   "train_dp_world1": dp1_launches, **dp2_launches}
     # C1-C5: UNet++ and YOLOv8-seg serving, tiled, train, export and int8
     family_paths = {**pp_launches, **pp_train_launches, **yolo_launches,
                     **{k: fwd_launches(v["conv3x3_nhwc"]) for k, v in yolo8_launches.items()}}
@@ -2883,6 +3260,9 @@ def main(argv=None) -> int:
                "tiled": tiled_launches["conv3x3_nhwc"],
                "pipeline": pipeline_launches.get("conv3x3_nhwc", 0),
                "export": export_launches["conv3x3_nhwc"],
+               # D3: data-parallel serving, two replicas
+               "dp_predict": dp3_launches["dense"]["conv3x3_nhwc"],
+               "dp_tiled": dp3_launches["tiled"]["conv3x3_nhwc"],
                **{k: v["conv3x3_nhwc"] for k, v in family_paths.items() if "train" not in k}}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
@@ -2895,6 +3275,7 @@ def main(argv=None) -> int:
                     "int8_tiled": int8_tiled_launches["conv3x3_int8"],
                     "int8_pipeline": int8_pipe_launches.get("conv3x3_int8", 0),
                     "int8_export": export8_launches["conv3x3_int8"],
+                    "dp_int8": dp3_launches["int8"]["conv3x3_int8"],
                     **{k: v["conv3x3_int8"] for k, v in pp8_launches.items()},
                     **{k: v["conv3x3_int8"] for k, v in yolo8_launches.items()}}
     # the SiLU instantiations (C5): per proto-scope forward (p_c1..3) and per
@@ -2930,7 +3311,8 @@ def main(argv=None) -> int:
         # per window-group forward of the tiled path, by window size
         "tiled": {f"{win}": {"batch": b, **{k: sum(r[k] for r in tiled_rows
                                                   if r["path"] == f"tiled{win}")
-                                            for k in ("ms", "bound_ms", "library_ms")}}
+                                            for k in ("ms", "bound_ms", "plain_ms",
+                                                      "library_ms")}}
                   for b, win in TILED_WINDOWS},
         "tiled_shapes": shape_rows(tiled_rows),
         # yolov8_seg_s's convs at (8, 512²) that unet_s has no shape for
@@ -3024,7 +3406,8 @@ def main(argv=None) -> int:
     for win, t in fwd["tiled"].items():
         log(f"[kernels] per tiled forward of {t['batch']} windows of {win}²: kernel "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
-            f"{t['bound_ms'] / t['ms']:.1%}), F.conv2d {t['library_ms']:.4f} ms")
+            f"{t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, F.conv2d "
+            f"{t['library_ms']:.4f} ms")
     log(f"[main] {json.dumps(main)}")
     log(f"[train] {json.dumps(train)}")
     log(f"[tiled] {json.dumps(tiled)}")
@@ -3032,6 +3415,7 @@ def main(argv=None) -> int:
     log(f"[int8-main] {json.dumps(int8_main)}")
     log(f"[export] {json.dumps(export)}")
     log(f"[families] {json.dumps(pp)}")
+    log(f"[dp] {json.dumps(dp)}")
     log(f"[time] {time.perf_counter() - t_start:.1f} s from the device check to the result")
     print(json.dumps({"kernels": kernels}))
     print(smi)

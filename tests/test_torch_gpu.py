@@ -21,6 +21,8 @@ from chip_smoke import (
     SILU_INV_S,
     build_model,
     int8_operands,
+    phase_dp_serve,
+    phase_dp_two_ranks,
     rect_batch,
     seeded_model as seeded_family,
     seeded_unet_s,
@@ -636,3 +638,23 @@ def test_yolo_exported_program_on_card(cuda):
         got = program.predict_array(images)
         assert K.conv3x3_nhwc.launches == before + 4
         assert (got == live.predict_array(images)).mean() >= 0.999
+
+
+def test_dp_step_two_ranks_on_one_card(cuda):
+    """chip_smoke's D2: two spawned ranks of 4 rows each on one card (gloo;
+    NCCL refuses two ranks on one device) take one f32 step of the
+    multiclass and of the binary criterion that matches one process's step
+    on the 8 rows (chip_smoke.D2_TOL), 7 + 7 launches a rank."""
+    launches, numbers = phase_dp_two_ranks()
+    assert set(numbers) == {"nccl_two_ranks_one_device", "multiclass", "binary"}
+    assert all(v["conv3x3_nhwc"] == v["conv3x3_nhwc_dx"] == 7 for v in launches.values())
+
+
+def test_dp_serving_on_card(cuda):
+    """chip_smoke's D3: two replicas on one card serve a ragged dense batch,
+    a tiled 2048² scan and int8 with the single-device Predictor's masks,
+    exactly."""
+    launches, numbers = phase_dp_serve(build_model(MODEL_SEED))
+    assert numbers["dense_agreement"] == numbers["tiled_agreement"] == \
+        numbers["int8_agreement"] == 1.0
+    assert launches["int8"]["conv3x3_int8"] == 36

@@ -173,14 +173,14 @@ def test_cli_predicts_a_directory(model, png_dir, tmp_path):
         np.testing.assert_array_equal(saved, np.asarray(mask_to_image(mask)))
 
 
-@pytest.mark.parametrize("extra", [["--viz"], ["--model", "m.stablehlo"],
+@pytest.mark.parametrize("extra", [["--num-devices", "0"], ["--model", "m.stablehlo"],
                                    ["--model", "m.stablehlo", "--arch", "yolov8_seg_s", "--int8"],
-                                   ["--num-devices", "2"],
-                                   ["--num-devices", "2", "--int8", "--arch", "yolov8_seg_s"]])
+                                   ["--num-devices", "-2"],
+                                   ["--num-devices", "0", "--int8", "--arch", "yolov8_seg_s"]])
 def test_cli_rejects_what_is_not_ported(extra, capsys):
-    """Visualisation, JAX's StableHLO programs and data-parallel serving,
-    whatever the architecture and precision (YOLOv8-seg's --int8 serves:
-    tests/test_torch_yolo_int8.py)."""
+    """JAX's StableHLO programs, whatever the architecture and precision
+    (YOLOv8-seg's --int8 serves: tests/test_torch_yolo_int8.py), and a
+    device count below 1 (data-parallel serving: tests/test_torch_utils.py)."""
     with pytest.raises(SystemExit) as exc:
         cli.get_args(["-m", "w.npz", "-i", "x.png", *extra])
     assert exc.value.code == 2
@@ -226,11 +226,10 @@ def test_cli_parses_the_jax_postprocess_flags(flags, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["-v", "--viz"])
-def test_cli_viz_short_form_is_not_ported(flag, capsys):
-    """JAX's -v (--viz) exits 2 with the not-ported message, not as an
-    unknown argument."""
-    with pytest.raises(SystemExit) as exc:
-        cli.get_args(["-m", "a.npz", "-i", "x", flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "--viz: visualisation is not ported" in err and "unrecognized" not in err
+def test_cli_viz_short_form_is_not_ported(flag, monkeypatch):
+    """JAX's -v is its --viz, and parses to the same value in both packages'
+    predict CLIs."""
+    from unet_medical_image_contour_segmentation_tpu.cli import predict as jax_cli
+
+    monkeypatch.setattr("sys.argv", ["predict", "-m", "a.npz", "-i", "x", flag])
+    assert cli.get_args(["-m", "a.npz", "-i", "x", flag]).viz is jax_cli.get_args().viz is True

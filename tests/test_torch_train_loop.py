@@ -164,10 +164,13 @@ def test_train_model_nan_aborts(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(num_devices=2), "data parallelism"),
+    (dict(num_devices=2, spatial_shards=2), "data parallelism"),
     (dict(spatial_shards=2), "spatial parallelism"),
 ])
 def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, kw, what):
+    """Spatial parallelism, alone or on a data-parallel mesh (JAX's 2-D
+    data x spatial mesh); data parallelism alone trains
+    (tests/test_torch_parallel.py)."""
     with pytest.raises(NotImplementedError, match=what):
         train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
 
@@ -291,8 +294,10 @@ def test_cli_loads_reference_pth_weights(data_root, tmp_path, monkeypatch):
                                   "--coordinator-address=localhost:1234", "--num-processes=2",
                                   "--process-id=1"])
 def test_cli_refuses_flags_not_ported(flag, capsys):
+    """--spatial-shards 2 is refused, alone or beside each data-parallel and
+    multi-host flag (which parse: tests/test_torch_utils.py)."""
     with pytest.raises(SystemExit) as exc:
-        train_cli.get_args(["--data-root", "d", flag])
+        train_cli.get_args(["--data-root", "d", flag, "--spatial-shards=2"])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
 

@@ -8,4 +8,6 @@ wrappers) and ``csrc/`` (CUDA sources, built with nvcc on first use).
 
 from .device import exact_f32, resolve_device
 
-__all__ = ["exact_f32", "resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["exact_f32", "resolve_device", "__version__"]

@@ -15,9 +15,12 @@ serving of images above ``--tile-threshold`` pixels, and int8 serving
 exists, else calibrate on the first batch and save it there).  A ``.pt2``
 program of the export CLI serves through ``ExportedPredictor`` (its
 precision, int8 included, was fixed at export time, so ``--int8`` is ignored
-with a warning; tile 512 unless ``--tile`` says otherwise).  JAX's
-``.stablehlo`` programs, data parallelism and visualisation are rejected
-with an error.
+with a warning; tile 512 unless ``--tile`` says otherwise).
+``--num-devices N`` serves data-parallel on N cards (one replica each; a
+``.pt2`` program stays on one device and ignores it with a warning, as the
+JAX CLI does for its programs), and ``--viz`` / ``-v`` shows each image
+beside its mask with matplotlib (``utils/viz.py``), which must be installed.
+JAX's ``.stablehlo`` programs are rejected with an error.
 """
 
 from __future__ import annotations
@@ -28,10 +31,6 @@ import os
 import sys
 
 ARCHS = ["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s", "yolov8_seg_s"]
-# flags of the JAX CLI that the port does not serve yet (with their aliases)
-_NOT_PORTED = {
-    ("--viz", "-v"): "visualisation", ("--num-devices",): "data-parallel serving",
-}
 
 
 def get_args(argv=None):
@@ -42,6 +41,8 @@ def get_args(argv=None):
                              ".npz; or a .pt2 program of the export CLI")
     parser.add_argument("--input", "-i", required=True, help="Input image file or directory")
     parser.add_argument("--output", "-o", help="Output directory (default: next to the input)")
+    parser.add_argument("--viz", "-v", action="store_true", default=False,
+                        help="Show each image and its mask (matplotlib)")
     parser.add_argument("--no-save", "-n", action="store_true", default=False)
     parser.add_argument("--postprocess", "-p", action="store_true", default=True,
                         help="Clean up the masks with cv2 (the default; the JAX CLI's flag)")
@@ -72,14 +73,12 @@ def get_args(argv=None):
                              "it there")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
-    for flags, what in _NOT_PORTED.items():
-        parser.add_argument(*flags, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
-                            dest=f"not_ported_{flags[0][2:].replace('-', '_')}")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="Serve data-parallel over this many devices (batch sharded, "
+                             "weights replicated)")
     args = parser.parse_args(argv)
-    for flags, what in _NOT_PORTED.items():
-        if getattr(args, f"not_ported_{flags[0][2:].replace('-', '_')}") is not None:
-            parser.error(f"{flags[0]}: {what} is not ported to the PyTorch package yet; "
-                         "use the JAX package's umics-predict")
+    if args.num_devices is not None and args.num_devices < 1:
+        parser.error(f"--num-devices must be at least 1, not {args.num_devices}")
     if args.model.endswith(".stablehlo"):
         parser.error("--model: .stablehlo programs are the JAX package's (its umics-predict "
                      "serves them); export a .pt2 program with this package's export CLI")
@@ -114,6 +113,10 @@ def main(argv=None) -> int:
                             "fixed at export time); export with --int8 for an int8 program, "
                             "which serves here with no flags")
             args.int8 = False
+        if args.num_devices and args.num_devices > 1:
+            logging.warning("--num-devices is ignored for .pt2 programs: a program serves on "
+                            "the one device it was exported on; serve the weights for "
+                            "data-parallel serving")
         predictor = ExportedPredictor.from_file(
             args.model, device=args.device, batch_size=args.batch_size,
             tile=512 if args.tile is None else args.tile, tile_halo=args.tile_halo,
@@ -126,7 +129,8 @@ def main(argv=None) -> int:
         model.load_state_dict(state_dict)
         predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
                               tile=args.tile, tile_halo=args.tile_halo,
-                              tile_threshold=args.tile_threshold, quantize=args.int8)
+                              tile_threshold=args.tile_threshold, quantize=args.int8,
+                              num_devices=args.num_devices)
     logging.info("Model loaded on %s", predictor.device)
     scales = args.int8_scales if args.int8 else None
     if scales and os.path.exists(scales):
@@ -139,6 +143,13 @@ def main(argv=None) -> int:
     if scales and not os.path.exists(scales) and predictor._amax is not None:
         predictor.save_calibration(scales)
         logging.info("Saved int8 calibration to %s", scales)
+    if args.viz:
+        from PIL import Image
+
+        from ..utils.viz import plot_img_and_mask
+
+        for path, mask in results.items():
+            plot_img_and_mask(Image.open(path).convert("L"), mask)
     return 0
 
 

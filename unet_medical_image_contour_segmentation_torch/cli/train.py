@@ -4,8 +4,7 @@
     python -m unet_medical_image_contour_segmentation_torch.cli.train \\
         --data-root data/ --epochs 5 --batch-size 8 --model unet_s
 
-The flags of the JAX package's ``cli/train.py`` for single-device training,
-with its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
+The flags of the JAX package's ``cli/train.py``, with its defaults (epochs 5, batch 1, lr 1e-5, scale 0.5, 3 classes, bf16
 compute, a 2 GB decoded-sample RAM cache): the imgs/{train,val} +
 masks/{train,val} layout under ``--data-root``; ``--model`` over the UNet
 family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``), UNet++
@@ -19,8 +18,16 @@ optimizer state, step), of ``latest`` in ``./checkpoints``, or of a
 reference ``.pth`` (weights and BN statistics of the UNet the flags name;
 UNet++ and YOLOv8-seg have no ``.pth``, as in the JAX package).
 As the JAX CLI does, a run that runs out of device memory is run again
-from the start with ``remat`` on.  The parallel and multi-host flags are
-rejected with an error until they are ported.
+from the start with ``remat`` on.
+
+Data parallelism: ``--num-devices N`` trains on N cards of this host
+(``train_model`` spawns one process per card; ``-b`` is the global batch).
+Across hosts, start one process per card on every host with
+``--distributed --coordinator-address HOST:PORT --num-processes P
+--process-id I`` (P processes in all, I their global rank; rank 0 listens
+at HOST:PORT), or ``--distributed`` alone under a launcher that sets
+``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (torchrun).
+``--spatial-shards`` above 1 is rejected: spatial parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -29,12 +36,6 @@ import argparse
 import logging
 import sys
 
-# flags of the JAX CLI that the port does not serve yet
-_NOT_PORTED = {
-    "--num-devices": "data parallelism", "--spatial-shards": "spatial parallelism",
-    "--distributed": "multi-host training", "--coordinator-address": "multi-host training",
-    "--num-processes": "multi-host training", "--process-id": "multi-host training",
-}
 
 
 def get_args(argv=None):
@@ -85,40 +86,78 @@ def get_args(argv=None):
                              "(a host term on the logged value, no gradient)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS,
-                            dest=f"not_ported_{flag[2:].replace('-', '_')}")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="Data-parallel device count (default: single device)")
+    parser.add_argument("--spatial-shards", type=int, default=1,
+                        help="Only 1: spatial parallelism is not ported")
+    parser.add_argument("--distributed", action="store_true", default=False,
+                        help="Join a torch.distributed group (multi-host training)")
+    parser.add_argument("--coordinator-address", default=None,
+                        help="host:port of rank 0")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, f"not_ported_{flag[2:].replace('-', '_')}") is not None:
-            parser.error(f"{flag}: {what} is not ported to the PyTorch package yet; "
-                         "use the JAX package's umics-train")
+    if args.spatial_shards > 1:
+        parser.error("--spatial-shards: spatial parallelism is not ported to the PyTorch "
+                     "package yet; use the JAX package's umics-train")
+    if args.num_devices is not None and args.num_devices < 1:
+        parser.error(f"--num-devices must be at least 1, not {args.num_devices}")
     return args
 
 
 def _out_of_memory(e: BaseException) -> bool:
-    """The JAX CLI's test, plus torch's own out-of-memory error."""
+    """The JAX CLI's test, plus torch's own out-of-memory error, also as a
+    spawned rank's traceback."""
     import torch
 
     return isinstance(e, torch.cuda.OutOfMemoryError) or (
         isinstance(e, RuntimeError)
-        and ("RESOURCE_EXHAUSTED" in str(e) or "Out of memory" in str(e)))
+        and any(k in str(e) for k in ("RESOURCE_EXHAUSTED", "Out of memory",
+                                      "OutOfMemoryError")))
+
+
+def _train_with_retry(cfg, state, device) -> None:
+    """train_model, run once more with remat on after an out-of-memory error."""
+    import torch
+
+    from ..engine.train import train_model
+
+    # the retry runs outside the handler, so that the failed run's traceback
+    # (and the tensors its frames hold) is gone before it starts
+    out_of_memory = False
+    try:
+        train_model(cfg, state=state, device=device)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+        if not _out_of_memory(e):
+            raise
+        out_of_memory = True
+    if out_of_memory:
+        logging.error("Detected OutOfMemoryError! Enabling rematerialization to reduce "
+                      "memory usage, but this slows down training.")
+        torch.cuda.empty_cache()
+        cfg.remat = True
+        train_model(cfg, state=state, device=device)
 
 
 def main(argv=None) -> int:
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
 
+    if args.distributed or args.coordinator_address:
+        from ..parallel import distributed
+
+        distributed.initialize(args.coordinator_address, args.num_processes,
+                               args.process_id, device=args.device)
+
     from ..config import TrainConfig
     from ..engine.checkpoint import latest_checkpoint, load_checkpoint, load_weights
-    from ..engine.train import train_model
     from ..models.torch_compat import params_from_state_dict
 
     cfg = TrainConfig(model=args.model, classes=args.classes, bilinear=args.bilinear,
                       remat=args.remat, data_root=args.data_root,
                       scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
                       learning_rate=args.lr, amp=args.amp, scheduler_quirk=args.scheduler_quirk,
-                      cc_loss=args.cc_loss, load=args.load,
+                      cc_loss=args.cc_loss, load=args.load, num_devices=args.num_devices,
                       save_val_predictions=args.save_val_predictions,
                       val_postprocess=args.val_postprocess,
                       nan_check_every=args.nan_check_every,
@@ -141,23 +180,13 @@ def main(argv=None) -> int:
             state = {"params": params, "bn_state": bn_state, "opt_state": None, "step": 0}
         logging.info("Model loaded from %s", cfg.load)
 
-    # the retry runs outside the handler, so that the failed run's traceback
-    # (and the tensors its frames hold) is gone before it starts
-    out_of_memory = False
-    try:
-        train_model(cfg, state=state, device=args.device)
-    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
-        if not _out_of_memory(e):
-            raise
-        out_of_memory = True
-    if out_of_memory:
-        import torch
+    import torch.distributed as dist
 
-        logging.error("Detected OutOfMemoryError! Enabling rematerialization to reduce "
-                      "memory usage, but this slows down training.")
-        torch.cuda.empty_cache()
-        cfg.remat = True
-        train_model(cfg, state=state, device=args.device)
+    try:
+        _train_with_retry(cfg, state, args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

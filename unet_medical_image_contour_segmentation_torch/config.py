@@ -57,8 +57,9 @@ class TrainConfig:
     predictions_dir: str = "./predictions"
     save_val_predictions: bool = True
     # parallelism
-    num_devices: Optional[int] = None
-    spatial_shards: int = 1
+    num_devices: Optional[int] = None      # None: one device, as JAX's engine reads it;
+                                           # N > 1: N data-parallel ranks (engine/train.py)
+    spatial_shards: int = 1                # > 1 is refused: spatial parallelism is not ported
     # misc
     seed: int = 0
     log_every: int = 10

@@ -132,6 +132,17 @@ class BasicDataset:
     def rotate_image_and_mask(img, mask, angle: int):
         return img.rotate(angle, expand=True), mask.rotate(angle, expand=True)
 
+    def __getstate__(self) -> dict:
+        """Pickled for a spawned data-parallel rank: without the lock, and
+        with an empty RAM cache of the same budget."""
+        state = dict(self.__dict__, _cache_lock=None, _cache_used=0)
+        if state["_cache"] is not None:
+            state["_cache"] = {}
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state, _cache_lock=threading.Lock())
+
     def _disk_cache_load(self, path: Path, img_file: Path, mask_file: Path):
         """The cached sample, or None for a missing, stale or unreadable entry."""
         try:

@@ -27,15 +27,22 @@ __all__ = ["DataLoader", "prefetch_to_device"]
 
 class DataLoader:
     """Epoch iterator over an indexable dataset of dict samples: a seeded
-    shuffle per epoch, optional ``drop_last``, ``num_workers`` threads."""
+    shuffle per epoch, optional ``drop_last``, ``num_workers`` threads.
+
+    ``process_slice``: when data-parallel, this rank's rows of every
+    globally ordered batch (``parallel/distributed.py:local_batch_slice``);
+    the rank decodes only those.  The shuffle is seeded, so every rank
+    agrees on the global batches without talking."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, num_workers: int = 8, seed: int = 0):
+                 drop_last: bool = False, num_workers: int = 8, seed: int = 0,
+                 process_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
+        self.process_slice = process_slice
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -51,6 +58,8 @@ class DataLoader:
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             for b in range(len(self)):
                 idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                if self.process_slice is not None:
+                    idxs = idxs[self.process_slice]
                 samples = list(ex.map(self.dataset.__getitem__, idxs))
                 yield {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,13 +62,26 @@ def _save_png(arr: np.ndarray, path: str, value_map=None) -> None:
 def evaluate(model: nn.Module, dataloader, *,
              device: Optional[Union[str, torch.device]] = None,
              epoch_pred_dir: Optional[str] = None, postprocess: bool = True,
-             progress: bool = False) -> Tuple[float, float, float]:
+             progress: bool = False,
+             eval_step: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+             batch_pad: int = 1) -> Tuple[float, float, float]:
     """Returns (dice_original, dice_postprocessed, min_dice) averaged over
     batches of numpy ``{"image", "mask"}`` dicts.  ``device`` defaults to
     ``cuda``; the model must already be there.  Restores the model's
-    train/eval mode on return."""
+    train/eval mode on return.
+
+    ``eval_step`` maps a batch on the device to its (B, H, W) int32 classes
+    (:func:`eval_forward` by default; the data-parallel step of
+    ``parallel/data_parallel.py:make_parallel_eval_step`` shards it over the
+    ranks).  A batch whose size is not a multiple of ``batch_pad`` is padded
+    by repeating its last sample and its classes cropped back before any
+    host work, so the Dice triple is the single device's (JAX's
+    ``batch_pad``)."""
     device = resolve_device(device)
     n_classes = model.n_classes
+    if eval_step is None:
+        def eval_step(image):
+            return eval_forward(model, image)
 
     postprocessed_dir = None
     if epoch_pred_dir is not None and postprocess:
@@ -122,8 +135,12 @@ def evaluate(model: nn.Module, dataloader, *,
             pending = []
             with torch.inference_mode():
                 for batch_index, batch in enumerate(batches, 1):
-                    image = torch.as_tensor(np.asarray(batch["image"])).to(device)
-                    pred = eval_forward(model, image)
+                    image = np.asarray(batch["image"])
+                    n_real = image.shape[0]
+                    pad = -n_real % max(1, batch_pad)
+                    if pad:
+                        image = np.concatenate([image, np.repeat(image[-1:], pad, axis=0)])
+                    pred = eval_step(torch.as_tensor(image).to(device))[:n_real]
                     pending.append(pool.submit(host_work, batch_index, pred,
                                                np.asarray(batch["mask"])))
             results = [f.result() for f in pending]

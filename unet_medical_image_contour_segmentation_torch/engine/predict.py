@@ -39,16 +39,31 @@ architecture.
 :class:`ExportedPredictor` serves a ``torch.export`` program
 (``engine/export.py``, the ``.pt2`` counterpart of the JAX package's
 StableHLO): the same dense and tiled paths around the program's forward.
-Data-parallel serving is not ported yet.
+
+Data-parallel serving (``Predictor(num_devices=N)`` or ``devices=[...]``,
+the JAX package's ``num_devices``): one replica of the served weights (and
+of the int8 qparams) per device, the first device the home of the results.
+A dense batch pads to a multiple of the replicas by repeating its last
+image, each replica serves its rows (uploaded to its device), and the class
+maps come back to the home device cropped to the batch, as JAX's
+``_shard_batch`` does.  The tiled path shards the tiles: its groups of
+``tile_batch`` windows go to the replicas in turn.  JAX instead rounds the
+group up to a multiple of the devices and splits each group over them; on
+an H100, cuDNN's bf16 convs round a forward of 4 windows of 704² apart from
+one of 8 (10169 pixels of a 2048² scan differ, PERF.md), so whole groups
+keep each forward the single device's and the classes exactly its.
+``ExportedPredictor`` stays on one device, as JAX's ``StableHLOPredictor``
+does.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,7 +77,8 @@ from ..models.quantize import apply_int8, build_for, calibrate_amax, folded_tree
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
 
-__all__ = ["Predictor", "ExportedPredictor", "mask_to_image", "collect_image_files"]
+__all__ = ["Predictor", "ExportedPredictor", "mask_to_image", "collect_image_files",
+           "replica_devices"]
 
 log = logging.getLogger(__name__)
 
@@ -94,12 +110,51 @@ def _norm_uint8(x: torch.Tensor) -> torch.Tensor:
     return xf / torch.where(mx > 1, 255.0, 1.0)
 
 
+def replica_devices(device: Optional[Union[str, torch.device]] = None,
+                    num_devices: Optional[int] = None,
+                    devices: Optional[Sequence[Union[str, torch.device]]] = None
+                    ) -> List[torch.device]:
+    """The devices of the serving replicas: ``devices`` as given (a device
+    may repeat), else ``num_devices`` (None: 1) of them: ``cuda:0..N-1`` for
+    a CUDA ``device`` (raising where the host has fewer cards), N times the
+    CPU for the CPU."""
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out or (num_devices is not None and num_devices != len(out)):
+            raise ValueError(f"num_devices {num_devices} does not match devices {devices}")
+        return out
+    n = 1 if num_devices is None else num_devices
+    if n < 1:
+        raise ValueError(f"num_devices must be at least 1, not {n}")
+    base = resolve_device(device)
+    if n == 1:
+        return [base]
+    if base.type == "cuda":
+        if n > torch.cuda.device_count():
+            raise ValueError(f"num_devices {n} exceeds the {torch.cuda.device_count()} CUDA "
+                             f"devices of this host")
+        return [torch.device("cuda", i) for i in range(n)]
+    return [base] * n
+
+
+def _tree_to(tree, device: torch.device):
+    """Every tensor of a nested dict / list / tuple moved to ``device``."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree
+
+
 class _Serving:
     """The dense and tiled serving paths (see the module docstring) around a
     forward that a subclass gives: :meth:`_logits` maps (N, H, W, C) float
-    on the device to f32 logits, :meth:`_dense_logits` is the dense path's
-    forward (the same by default), :meth:`_classes` the class map, and
-    :meth:`_prepare` sees every batch before it is served."""
+    on replica ``r``'s device to f32 logits, :meth:`_dense_logits` is the
+    dense path's forward (the same by default), :meth:`_classes` the class
+    map, and :meth:`_prepare` sees every batch before it is served.
+    ``devices`` lists the replicas' devices, the first the home device."""
 
     # dense-path pixel budget: above it, predict tiles the image; 0 = never
     TILE_THRESHOLD = 1536 * 1536
@@ -120,16 +175,32 @@ class _Serving:
     def __init__(self, device: Optional[Union[str, torch.device]], batch_size: int,
                  tile: Optional[int], tile_halo: int, tile_threshold: Optional[int]):
         self.device = resolve_device(device)
+        self.devices = [self.device]
         self.batch_size = batch_size
         self.tile = tile
         self.tile_halo = tile_halo
         self.tile_threshold = self.TILE_THRESHOLD if tile_threshold is None else tile_threshold
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, r: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
-    def _dense_logits(self, x: torch.Tensor, gate_batch: int) -> torch.Tensor:
-        return self._logits(x)
+    def _dense_logits(self, x: torch.Tensor, gate_batch: int, r: int = 0) -> torch.Tensor:
+        return self._logits(x, r)
+
+    def _on_replicas(self, images: np.ndarray,
+                     fn: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """``fn(r, rows)`` over the replicas: the host ``images`` padded to a
+        multiple of their number by repeating the last image, each replica's
+        rows uploaded to its device, the results gathered on the home device
+        and cropped to the batch (JAX's ``_shard_batch``)."""
+        k, n = len(self.devices), images.shape[0]
+        if k > 1:
+            images = np.concatenate([images, np.repeat(images[-1:], -n % k, axis=0)])
+        outs = [fn(r, torch.from_numpy(np.ascontiguousarray(part)).to(dev))
+                for r, (dev, part) in enumerate(zip(self.devices, np.array_split(images, k)))]
+        if k == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])[:n]
 
     def _classes(self, logits: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) logits -> (B, H, W) int32 classes: the argmax, or for
@@ -145,14 +216,18 @@ class _Serving:
     @torch.inference_mode()
     def _forward(self, images: np.ndarray, out_hw: Tuple[int, int],
                  gate_batch: int) -> torch.Tensor:
-        """One batch -> (B, outH, outW) int32 class map, left on the device,
-        through :meth:`_dense_logits` with ``gate_batch``."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-        logits = self._dense_logits(x, gate_batch)
-        if tuple(logits.shape[1:3]) != tuple(out_hw):
-            logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
-        return self._classes(logits)
+        """One batch -> (B, outH, outW) int32 class map, left on the home
+        device, through :meth:`_dense_logits` with ``gate_batch`` on each
+        replica's rows."""
+
+        def serve(r: int, x: torch.Tensor) -> torch.Tensor:
+            x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
+            logits = self._dense_logits(x, gate_batch, r)
+            if tuple(logits.shape[1:3]) != tuple(out_hw):
+                logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
+            return self._classes(logits)
+
+        return self._on_replicas(images, serve)
 
     def _use_tiling(self, in_hw, out_hw) -> bool:
         """Tile when the image exceeds the pixel budget and no back-resize is
@@ -167,12 +242,13 @@ class _Serving:
                 return t
         return min(self.AUTO_TILES)
 
-    def _tile_core(self, windows: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
+    def _tile_core(self, windows: torch.Tensor, tile: int, halo: int, r: int = 0
+                   ) -> torch.Tensor:
         """(N, win, win, C) float windows -> (N, tile, tile) int32 classes of
         their central cores, through :meth:`_logits` at any batch (no int8
-        gate)."""
-        logits = self._logits(windows)
-        return self._classes(logits[:, halo:halo + tile, halo:halo + tile])
+        gate) on replica ``r``, returned on the home device."""
+        logits = self._logits(windows.to(self.devices[r]), r)
+        return self._classes(logits[:, halo:halo + tile, halo:halo + tile]).to(self.device)
 
     @torch.inference_mode()
     def _tile_grid(self, x: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
@@ -185,7 +261,9 @@ class _Serving:
         shape (a duplicate rewrites its core with the same classes).  Each
         group's windows stack into the batch dimension, (tpb * n, win, win,
         C), and their cores are written into the map; nothing returns to
-        the host per tile.  uint8 stays uint8 in the padded buffer and each
+        the host per tile.  With several replicas the groups go to them in
+        turn, so that each forward is the single device's, shape for shape
+        (see the module docstring).  uint8 stays uint8 in the padded buffer and each
         window is divided by its image's divisor (zero padding cannot raise
         a uint8 maximum, so the padded and raw maxima agree)."""
         n, h, w, c = x.shape
@@ -206,7 +284,8 @@ class _Serving:
             wins = torch.stack([padded[:, i:i + win, j:j + win] for i, j in group]).float()
             if div is not None:
                 wins = wins / div
-            pred = self._tile_core(wins.reshape(tpb * n, win, win, c), tile, halo)
+            pred = self._tile_core(wins.reshape(tpb * n, win, win, c), tile, halo,
+                                   (g // tpb) % len(self.devices))
             pred = pred.reshape(tpb, n, tile, tile).to(torch.uint8)
             for t, (i, j) in enumerate(group):
                 out[:, i:i + tile, j:j + tile] = pred[t]
@@ -231,11 +310,11 @@ class _Serving:
         win = tile + 2 * halo
         padded = np.pad(images, ((0, 0), (halo, halo + ph), (halo, halo + pw), (0, 0)))
         pending = []  # every forward is issued before the first core is fetched
-        for i in range(0, h + ph, tile):
-            for j in range(0, w + pw, tile):
-                window = np.ascontiguousarray(padded[:, i:i + win, j:j + win])
-                x = torch.from_numpy(window).to(self.device).float()
-                pending.append((i, j, self._tile_core(x, tile, halo)))
+        offs = [(i, j) for i in range(0, h + ph, tile) for j in range(0, w + pw, tile)]
+        for t, (i, j) in enumerate(offs):
+            window = np.ascontiguousarray(padded[:, i:i + win, j:j + win])
+            x = torch.from_numpy(window).to(self.device).float()
+            pending.append((i, j, self._tile_core(x, tile, halo, t % len(self.devices))))
         out = np.empty((n, h + ph, w + pw), np.int32)
         for i, j, core in pending:
             out[:, i:i + tile, j:j + tile] = core.cpu().numpy()
@@ -364,6 +443,9 @@ class Predictor(_Serving):
     ``quantize=True`` serves in int8 (see the module docstring); the
     calibration is a small JSON of per-tap amax floats, in the JAX package's
     format (:meth:`save_calibration`, :meth:`load_calibration`).
+    ``num_devices`` / ``devices`` serve data-parallel (see the module
+    docstring and :func:`replica_devices`); ``device`` is then the kind of
+    device (``cuda`` by default).
     """
 
     # the smallest dense batch served in int8, per architecture (the JAX
@@ -375,14 +457,25 @@ class Predictor(_Serving):
     def __init__(self, model: nn.Module, *, device: Optional[Union[str, torch.device]] = None,
                  compute_dtype: Optional[torch.dtype] = None, batch_size: int = 8,
                  tile: Optional[int] = None, tile_halo: int = 96,
-                 tile_threshold: Optional[int] = None, quantize: bool = False):
-        super().__init__(device, batch_size, tile, tile_halo, tile_threshold)
+                 tile_threshold: Optional[int] = None, quantize: bool = False,
+                 num_devices: Optional[int] = None,
+                 devices: Optional[Sequence[Union[str, torch.device]]] = None):
+        devices = replica_devices(device, num_devices, devices)
+        super().__init__(devices[0], batch_size, tile, tile_halo, tile_threshold)
+        self.devices = devices
         # the spatial divisor of the int8 program and of the calibration crop
         self.hw_divisor = model.hw_divisor
         cd = model.compute_dtype if compute_dtype is None else compute_dtype
         net = serving_copy(model, cd)
         net.compute_dtype = cd
         self.model = net.to(self.device)
+        # one copy of the served weights per distinct device
+        copies = {self.device: self.model}
+        for d in devices[1:]:
+            if d not in copies:
+                copies[d] = copy.deepcopy(self.model).to(d)
+        self._replicas = [copies[d] for d in devices]
+        self._qreplicas: List[dict] = []
         self.compute_dtype = cd
         self.arch = getattr(model, "name", "")
         self.quantize = quantize
@@ -416,6 +509,11 @@ class Predictor(_Serving):
         if self._qfolded is None:
             raise ValueError("int8 serving needs a Predictor built with quantize=True")
         self._qparams = build_for(self._qfolded)(self._qfolded, amax, device=self.device)
+        copies = {self.device: self._qparams}
+        for d in self.devices[1:]:
+            if d not in copies:
+                copies[d] = _tree_to(self._qparams, d)
+        self._qreplicas = [copies[d] for d in self.devices]
         self._amax = dict(amax)
 
     def save_calibration(self, path: str) -> None:
@@ -451,19 +549,20 @@ class Predictor(_Serving):
         return (self._qparams is not None and h % self.hw_divisor == 0
                 and w % self.hw_divisor == 0)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) float on the device -> f32 logits, int8 where
-        :meth:`_int8_ok`, else the float fold."""
+    def _logits(self, x: torch.Tensor, r: int = 0) -> torch.Tensor:
+        """(N, H, W, C) float on replica ``r``'s device -> f32 logits, int8
+        where :meth:`_int8_ok`, else the float fold."""
         if self._int8_ok(x.shape[1], x.shape[2]):
-            return apply_int8(self._qparams, x, self.compute_dtype)
-        return self.model(x)
+            return apply_int8(self._qreplicas[r], x, self.compute_dtype)
+        return self._replicas[r](x)
 
-    def _dense_logits(self, x: torch.Tensor, gate_batch: int) -> torch.Tensor:
-        """The dense forward: :meth:`_logits` when ``gate_batch`` reaches
-        ``INT8_MIN_BATCH``, else the float fold."""
+    def _dense_logits(self, x: torch.Tensor, gate_batch: int, r: int = 0) -> torch.Tensor:
+        """The dense forward: :meth:`_logits` when ``gate_batch`` (the whole
+        batch, not a replica's share) reaches ``INT8_MIN_BATCH``, else the
+        float fold."""
         if gate_batch >= self._int8_min_batch():
-            return self._logits(x)
-        return self.model(x)
+            return self._logits(x, r)
+        return self._replicas[r](x)
 
 
 class ExportedPredictor(_Serving):
@@ -500,7 +599,7 @@ class ExportedPredictor(_Serving):
         with open(path, "rb") as f:
             return cls(f.read(), **kw)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, r: int = 0) -> torch.Tensor:
         return self.model(x if x.dim() == 4 else x.unsqueeze(-1)).float()
 
     def _predict_device(self, images: np.ndarray, out_hw: Optional[Tuple[int, int]] = None,

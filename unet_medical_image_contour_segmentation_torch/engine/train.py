@@ -25,21 +25,35 @@ new state, the port updates the model and the optimizer in place.
 The whole UNet family trains (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``,
 bilinear or ConvTranspose ups, ``remat``), and UNet++ (``unet_pp``,
 ``unet_pp_s``, ``remat`` per node) and YOLOv8-seg (``yolov8_seg_s``), with
-the binary or multiclass criterion.  Single device only: data and spatial parallelism raise
-``NotImplementedError`` until they are ported.  tqdm, PIL and cv2 are
-imported only on the paths that use them (progress bars, prediction dumps,
-post-processed Dice, the connected-component penalty).
+the binary or multiclass criterion.  tqdm, PIL and cv2 are imported only on
+the paths that use them (progress bars, prediction dumps, post-processed
+Dice, the connected-component penalty).
+
+Data parallelism (``num_devices`` > 1; ``parallel/data_parallel.py``): each
+rank is a process with one device and its rows of every global batch of
+``batch_size``.  ``train_model`` spawns the ranks itself (one per card,
+``cuda:0..N-1``, or N CPU processes for ``device="cpu"``; a ``file://``
+rendezvous in a fresh temporary directory, NCCL or gloo) and returns rank
+0's final state; when the caller has already joined a process group
+(``parallel.distributed.initialize``: the train CLI's ``--distributed``, or
+torchrun), this process is one rank and trains as such.  Only rank 0
+logs metrics, writes prediction PNGs and saves checkpoints; validation
+shards each batch over the ranks.  Spatial parallelism is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import TrainConfig
@@ -70,24 +84,38 @@ class TrainStep:
     f32 tensors on that device, and ``cc_probs`` a (B, H, W) map when the
     loss config emits it; nothing in the step waits for the card.  ``step``
     counts the steps taken.
+
+    ``group`` (a ``torch.distributed`` process group; None is one device):
+    ``batch`` is this rank's rows of a global batch, BN and the loss reduce
+    over the group, and the gradients are averaged over it before the clip
+    (``parallel/data_parallel.py``), so every rank takes the single-device
+    step on the global batch.
     """
 
     def __init__(self, model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConfig,
-                 clipping: float = 1.0):
+                 clipping: float = 1.0, group=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.clipping = clipping
+        self.group = group
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.params, opt_cfg)
         self.step = 0
 
     def __call__(self, batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         self.model.train()
-        logits = self.model(batch["image"])
-        loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg)
+        logits = self.model(batch["image"], group=self.group)
+        loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg, self.group)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grad_norm = clip_by_global_norm([p.grad for p in self.params], self.clipping)
+        grads = [p.grad for p in self.params]
+        if self.group is not None:
+            # JAX's pmean of the gradients: one all-reduce of them all, flattened
+            flat = torch._utils._flatten_dense_tensors(grads)
+            dist.all_reduce(flat, group=self.group)
+            flat /= dist.get_world_size(self.group)
+            torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
+        grad_norm = clip_by_global_norm(grads, self.clipping)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -106,13 +134,10 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConf
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    unported = {
-        "num_devices > 1 (data parallelism)": (cfg.num_devices or 1) > 1,
-        "spatial_shards > 1 (spatial parallelism)": cfg.spatial_shards > 1,
-    }
-    asked = [what for what, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError("not ported to the PyTorch package yet: " + ", ".join(asked))
+    if cfg.spatial_shards > 1:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet: spatial_shards > 1 (spatial parallelism, "
+            "alone or beside data parallelism); num_devices alone trains data-parallel")
 
 
 def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=None,
@@ -129,11 +154,16 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     ``opt_state`` (or None) and ``step`` in the JAX layout, as
     ``load_checkpoint`` returns for a checkpoint of either package.
     ``device`` defaults to ``cuda``.
+
+    ``cfg.num_devices`` (None: one device) > 1 trains data-parallel over
+    that many ranks with ``cfg.batch_size`` the global batch (see the module
+    docstring); it raises where the host has fewer cards.  Spawned ranks
+    receive the model, the datasets and ``metric_backends`` pickled, and the
+    returned step holds rank 0's final state on ``device``.  In a process
+    that has already joined a group, ``num_devices`` is the group's size
+    (None takes it).
     """
-    from ..data.dataset import BasicDataset
-    from ..data.loader import DataLoader, prefetch_to_device
     from ..models.unet import get_model
-    from ..utils.metrics import MetricLogger
 
     _refuse_unported(cfg)
     if cfg.cc_loss and cfg.classes != 1:
@@ -142,11 +172,28 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
         log.warning("--cc-loss has no effect with classes=%d: the connected-component "
                     "penalty is part of the binary (classes=1) loss only", cfg.classes)
     device = resolve_device(device)
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        n_dev = cfg.num_devices or world
+        if n_dev != world:
+            raise ValueError(f"num_devices {n_dev} must equal the {world} ranks of the "
+                             f"process group (one device per process)")
+    else:
+        n_dev = cfg.num_devices or 1
+    if n_dev > 1 and cfg.batch_size % n_dev:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible by num_devices "
+                         f"{n_dev}")
+    if n_dev > 1 and not dist.is_initialized() and device.type == "cuda" \
+            and n_dev > torch.cuda.device_count():
+        raise ValueError(f"num_devices {n_dev} exceeds the {torch.cuda.device_count()} "
+                         f"CUDA devices of this host")
     if model is None:
         model = get_model(cfg.model, n_channels=cfg.n_channels, n_classes=cfg.classes,
                           bilinear=cfg.bilinear, remat=cfg.remat,
                           compute_dtype=torch.bfloat16 if cfg.amp else None)
     if train_set is None:
+        from ..data.dataset import BasicDataset
+
         root = Path(cfg.data_root)
         dc = Path(cfg.disk_cache_dir) if cfg.disk_cache_dir else None
         kw = dict(augment=cfg.augment, cache_bytes=cfg.sample_cache_bytes)
@@ -157,32 +204,133 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     if mask_values is None:
         mask_values = (list(getattr(train_set, "mask_values", []))
                        + list(getattr(val_set, "mask_values", [])))
+    if state is not None:
+        model.load_state_dict(state_dict_from_jax(state["params"], state["bn_state"]))
+    run = (cfg, model, train_set, val_set, state, mask_values, metric_backends)
+    if dist.is_initialized():
+        from ..parallel.distributed import rank_device
 
+        device = rank_device(device, dist.get_rank())
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        return _train(*run, device, dist.group.WORLD if n_dev > 1 else None)
+    if n_dev > 1:
+        return _spawn_ranks(run, n_dev, device)
+    return _train(*run, device, None)
+
+
+def _spawn_ranks(run: tuple, n_dev: int, device: torch.device) -> TrainStep:
+    """Train on ``n_dev`` spawned ranks and load rank 0's final state into the
+    caller's model on ``device``.  A rank that raises stops the others, and
+    its traceback comes back in a RuntimeError.
+
+    The ranks receive ``run`` as pickled bytes, so that each holds its own
+    copy of the model: torch's process pickler would hand them one
+    shared-memory storage, which every rank's optimizer would then update."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cfg, model = run[0], run[1]
+    model.cpu()
+    payload = pickle.dumps(run)
+    with tempfile.TemporaryDirectory(prefix="umics-ranks-") as tmp:
+        rendezvous = f"file://{os.path.join(tmp, 'rendezvous')}"
+        result = os.path.join(tmp, "rank0.pt")
+        try:
+            mp.start_processes(_rank_main, args=(n_dev, rendezvous, payload, device.type,
+                                                 torch.get_num_threads(), result),
+                               nprocs=n_dev, start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            raise RuntimeError(f"a data-parallel rank failed:\n{e}") from None
+        final = torch.load(result, map_location="cpu", weights_only=True)
+    model.load_state_dict(final["model"])
+    model.to(device)
+    step_fn = TrainStep(model, _loss_config(cfg, model), _opt_config(cfg),
+                        cfg.gradient_clipping)
+    step_fn.optimizer.load_state_dict(final["optimizer"])
+    step_fn.step = final["step"]
+    return step_fn
+
+
+def _rank_main(rank: int, n_dev: int, rendezvous: str, payload: bytes, device_type: str,
+               threads: int, result: str) -> None:
+    """One spawned rank: join the group, train ``pickle.loads(payload)``'s
+    run, and (rank 0) write the final state to ``result``."""
+    import pickle
+
+    run = pickle.loads(payload)
+    torch.set_num_threads(threads)
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    from ..parallel.distributed import TIMEOUT
+
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=rendezvous, world_size=n_dev, rank=rank,
+                            timeout=TIMEOUT)
+    try:
+        step_fn = _train(*run, device, dist.group.WORLD)
+        if rank == 0:
+            torch.save({"model": step_fn.model.state_dict(),
+                        "optimizer": step_fn.optimizer.state_dict(), "step": step_fn.step},
+                       result)
+    finally:
+        dist.destroy_process_group()
+
+
+def _loss_config(cfg: TrainConfig, model: nn.Module) -> LossConfig:
+    return LossConfig(n_classes=model.n_classes, boundary_weight=cfg.boundary_weight,
+                      boundary_edge_width=cfg.boundary_edge_width,
+                      boundary_edge_weight=cfg.boundary_edge_weight,
+                      connected_component=cfg.cc_loss, cc_emit_probs=True)
+
+
+def _opt_config(cfg: TrainConfig) -> RMSpropConfig:
+    return RMSpropConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                         momentum=cfg.momentum)
+
+
+def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Optional[dict],
+           mask_values, metric_backends, device: torch.device, group) -> TrainStep:
+    """The loop of one process: the only one (``group`` None), or one rank
+    of ``group``."""
+    from ..data.loader import DataLoader, prefetch_to_device
+    from ..utils.metrics import MetricLogger
+
+    lead = group is None or dist.get_rank(group) == 0
+    if group is None:
+        process_slice, val_step, val_pad = None, None, 1
+    else:
+        from ..parallel.data_parallel import make_parallel_eval_step, replicate
+        from ..parallel.distributed import local_batch_slice
+
+        process_slice = local_batch_slice(cfg.batch_size)
+        val_step = make_parallel_eval_step(model, group)
+        val_pad = dist.get_world_size(group)
+    # every train batch full when data-parallel: each rank needs its rows
     train_loader = DataLoader(train_set, cfg.batch_size, shuffle=True,
-                              num_workers=cfg.num_workers, seed=cfg.seed)
+                              num_workers=cfg.num_workers, seed=cfg.seed,
+                              drop_last=group is not None, process_slice=process_slice)
     val_loader = DataLoader(val_set, cfg.batch_size, shuffle=False, drop_last=True,
                             num_workers=cfg.num_workers)
     n_train = len(train_set)
     log.info("Starting training: epochs=%d batch=%d lr=%g scale=%g amp(bf16)=%s model=%s "
-             "device=%s", cfg.epochs, cfg.batch_size, cfg.learning_rate, cfg.scale, cfg.amp,
-             model.name, device)
+             "device=%s ranks=%d", cfg.epochs, cfg.batch_size, cfg.learning_rate, cfg.scale,
+             cfg.amp, model.name, device, 1 if group is None else dist.get_world_size(group))
 
-    loss_cfg = LossConfig(n_classes=model.n_classes, boundary_weight=cfg.boundary_weight,
-                          boundary_edge_width=cfg.boundary_edge_width,
-                          boundary_edge_weight=cfg.boundary_edge_weight,
-                          connected_component=cfg.cc_loss, cc_emit_probs=True)
-    opt_cfg = RMSpropConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
-                            momentum=cfg.momentum)
-    if state is not None:
-        model.load_state_dict(state_dict_from_jax(state["params"], state["bn_state"]))
+    loss_cfg = _loss_config(cfg, model)
     model.to(device)
-    step_fn = TrainStep(model, loss_cfg, opt_cfg, cfg.gradient_clipping)
+    step_fn = TrainStep(model, loss_cfg, _opt_config(cfg), cfg.gradient_clipping, group)
     if state is not None:
         step_fn.step = int(state["step"])
         if state.get("opt_state") is not None:
             load_opt_state(model, step_fn.optimizer, state["opt_state"], step_fn.step)
+    if group is not None:
+        replicate(model, step_fn.optimizer, group)
 
-    mlog = MetricLogger(cfg.metrics_path, backends=metric_backends)
+    mlog = MetricLogger(cfg.metrics_path if lead else None,
+                        backends=metric_backends if lead else None)
     lr = cfg.learning_rate  # the scheduler sets the base lr at construction
     nan_check_every = max(1, cfg.nan_check_every)
     if cfg.cc_loss and nan_check_every > 8:
@@ -197,24 +345,31 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     def drain_pending():
         """Fetch and check every queued step in one copy; -> (sum, last loss).
         A step's ``cc_probs`` map comes to the host beside it, and its
-        connected-component penalty joins the logged loss."""
+        connected-component penalty joins the logged loss: the mean of the
+        ranks' penalties when data-parallel (each scores its own rows, and
+        every rank's batch is the same size)."""
         if not pending:
             return 0.0, None
         keys = [k for k in pending[0][1] if k != "cc_probs"]
         host = torch.stack([torch.stack([m[k].float() for k in keys])
                             for _, m in pending]).cpu().numpy()
-        probs = None
+        cc = None
         if "cc_probs" in pending[0][1]:
             from ..losses.connected_component import connected_component_loss
 
-            probs = [m["cc_probs"].cpu().numpy() for _, m in pending]
+            cc = [connected_component_loss(
+                m["cc_probs"].cpu().numpy(), edge_distance=loss_cfg.cc_edge_distance,
+                min_area=loss_cfg.cc_min_area, penalty_weight=loss_cfg.cc_penalty_weight)
+                for _, m in pending]
+            if group is not None:
+                t = torch.tensor(cc, dtype=torch.float64, device=device)
+                dist.all_reduce(t, group=group)
+                cc = (t / dist.get_world_size(group)).tolist()
         total = last = 0.0
         for i, ((step_idx, _), row) in enumerate(zip(pending, host)):
             metrics = dict(zip(keys, row.tolist()))
-            if probs is not None:
-                metrics["cc"] = connected_component_loss(
-                    probs[i], edge_distance=loss_cfg.cc_edge_distance,
-                    min_area=loss_cfg.cc_min_area, penalty_weight=loss_cfg.cc_penalty_weight)
+            if cc is not None:
+                metrics["cc"] = cc[i]
                 metrics["loss"] += metrics["cc"]
             last = metrics["loss"]
             if not np.isfinite(last):
@@ -228,12 +383,12 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
         for epoch in range(1, cfg.epochs + 1):
             epoch_loss = 0.0
             epoch_pred_dir = None
-            if cfg.save_val_predictions:
+            if cfg.save_val_predictions and lead:
                 epoch_pred_dir = Path(cfg.predictions_dir) / f"epoch_{epoch}"
                 epoch_pred_dir.mkdir(parents=True, exist_ok=True)
 
             pbar = None
-            if cfg.progress:
+            if cfg.progress and lead:
                 from tqdm import tqdm
 
                 # disable=None hides the bar on a non-TTY stderr
@@ -248,7 +403,7 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
                     raise ValueError(f"Network has been defined with {model.n_channels} input "
                                      f"channels, but loaded images have {n_ch} channels.")
                 metrics = step_fn(batch, lr)
-                n_seen += image.shape[0]
+                n_seen += image.shape[0] * (1 if group is None else dist.get_world_size(group))
                 if pbar is not None:
                     pbar.update(image.shape[0])
                 # drain before queueing the step just launched, so the fetch
@@ -272,7 +427,8 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
             val_score, val_post, min_val = evaluate(
                 model, val_loader, device=device,
                 epoch_pred_dir=str(epoch_pred_dir) if epoch_pred_dir else None,
-                postprocess=cfg.val_postprocess, progress=cfg.progress)
+                postprocess=cfg.val_postprocess, progress=cfg.progress and lead,
+                eval_step=val_step, batch_pad=val_pad)
             log.info("Validation Dice score: %s", val_score)
             log.info("Validation Postprocessed Dice score: %s", val_post)
             log.info("Validation Min Dice score: %s", min_val)
@@ -285,7 +441,7 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
             lr = warm_restarts_lr(sched_t, cfg.learning_rate, T_0=cfg.sched_t0,
                                   T_mult=cfg.sched_t_mult, eta_min=cfg.sched_eta_min)
 
-            if (cfg.save_checkpoint and epoch > cfg.epochs * cfg.checkpoint_after_frac
+            if (cfg.save_checkpoint and lead and epoch > cfg.epochs * cfg.checkpoint_after_frac
                     and epoch % cfg.checkpoint_every == 0):
                 Path(cfg.dir_checkpoint).mkdir(parents=True, exist_ok=True)
                 save_checkpoint(str(Path(cfg.dir_checkpoint) / f"checkpoint_epoch{epoch}.npz"),
@@ -293,8 +449,9 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
                                 optimizer=step_fn.optimizer)
                 log.info("Checkpoint %d saved!", epoch)
 
-        save_checkpoint(f"model_epoch{cfg.epochs}.npz", model, step=step_fn.step,
-                        mask_values=mask_values, optimizer=step_fn.optimizer)
+        if lead:
+            save_checkpoint(f"model_epoch{cfg.epochs}.npz", model, step=step_fn.step,
+                            mask_values=mask_values, optimizer=step_fn.optimizer)
     finally:
         mlog.close()
     return step_fn

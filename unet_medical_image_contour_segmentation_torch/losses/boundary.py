@@ -19,6 +19,12 @@ gradient, as in torch and JAX; it is computed on a detached input in f32,
 whatever the logits' dtype, and never joins the autograd graph.  The
 region index tensors depend only on (H, W, edge width) and are built once
 per device.
+
+With a process ``group`` (JAX's ``axis_name``) the logits test takes the
+group's minimum and maximum, and each region's intersection, union, BCE
+sum and count are the group's before the ratios: the global batch's value.
+Those collectives run on detached values, as JAX's ``pmin``/``pmax`` carry
+no gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops.collectives import pmax, psum
 
 __all__ = ["boundary_loss"]
 
@@ -58,8 +66,9 @@ def _extract_boundary_strip(strip: torch.Tensor, kernel_size: int = 3) -> torch.
 
 
 def _regular_loss(pred2d: torch.Tensor, targ2d: torch.Tensor, idx: torch.Tensor,
-                  smooth: float) -> torch.Tensor:
-    """IoU + 0.5 * BCE of the two boundaries over one region."""
+                  smooth: float, group=None) -> torch.Tensor:
+    """IoU + 0.5 * BCE of the two boundaries over one region (its sums over
+    ``group``)."""
     if idx.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=pred2d.device)
     pred_boundary = _extract_boundary_strip(pred2d[:, idx]).reshape(-1)
@@ -67,7 +76,6 @@ def _regular_loss(pred2d: torch.Tensor, targ2d: torch.Tensor, idx: torch.Tensor,
 
     intersection = (pred_boundary * target_boundary).sum()
     union = pred_boundary.sum() + target_boundary.sum() - intersection
-    iou = (intersection + smooth) / (union + smooth)
 
     # the reference's BCE compares the two extracted 0/1 boundaries, not the
     # probabilities (boundary_loss.py:92-93)
@@ -75,12 +83,17 @@ def _regular_loss(pred2d: torch.Tensor, targ2d: torch.Tensor, idx: torch.Tensor,
     logits = torch.log(p / (1 - p))
     bce_sum = (logits.clamp(min=0) - logits * target_boundary
                + torch.log1p(torch.exp(-logits.abs()))).sum()
-    bce = bce_sum / float(pred_boundary.shape[0])
-    return (1.0 - iou) + 0.5 * bce
+    count = torch.full((), float(pred_boundary.shape[0]), device=pred2d.device)
+    if group is not None:
+        intersection, union, bce_sum, count = psum(
+            torch.stack([intersection, union, bce_sum, count]), group)
+    iou = (intersection + smooth) / (union + smooth)
+    return (1.0 - iou) + 0.5 * (bce_sum / count)
 
 
 def boundary_loss(pred_mask: torch.Tensor, target_mask: torch.Tensor, edge_width: int = 64,
-                  edge_weight: float = 5.0, smooth: float = 1e-6) -> torch.Tensor:
+                  edge_weight: float = 5.0, smooth: float = 1e-6,
+                  group=None) -> torch.Tensor:
     """Weighted border-frame boundary loss, a 0-dim f32 tensor without grad.
 
     pred_mask: (B, H, W) or channel-last (B, H, W, C) (C > 1: channel 1);
@@ -89,7 +102,8 @@ def boundary_loss(pred_mask: torch.Tensor, target_mask: torch.Tensor, edge_width
     if pred_mask.dim() == 4:
         pred_mask = pred_mask[..., 1] if pred_mask.shape[-1] > 1 else pred_mask[..., 0]
     pred = pred_mask.detach().float()
-    looks_like_logits = (pred.amin() < -10) | (pred.amax() > 10)
+    neg_min, mx = pmax(torch.stack([-pred.amin(), pred.amax()]), group)
+    looks_like_logits = (-neg_min < -10) | (mx > 10)
     pred = torch.where(looks_like_logits, torch.sigmoid(pred), pred)
 
     b, h, w = pred.shape
@@ -98,6 +112,6 @@ def boundary_loss(pred_mask: torch.Tensor, target_mask: torch.Tensor, edge_width
     pred2d = pred.reshape(b, h * w)
     targ2d = binary_target.reshape(b, h * w)
 
-    normal_loss = _regular_loss(pred2d, targ2d, interior_idx, smooth)
-    edge_loss = _regular_loss(pred2d, targ2d, edge_idx, smooth)
+    normal_loss = _regular_loss(pred2d, targ2d, interior_idx, smooth, group)
+    edge_loss = _regular_loss(pred2d, targ2d, edge_idx, smooth, group)
     return (normal_loss + edge_weight * edge_loss) / (1.0 + edge_weight)

@@ -16,6 +16,11 @@ Computed in f32 on channel-last logits (B, H, W, C) and integer targets
   sigmoid out as ``metrics["cc_probs"]`` for the caller to score on its
   delayed fetch, as ``train_model`` does.  The JAX package's other route, a
   host callback inside the step, has no counterpart.
+
+With a process ``group`` (data parallelism; JAX's ``axis_name``) every term
+reduces over the group's global batch: CE and BCE are the mean of the ranks'
+means (equal shards: the global mean), Dice and the boundary term sum over
+the group before their ratios.  ``cc_probs`` stays this rank's rows.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.collectives import pmean
 from .boundary import boundary_loss
 from .dice import dice_loss
 
@@ -46,23 +52,24 @@ class LossConfig:
     cc_emit_probs: bool = False
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean CE over all pixels (torch nn.CrossEntropyLoss default), f32."""
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean CE over all pixels (torch nn.CrossEntropyLoss default), f32; over
+    ``group``, the mean of the ranks' means."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets.long().unsqueeze(-1)).mean()
+    return -pmean(logp.gather(-1, targets.long().unsqueeze(-1)).mean(), group)
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
     """Mean BCEWithLogits (stable formulation), f32.
 
     With JAX's derivatives where x == 0 (a dead ReLU under a zero bias gives
     exact zeros): ``max`` splits the tie and ``|x|`` takes +1 there, so such
     a logit gets the gradient ``-z`` as in JAX (``clamp`` and ``abs`` would
-    give ``1 - z``)."""
+    give ``1 - z``).  Over ``group``, the mean of the ranks' means."""
     x, z = logits.float(), targets.float()
     abs_x = torch.where(x >= 0, x, -x)
-    return (torch.maximum(x, x.new_zeros(())) - x * z
-            + torch.log1p(torch.exp(-abs_x))).mean()
+    return pmean((torch.maximum(x, x.new_zeros(())) - x * z
+                  + torch.log1p(torch.exp(-abs_x))).mean(), group)
 
 
 def metric_keys(cfg: LossConfig) -> Tuple[str, ...]:
@@ -79,16 +86,17 @@ def metric_keys(cfg: LossConfig) -> Tuple[str, ...]:
     return tuple(keys)
 
 
-def compute_loss(logits: torch.Tensor, targets: torch.Tensor,
-                 cfg: LossConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Compound loss + per-term metrics.  logits (B, H, W, C), targets int (B, H, W)."""
+def compute_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: LossConfig,
+                 group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Compound loss + per-term metrics.  logits (B, H, W, C), targets int (B, H, W);
+    every term over ``group``'s global batch when one is given."""
     if cfg.n_classes == 1:
         t = torch.div(targets, 2, rounding_mode="floor").float()  # {0,1,2} -> {0,1}
         pred = logits[..., 0]
-        ce = bce_with_logits(pred, t)
-        dl = dice_loss(torch.sigmoid(pred.float()), t, multiclass=False)
+        ce = bce_with_logits(pred, t, group)
+        dl = dice_loss(torch.sigmoid(pred.float()), t, multiclass=False, group=group)
         bl = boundary_loss(pred, t, edge_width=cfg.boundary_edge_width,
-                           edge_weight=cfg.boundary_edge_weight)
+                           edge_weight=cfg.boundary_edge_weight, group=group)
         loss = ce + dl + cfg.boundary_weight * bl
         metrics = {"ce": ce, "dice": dl, "boundary": bl}
         if cfg.connected_component:
@@ -102,15 +110,16 @@ def compute_loss(logits: torch.Tensor, targets: torch.Tensor,
         metrics["loss"] = loss
         return loss, metrics
 
-    ce = cross_entropy(logits, targets)
+    ce = cross_entropy(logits, targets, group)
     probs = torch.softmax(logits.float(), dim=-1)
     onehot = F.one_hot(targets.long(), cfg.n_classes).float()
-    dl = dice_loss(probs, onehot, multiclass=True)
+    dl = dice_loss(probs, onehot, multiclass=True, group=group)
     loss = ce + dl
     metrics = {"ce": ce, "dice": dl, "loss": loss}
     if cfg.multiclass_boundary:
         bl = boundary_loss(logits, targets.float(), edge_width=cfg.boundary_edge_width,
-                           edge_weight=7.0)  # the reference's commented-out value
+                           edge_weight=7.0,  # the reference's commented-out value
+                           group=group)
         loss = loss + cfg.boundary_weight * bl
         metrics.update({"boundary": bl, "loss": loss})
     return loss, metrics

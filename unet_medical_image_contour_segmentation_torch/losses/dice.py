@@ -7,11 +7,16 @@
   by ``inter``, so an empty/empty pair scores 1.
 * ``dice_loss = 1 - one global Dice``; for multiclass pass channel-last
   (B, H, W, C): the global reduction makes the channel position irrelevant.
+  With a process ``group`` its two sums are the group's before the ratio
+  (JAX's ``axis_name``): the global batch's Dice, not the mean of the
+  ranks' Dice.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.collectives import psum
 
 __all__ = ["dice_coeff", "multiclass_dice_coeff", "dice_loss"]
 
@@ -53,9 +58,12 @@ def multiclass_dice_coeff(input: torch.Tensor, target: torch.Tensor,
 
 
 def dice_loss(input: torch.Tensor, target: torch.Tensor, multiclass: bool = False,
-              epsilon: float = 1e-6) -> torch.Tensor:
+              epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """1 - one global Dice over every element (``multiclass`` changes nothing
-    in the value: the reference's flattening of (B, C) is a global sum too)."""
+    in the value: the reference's flattening of (B, C) is a global sum too);
+    ``inter`` and ``sets_sum`` are summed over ``group`` first."""
     inter = 2 * (input * target).sum()
     sets_sum = input.sum() + target.sum()
+    if group is not None:
+        inter, sets_sum = psum(torch.stack([inter, sets_sum]), group)
     return 1.0 - _dice(inter, sets_sum, epsilon)

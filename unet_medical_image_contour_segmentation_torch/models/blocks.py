@@ -15,7 +15,9 @@ holders named like the reference model, so its state_dict keys
 ``outc.conv``) load with a plain
 ``load_state_dict``; their torch default initialisers are the JAX package's.
 The forward passes go through ``ops.nn`` on NHWC tensors, never through the
-holders' own NCHW ``forward``.
+holders' own NCHW ``forward``.  Every forward that holds a BN takes the
+process ``group`` its train-mode statistics reduce over (None: one device),
+as the JAX blocks take ``axis_name``.
 """
 
 from __future__ import annotations
@@ -36,13 +38,13 @@ def _conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
 
 
-def _bn_apply(bn: nn.BatchNorm2d, y: torch.Tensor, train: bool) -> torch.Tensor:
+def _bn_apply(bn: nn.BatchNorm2d, y: torch.Tensor, train: bool, group=None) -> torch.Tensor:
     """BN over NHWC ``y``; in train mode the running statistics and
     ``num_batches_tracked`` move in place, except while a rematerialised
     block recomputes its forward in the backward pass (``bn.recomputing``,
     set by ``models/unet.py``): the step's forward already moved them once."""
     y, (mean, var) = batch_norm(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                                train=train, momentum=bn.momentum, eps=bn.eps)
+                                train=train, momentum=bn.momentum, eps=bn.eps, group=group)
     if train and not getattr(bn, "recomputing", False):
         with torch.no_grad():
             bn.running_mean.copy_(mean)
@@ -64,11 +66,12 @@ class DoubleConv(nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
         for i in (0, 3):
             conv, bn = self.double_conv[i], self.double_conv[i + 1]
             y = conv2d(x, _conv_hwio(conv), padding=1, compute_dtype=compute_dtype)
-            x = torch.relu(_bn_apply(bn, y, self.training))
+            x = torch.relu(_bn_apply(bn, y, self.training, group))
         return x
 
 
@@ -77,8 +80,9 @@ class Down(nn.Module):
         super().__init__()
         self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        return self.maxpool_conv[1](max_pool2d(x, 2), compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
+        return self.maxpool_conv[1](max_pool2d(x, 2), compute_dtype, group)
 
 
 def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -132,7 +136,7 @@ class Up(nn.Module):
             self.attention = SpatialAttention()
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None):
+                compute_dtype: Optional[torch.dtype] = None, group=None):
         if self.bilinear:
             x1 = upsample_x2_align_corners(x1)
         else:
@@ -142,7 +146,7 @@ class Up(nn.Module):
         x1 = _pad_to_match(x1, x2)
         if hasattr(self, "attention"):
             x2 = x2 * self.attention(x2, compute_dtype)
-        return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype)
+        return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype, group)
 
 
 class OutConv(nn.Module):

@@ -30,14 +30,16 @@ __all__ = ["FoldedDoubleConv", "FoldedCBS", "fold_double_conv", "fold_bn", "fold
 
 
 class FoldedDoubleConv(nn.Module):
-    """(conv3x3 + bias -> ReLU) x 2 with BN folded in; same call as DoubleConv."""
+    """(conv3x3 + bias -> ReLU) x 2 with BN folded in; same call as DoubleConv
+    (``group`` is unused: a folded block has no batch statistics)."""
 
     def __init__(self, w1, b1, w2, b2):
         super().__init__()
         for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
             self.register_buffer(name, t.contiguous())
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
         x = torch.relu(conv2d(x, self.w1, self.b1, padding=1, compute_dtype=compute_dtype))
         return torch.relu(conv2d(x, self.w2, self.b2, padding=1, compute_dtype=compute_dtype))
 
@@ -52,7 +54,8 @@ class FoldedCBS(nn.Module):
         self.register_buffer("w", w.contiguous())
         self.register_buffer("b", b.contiguous())
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
         y = conv2d(x, self.w, self.b, stride=self.stride, padding=self.w.shape[0] // 2,
                    compute_dtype=compute_dtype)
         return silu_f32(y)

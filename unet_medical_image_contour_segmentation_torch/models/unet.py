@@ -18,6 +18,9 @@ move in place in the forward, so the recompute runs with every BN of the
 block marked ``recomputing`` and leaves them alone (``blocks._bn_apply``).
 A remat step therefore equals a plain one, statistics included, and
 launches the 3x3 kernel's forward twice for each conv it routes there.
+
+``forward(x, group)``: a train forward's BN statistics reduce over the
+process group (cross-replica BN for data parallelism; None: one device).
 """
 
 from __future__ import annotations
@@ -59,22 +62,22 @@ class UNet(nn.Module):
         """The H and W divisibility the four 2x2 pools need."""
         return 16
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
         cd = self.compute_dtype
         run = _rematerialised if self.remat and self.training and torch.is_grad_enabled() \
             else _direct
-        x1 = run(self.inc, x, cd)
-        x2 = run(self.down1, x1, cd)
-        x3 = run(self.down2, x2, cd)
-        x4 = run(self.down3, x3, cd)
-        x5 = run(self.down4, x4, cd)
-        y = run(self.up1, x5, x4, cd)
-        y = run(self.up2, y, x3, cd)
-        y = run(self.up3, y, x2, cd)
-        y = run(self.up4, y, x1, cd)
+        x1 = run(self.inc, x, cd, group)
+        x2 = run(self.down1, x1, cd, group)
+        x3 = run(self.down2, x2, cd, group)
+        x4 = run(self.down3, x3, cd, group)
+        x5 = run(self.down4, x4, cd, group)
+        y = run(self.up1, x5, x4, cd, group)
+        y = run(self.up2, y, x3, cd, group)
+        y = run(self.up3, y, x2, cd, group)
+        y = run(self.up4, y, x1, cd, group)
         return self.outc(y, cd).float()
 
 

@@ -86,8 +86,9 @@ class UNetPlusPlus(nn.Module):
         return conv_transpose2d(feat, up.weight.permute(2, 3, 0, 1), up.bias, stride=2,
                                 compute_dtype=self.compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32;
+        a train forward's BN statistics reduce over ``group`` (None: one device)."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
         cd, d = self.compute_dtype, self.depth
@@ -96,13 +97,13 @@ class UNetPlusPlus(nn.Module):
         nodes = {}
         for i in range(d):
             inp = x if i == 0 else max_pool2d(nodes[(i - 1, 0)], 2)
-            nodes[(i, 0)] = run(getattr(self, f"x{i}_0"), inp, cd)
+            nodes[(i, 0)] = run(getattr(self, f"x{i}_0"), inp, cd, group)
         for j in range(1, d):
             for i in range(d - j):
                 skips = [nodes[(i, k)] for k in range(j)]
                 upped = _pad_to_match(self._up(i, j, nodes[(i + 1, j - 1)]), skips[0])
                 feats = torch.cat(skips + [upped.to(skips[0].dtype)], dim=-1)
-                nodes[(i, j)] = run(getattr(self, f"x{i}_{j}"), feats, cd)
+                nodes[(i, j)] = run(getattr(self, f"x{i}_{j}"), feats, cd, group)
         if self.deep_supervision:
             outs = [getattr(self, f"out{j}")(nodes[(0, j)], cd) for j in range(1, d)]
             logits = sum(outs) / len(outs)

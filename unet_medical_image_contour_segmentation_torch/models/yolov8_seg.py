@@ -72,11 +72,12 @@ class CBS(nn.Module):
         self.conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
         self.bn = nn.BatchNorm2d(cout)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
         k = self.conv.kernel_size[0]
         y = conv2d(x, _conv_hwio(self.conv), stride=self.stride, padding=k // 2,
                    compute_dtype=compute_dtype)
-        return silu_f32(_bn_apply(self.bn, y, self.training))
+        return silu_f32(_bn_apply(self.bn, y, self.training, group))
 
 
 class Bottleneck(nn.Module):
@@ -86,8 +87,9 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.cv1, self.cv2 = CBS(c, c, 3), CBS(c, c, 3)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        return x + self.cv2(self.cv1(x, compute_dtype), compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
+        return x + self.cv2(self.cv1(x, compute_dtype, group), compute_dtype, group)
 
 
 class C2f(nn.Module):
@@ -102,13 +104,14 @@ class C2f(nn.Module):
         for i in range(n):
             self.add_module(f"m{i}", Bottleneck(c))
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        y = self.cv1(x, compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
+        y = self.cv1(x, compute_dtype, group)
         c = y.shape[-1] // 2
         parts = [y[..., :c], y[..., c:]]
         for i in range(self.n):
-            parts.append(getattr(self, f"m{i}")(parts[-1], compute_dtype))
-        return self.cv2(torch.cat(parts, dim=-1), compute_dtype)
+            parts.append(getattr(self, f"m{i}")(parts[-1], compute_dtype, group))
+        return self.cv2(torch.cat(parts, dim=-1), compute_dtype, group)
 
 
 class SPPF(nn.Module):
@@ -118,12 +121,13 @@ class SPPF(nn.Module):
         super().__init__()
         self.cv1, self.cv2 = CBS(c, c // 2, 1), CBS(c * 2, c, 1)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        y = self.cv1(x, compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                group=None):
+        y = self.cv1(x, compute_dtype, group)
         p1 = maxpool5_same(y)
         p2 = maxpool5_same(p1)
         p3 = maxpool5_same(p2)
-        return self.cv2(torch.cat([y, p1, p2, p3], dim=-1), compute_dtype)
+        return self.cv2(torch.cat([y, p1, p2, p3], dim=-1), compute_dtype, group)
 
 
 class YOLOv8Seg(nn.Module):
@@ -168,23 +172,24 @@ class YOLOv8Seg(nn.Module):
         return conv_transpose2d(t, up.weight.permute(2, 3, 0, 1), up.bias, stride=2,
                                 compute_dtype=self.compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32;
+        a train forward's BN statistics reduce over ``group`` (None: one device)."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
-        cd = self.compute_dtype
-        y = self.stem(x, cd)                                          # /2
+        cd, g = self.compute_dtype, group
+        y = self.stem(x, cd, g)                                       # /2
         feats = []
         for i in range(4):
-            y = getattr(self, f"down{i}")(y, cd)                      # /4 /8 /16 /32
-            y = getattr(self, f"c2f{i}")(y, cd)
+            y = getattr(self, f"down{i}")(y, cd, g)                   # /4 /8 /16 /32
+            y = getattr(self, f"c2f{i}")(y, cd, g)
             feats.append(y)
-        y = self.sppf(y, cd)                                          # P5 /32
-        p4 = self.n4(torch.cat([upsample_nearest2(y), feats[2]], dim=-1), cd)   # /16
-        p3 = self.n3(torch.cat([upsample_nearest2(p4), feats[1]], dim=-1), cd)  # /8
-        t = self.p_c1(self._up("p_up1", p3), cd)                      # /4
-        t = self.p_c2(self._up("p_up2", t), cd)                       # /2
-        t = self.p_c3(self._up("p_up3", t), cd)                       # /1
+        y = self.sppf(y, cd, g)                                       # P5 /32
+        p4 = self.n4(torch.cat([upsample_nearest2(y), feats[2]], dim=-1), cd, g)   # /16
+        p3 = self.n3(torch.cat([upsample_nearest2(p4), feats[1]], dim=-1), cd, g)  # /8
+        t = self.p_c1(self._up("p_up1", p3), cd, g)                   # /4
+        t = self.p_c2(self._up("p_up2", t), cd, g)                    # /2
+        t = self.p_c3(self._up("p_up3", t), cd, g)                    # /1
         return self.head(t, cd).float()
 
 

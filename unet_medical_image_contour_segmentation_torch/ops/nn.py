@@ -8,7 +8,8 @@ Inside, a NHWC tensor is handed to ``torch.nn.functional`` as
 Mixed precision follows the JAX rules: with ``compute_dtype`` set, a conv
 casts x and w to it, sums in f32 and rounds its output to that dtype, and a
 bias is added afterwards in the output dtype; BatchNorm always computes in
-f32 and casts back.
+f32 and casts back; with a process ``group`` its train-mode statistics are
+the whole group's batch (cross-replica BN, ``ops/collectives.py``).
 
 :func:`conv2d` sends every conv that ``kernels.conv3x3.supported`` accepts
 (3x3, stride 1, pad 1, 8 <= Cin <= 32) to :func:`kernels.conv3x3.conv3x3_nhwc`,
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import conv3x3
+from .collectives import pmean, world_size
 
 __all__ = [
     "conv2d",
@@ -106,17 +108,31 @@ def batch_norm(
     train: bool,
     momentum: float = BN_MOMENTUM,
     eps: float = BN_EPS,
+    group=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """BatchNorm2d over NHWC channels with torch semantics, computed in f32.
 
     Returns ``(y, (new_running_mean, new_running_var))``.  Train mode
     normalises with the biased batch variance and moves the running variance
     towards the unbiased one (torch's rule); eval mode uses the running stats.
+
+    ``group`` (a ``torch.distributed`` process group; None is one device):
+    in train mode the per-channel mean, mean of squares and element count
+    are the whole group's, as the JAX ``batch_norm`` takes them under
+    ``axis_name`` (``pmean`` of both means, ``n * psum(1)``, variance
+    ``mean_sq - mean**2``), through one differentiable all-reduce.  One
+    device keeps the two-pass ``var_mean``.
     """
     xf = x.float()
     if train:
-        var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
         n = x.shape[0] * x.shape[1] * x.shape[2]
+        if group is None:
+            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+        else:
+            local = torch.stack([xf.mean(dim=(0, 1, 2)), xf.square().mean(dim=(0, 1, 2))])
+            mean, mean_sq = pmean(local, group)
+            n *= world_size(group)
+            var = mean_sq - mean.square()
         unbiased = var * (n / max(n - 1, 1))
         new_mean = (1.0 - momentum) * running_mean + momentum * mean
         new_var = (1.0 - momentum) * running_var + momentum * unbiased
