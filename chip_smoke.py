@@ -106,9 +106,9 @@ Phases, in order; any failure exits nonzero before the last line:
      100% of the live int8 Predictor's);
  17. data parallelism (parallel/), each phase's launches counted: D1 the
      data-parallel train step at world size 1 (NCCL, one process) on unet_s
-     at (8, 512, 512) bf16 against the plain step from the same weights
-     (D1_TOL: not bit-equal, the BN variance is one-pass there and two-pass
-     here), 7 + 7 launches a step, both steps' ms (in turns), peak memory,
+     at (8, 512, 512) bf16 against the plain step from the same weights,
+     bit for bit (both take the BN variance one-pass; cuDNN held to its
+     deterministic algorithms), 7 + 7 launches a step, both steps' ms (in turns), peak memory,
      and the all-reduces a step with a lone one's host and device cost; D2
      two ranks on the one card (spawned processes of 4 rows each, gloo:
      whether NCCL takes two ranks on one device is tried first and logged)
@@ -118,9 +118,25 @@ Phases, in order; any failure exits nonzero before the last line:
      serving, Predictor(devices=["cuda:0", "cuda:0"]): a ragged dense batch
      of 7, one 2048² scan tiled and int8 at (8, 512, 512), masks 100% equal
      to the single-device Predictor's, launches, slices/s beside it;
+     then A0, the BN variance formulas: on D1's activations (unet_s bf16 at
+     (8, 512, 512)), each of its 18 BNs' largest error of the one-pass
+     (JAX's, the port's) and the two-pass formula against an f64 BN, f32
+     and rounded to bf16; and S1-S4, spatial parallelism (parallel/spatial.py),
+     the ranks spawned on cuda:0 over gloo, each rank's launches equal to
+     the plain step's and its launched shapes reported: S1 unet_s at (2,
+     1024, 1024) over 2 bands of 512 rows, one f32 step (TF32 off) against
+     one process's plain step (S_TOL) with the ranks bit-equal, then bf16
+     (reported), step ms on the host clock, CUDA time and peak memory a
+     rank beside the plain step's; S2 the bilinear unet_s, unet_sa, the
+     binary criterion, remat and unet_pp_s at (2, 512, 512), f32, D2's gate
+     (S2_TOL); S3 the 2 x 2 (data, spatial) layout, four ranks, unet_s at
+     (4, 512, 512), S1's gate; S4 one 2048² scan through make_spatial_forward
+     over 2 ranks against one process's forward, f32 masks 100% equal, bf16
+     agreement reported;
  18. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
      window of phases 5-17 launched the conv3x3 kernel must be one that
-     phase 3 or 4 held against the plain version (phase 3 times YOLO's two
+     phase 3 or 4 held against the plain version (phases 3 and 4 time S1's
+     band-plus-halo shapes and check S2-S4's; phase 3 times YOLO's two
      shapes that unet_s lacks, 32->32 at 128² and at 512², and checks its
      exported program's and its calibration's); every shape at which one
      launched the int8 kernel was held against its plain version in phase
@@ -136,6 +152,7 @@ build into build/torch_kernels/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import logging
@@ -213,6 +230,9 @@ from unet_medical_image_contour_segmentation_torch.models.torch_compat import ( 
     state_dict_from_jax,
 )
 from unet_medical_image_contour_segmentation_torch.models import (  # noqa: E402
+    blocks as blocks_module,
+)
+from unet_medical_image_contour_segmentation_torch.models import (  # noqa: E402
     quantize as quantize_module,
 )
 from unet_medical_image_contour_segmentation_torch.models.quantize import (  # noqa: E402
@@ -225,11 +245,15 @@ from unet_medical_image_contour_segmentation_torch.models.unet import (  # noqa:
     unet_s,
     unet_sa,
 )
-from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d  # noqa: E402
+from unet_medical_image_contour_segmentation_torch.ops.nn import BN_EPS, conv2d  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.parallel import (  # noqa: E402
     make_data_group,
+    make_dp_spatial_mesh,
     make_parallel_train_step,
+    make_spatial_forward,
+    make_spatial_train_step,
     replicate,
+    shard_batch,
 )
 from unet_medical_image_contour_segmentation_torch.pipeline.post_process import (  # noqa: E402
     postprocess_mask,
@@ -616,6 +640,9 @@ def phase_kernels(usage: dict):
     # its int8 calibration forward (C5): the CBS fold at (CALIB_BATCH, HW, HW)
     shapes += [(f"yolo {name}@calib", CALIB_BATCH, HW // s, HW // s, cin, cout, "calibrate")
                for name, cin, cout, s in yolo]
+    # S1-S4: a rank's band of rows and its two halo rows; S1's timed
+    shapes += [(name, b, h, w, cin, cout, "spatial" if timed else "spatial variant")
+               for name, b, h, w, cin, cout, timed in s_shapes()]
     rows, max_err = [], 0.0
     for name, b, h, w, cin, cout, path in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -634,7 +661,7 @@ def phase_kernels(usage: dict):
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: max abs err {err}")
             max_err = max(max_err, err)
             CHECKED.add((b, h, w, cin, cout, str(dtype)))
-            timed = path in ("dense", "ragged", "yolo") or path.startswith("tiled")
+            timed = path in ("dense", "ragged", "yolo", "spatial") or path.startswith("tiled")
             if dtype != torch.bfloat16 or not timed:
                 log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} "
                     f"{'f32 ' if dtype == torch.float32 else 'bf16'} max_abs_err {err:.3g} ok"
@@ -683,13 +710,15 @@ def phase_backward(usage: dict):
     checked, not timed."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, max_err = [], 0.0
-    rows_in = [(name, BATCH, cin, cout, s, i < len(MAIN_CONVS))
+    rows_in = [(name, BATCH, HW // s, HW // s, cin, cout, i < len(MAIN_CONVS), "train")
                for i, (name, cin, cout, s) in enumerate(train_shapes())]
     # D2: each rank's RANK_BATCH rows of unet_s's step
-    rows_in += [(f"{name}@rank", RANK_BATCH, cin, cout, s, False)
+    rows_in += [(f"{name}@rank", RANK_BATCH, HW // s, HW // s, cin, cout, False, "train")
                 for name, cin, cout, s in MAIN_CONVS]
-    for name, b, cin, cout, s, timed in rows_in:
-        h, w = HW // s, HW // s
+    # S1-S3: a rank's band of rows and its two halo rows (S4 runs no backward); S1's timed
+    rows_in += [(name, b, h, w, cin, cout, timed, "spatial") for name, b, h, w, cin, cout, timed
+                in s_shapes() if not name.startswith("S4")]
+    for name, b, h, w, cin, cout, timed, path in rows_in:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
             wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
@@ -738,7 +767,7 @@ def phase_backward(usage: dict):
             share = roofline(bound_ms, kernel=ms, library=library_ms)
             roofline(dw_bound_ms, kernel=dw_ms)
             use = kernel_usage(usage, cout, cin, dtype)
-            rows.append(dict(name=name, path="train", shape=[b, h, w, cout, cin], ms=ms,
+            rows.append(dict(name=name, path=path, shape=[b, h, w, cout, cin], ms=ms,
                              plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                              roofline=share, dw_library_ms=dw_ms, dw_bound_ms=dw_bound_ms,
@@ -2837,18 +2866,81 @@ DP_RANKS = 2
 RANK_BATCH = BATCH // DP_RANKS
 DP_TIMEOUT_S = 300
 # D1 (bf16 compute): the data-parallel step at world size 1 against the
-# plain step from the same weights.  Not bit-equal: cross-replica BN takes
-# the variance one-pass (mean_sq - mean**2, JAX's formula), the plain step
-# two-pass (torch.var_mean), so the normalised activations round apart in
-# bf16.  The bounds are phase 6's card-vs-CPU f32 bounds widened for bf16:
-# loss 1e-3 relative, gradients 1e-2 of the largest, grad norm 1e-2, BN
-# buffers rtol 1e-3 / atol 1e-4, parameters 20 * lr.
-D1_TOL = dict(loss=1e-3, grads=1e-2, grad_norm=1e-2, buf_rtol=1e-3, buf_atol=1e-4)
+# plain step from the same weights, bit for bit: both take the BN variance
+# one-pass (JAX's formula; A0), the collectives of one rank are identities,
+# and cuDNN is held to its deterministic algorithms for the two steps.
 # D2 (f32, TF32 off): two ranks of RANK_BATCH rows against one process's
-# (BATCH, HW, HW) step; the same one-pass / two-pass difference in f32
-# (on the CPU at 64x64 the gradients agree to 3e-6 of the largest; the
-# gradients are held to phase 6's 1e-3 of the largest)
+# (BATCH, HW, HW) step, the statistics summed in another order (on the CPU
+# at 64x64 the gradients agree to 3e-6 of the largest; the gradients are
+# held to phase 6's 1e-3 of the largest)
 D2_TOL = dict(loss=1e-5, grads=1e-3, grad_norm=1e-4, buf_rtol=1e-4, buf_atol=1e-5)
+
+
+def bn_inputs(model, image: torch.Tensor) -> list:
+    """(x, scale, bias) of every train-mode BN of one forward of ``model``,
+    in the order the forward normalises them."""
+    captured, batch_norm = [], blocks_module.batch_norm
+
+    def capture(x, scale, bias, running_mean, running_var, **kw):
+        captured.append((x.detach(), scale.detach(), bias.detach()))
+        return batch_norm(x, scale, bias, running_mean, running_var, **kw)
+
+    blocks_module.batch_norm = capture
+    try:
+        with torch.no_grad():
+            model.train()(image)
+    finally:
+        blocks_module.batch_norm = batch_norm
+    return captured
+
+
+def bn_formula_errors(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> dict:
+    """One BN's output under each variance formula, computed in f32 as
+    ``ops/nn.py:batch_norm`` computes it, against the same BN in f64: the
+    largest error of the f32 output, of the output rounded to x's dtype (what
+    the step goes on with), and of the variance (relative)."""
+    x64 = x.double()
+    var64, mean64 = torch.var_mean(x64, dim=(0, 1, 2), unbiased=False)
+    y64 = (x64 - mean64) * torch.rsqrt(var64 + BN_EPS) * scale.double() + bias.double()
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1, 2))
+    formulas = {"two_pass": torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)[::-1],
+                "one_pass": (mean, xf.square().mean(dim=(0, 1, 2)) - mean.square())}
+    out = {"mean_over_std": (mean64.abs() / var64.sqrt()).max().item(),
+           "y_max": y64.abs().max().item()}
+    for name, (m, var) in formulas.items():
+        y = (xf - m) * (torch.rsqrt(var + BN_EPS) * scale.float()) + bias.float()
+        out[name] = dict(f32=(y.double() - y64).abs().max().item(),
+                         rounded=(y.to(x.dtype).double() - y64).abs().max().item(),
+                         var_rel=((var.double() - var64).abs() / var64).max().item())
+    return out
+
+
+def phase_bn_formula() -> dict:
+    """A0: the two BN variance formulas against an f64 BN on D1's
+    activations (the seeded unet_s's train forward at (BATCH, HW, HW), bf16
+    compute): for each of its 18 BNs, the largest error of each formula's
+    output (f32, and rounded to bf16 as the step goes on with it) and of its
+    variance.  The one-pass formula (JAX's ``mean_sq - mean**2``) is "no
+    worse in bf16" where, at every BN, its bf16 output's error exceeds the
+    two-pass formula's by less than one bf16 rounding step of the output's
+    largest magnitude (2**-8 of it).  -> the numbers and the verdict."""
+    model = seeded_unet_s(torch.bfloat16).cuda()
+    rows = [bn_formula_errors(*t) for t in bn_inputs(model, device_batch(6)["image"])]
+    del model
+    no_worse = all(r["one_pass"]["rounded"] <= r["two_pass"]["rounded"] + r["y_max"] * 2 ** -8
+                   for r in rows)
+    for i, r in enumerate(rows):
+        one, two = r["one_pass"], r["two_pass"]
+        log(f"[A0 bn formula] BN {i:2d}: |mean|/std {r['mean_over_std']:.3g}, max |y| "
+            f"{r['y_max']:.3g}; one-pass f32 {one['f32']:.3g} bf16 {one['rounded']:.3g} var rel "
+            f"{one['var_rel']:.3g}; two-pass f32 {two['f32']:.3g} bf16 {two['rounded']:.3g} var "
+            f"rel {two['var_rel']:.3g}")
+    worst = {k: {e: max(r[k][e] for r in rows) for e in ("f32", "rounded", "var_rel")}
+             for k in ("one_pass", "two_pass")}
+    log(f"[A0 bn formula] unet_s bf16 ({BATCH}, {HW}, {HW}), {len(rows)} BNs, largest errors "
+        f"against f64: {worst}; one-pass no worse in bf16: {no_worse}")
+    return dict(bns=len(rows), worst=worst, one_pass_no_worse=no_worse, per_bn=rows)
 
 
 def step_diffs(a: tuple, b: tuple) -> dict:
@@ -2870,8 +2962,27 @@ def check_step_diffs(label: str, d: dict, tol: dict, a_buffers: dict, b_buffers:
                                  atol=tol["buf_atol"]) for n in b_buffers)
     if (d["loss"] > tol["loss"] or d["grad_norm"] > tol["grad_norm"] or d["grads"] > tol["grads"]
             or d["params"] > 20 * TRAIN_LR + 1e-6 or not bufs_ok):
-        raise RuntimeError(f"[{label}] the data-parallel step differs from the plain one: {d} "
+        raise RuntimeError(f"[{label}] the parallel step differs from the plain one: {d} "
                            f"(bounds {tol}, params 20 * lr), BN buffers within bounds {bufs_ok}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms (its weight gradients may
+    otherwise sum with atomics, in another order on every call)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def bit_equal(a: tuple, b: tuple) -> bool:
+    """Two host_step results are equal bit for bit."""
+    (ma, *ta), (mb, *tb) = a, b
+    return ma == mb and all(x.keys() == y.keys() and all(torch.equal(x[n], y[n]) for n in x)
+                            for x, y in zip(ta, tb))
 
 
 def host_step(model, metrics) -> tuple:
@@ -2926,7 +3037,7 @@ def collective_cost(step, batch) -> dict:
 def phase_dp_world1(profile_dir=None):
     """D1: make_parallel_train_step at world size 1 (NCCL, one process) on
     the seeded unet_s at (BATCH, HW, HW), bf16 compute / f32 master, against
-    the plain step from the same weights (D1_TOL); 7 + 7 kernel launches a
+    the plain step from the same weights, bit for bit; 7 + 7 kernel launches a
     step on the tensor cores; step ms as a caller sees it (CUDA events,
     steps issued one after another) and peak memory of both, in turns
     (plain, dp, dp, plain); the all-reduces a step and one's cost; with
@@ -2948,14 +3059,17 @@ def phase_dp_world1(profile_dir=None):
             steps = {"plain": make_train_step(models["plain"], LossConfig(), opt),
                      "dp": make_parallel_train_step(models["dp"], LossConfig(), opt, group)}
             replicate(models["dp"], steps["dp"].optimizer, group)
-            reset_launches()
-            got = host_step(models["dp"], steps["dp"](batch, TRAIN_LR))
-            first = read_launches()
+            with deterministic_cudnn():
+                reset_launches()
+                got = host_step(models["dp"], steps["dp"](batch, TRAIN_LR))
+                first = read_launches()
+                ref = host_step(models["plain"], steps["plain"](batch, TRAIN_LR))
             if first != want:
                 raise RuntimeError(f"[D1] one data-parallel step launched {first}, want {want}")
-            ref = host_step(models["plain"], steps["plain"](batch, TRAIN_LR))
             diffs = step_diffs(got, ref)
-            check_step_diffs("D1", diffs, D1_TOL, got[3], ref[3])
+            if not bit_equal(got, ref):
+                raise RuntimeError(f"[D1] the data-parallel step at world size 1 is not the plain "
+                                   f"step bit for bit: {diffs}")
             collectives = collective_cost(steps["dp"], batch)
             runs = {"plain": [], "dp": []}
             timed = {k: 0 for k in want}
@@ -2981,8 +3095,8 @@ def phase_dp_world1(profile_dir=None):
         f"{per_step} launches a step; vs the plain step from the same weights: loss rel "
         f"{diffs['loss']:.3g}, grad norm rel {diffs['grad_norm']:.3g}, grads "
         f"{diffs['grads']:.3g} of the largest ({diffs['g_max']:.3g}), params max "
-        f"{diffs['params']:.3g}, BN buffers max {diffs['buffers']:.3g} (one-pass vs two-pass "
-        f"BN variance); step {ms['dp']:.3f} ms (dp) vs {ms['plain']:.3f} ms (plain), ratio "
+        f"{diffs['params']:.3g}, BN buffers max {diffs['buffers']:.3g} (bit-equal); step "
+        f"{ms['dp']:.3f} ms (dp) vs {ms['plain']:.3f} ms (plain), ratio "
         f"{ms['dp'] / ms['plain']:.4f} (runs {runs}), peak {peak['dp']:.1f} vs "
         f"{peak['plain']:.1f} MiB; {collectives['per_step']} all-reduces a step "
         f"({collectives['elements']} elements), a lone one {collectives['host_us']:.1f} us of "
@@ -3031,14 +3145,14 @@ def d2_rank(rank: int, rendezvous: str, backend: str, data: dict, out: str) -> N
     dist.destroy_process_group()
 
 
-def spawn_ranks(backend: str, data: dict, tmp: str, timeout: float = DP_TIMEOUT_S) -> tuple:
-    """D2's two ranks as spawned processes on cuda:0 -> (exit codes, results
-    of the ranks that wrote them); a rank still running after ``timeout``
-    seconds is killed."""
+def spawn_ranks(target, n: int, args: tuple, out: str, timeout: float = DP_TIMEOUT_S) -> tuple:
+    """``target(rank, rendezvous, *args, out)`` in ``n`` spawned processes on
+    cuda:0 (a ``file://`` rendezvous beside ``out``) -> (exit codes, results
+    of the ranks that wrote them to ``out.<rank>``); a rank still running
+    after ``timeout`` seconds is killed."""
     ctx = torch.multiprocessing.get_context("spawn")
-    out = os.path.join(tmp, backend)
-    procs = [ctx.Process(target=d2_rank, args=(r, f"file://{out}.rendezvous", backend, data,
-                                                out)) for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=target, args=(r, f"file://{out}.rendezvous", *args, out))
+             for r in range(n)]
     for proc in procs:
         proc.start()
     for proc in procs:
@@ -3048,7 +3162,7 @@ def spawn_ranks(backend: str, data: dict, tmp: str, timeout: float = DP_TIMEOUT_
             proc.kill()
             proc.join()
     results = [torch.load(f"{out}.{r}", weights_only=False) if os.path.exists(f"{out}.{r}")
-               else None for r in range(DP_RANKS)]
+               else None for r in range(n)]
     return [proc.exitcode for proc in procs], results
 
 
@@ -3061,12 +3175,13 @@ def phase_dp_two_ranks():
     a step (f32: the CUDA-core kernel).  -> (launches by rank, numbers)."""
     data = rect_batch(8, BATCH, HW, HW)
     with tempfile.TemporaryDirectory() as tmp:
-        codes, probe = spawn_ranks("nccl-probe", {}, tmp, timeout=90)
+        codes, probe = spawn_ranks(d2_rank, DP_RANKS, ("nccl-probe", {}),
+                                   os.path.join(tmp, "nccl-probe"), timeout=90)
         nccl = ("two ranks on one device ran an all-reduce (sum "
                 f"{probe[0]['sum']})" if all(c == 0 for c in codes)
                 else f"refused (rank exit codes {codes})")
         log(f"[D2 dp two ranks] NCCL with two ranks on cuda:0: {nccl}; D2 runs over gloo")
-        codes, ranks = spawn_ranks("gloo", data, tmp)
+        codes, ranks = spawn_ranks(d2_rank, DP_RANKS, ("gloo", data), os.path.join(tmp, "gloo"))
     if any(c != 0 for c in codes) or any(r is None for r in ranks):
         raise RuntimeError(f"[D2] a gloo rank failed: exit codes {codes}")
     per_step = len(MAIN_CONVS)
@@ -3156,6 +3271,307 @@ def phase_dp_serve(model):
     return launches, numbers
 
 
+# S1-S4: spatial parallelism (parallel/spatial.py), the ranks spawned on
+# cuda:0 over gloo as D2's.  S1: unet_s (3 classes, ConvT ups) at S1_SHAPE,
+# 512 rows a rank; S2: the variants at S2_SHAPE; S3: the 2 x 2 (data,
+# spatial) layout at S3_SHAPE; S4: one S4_HW² scan through the spatial eval
+# forward.
+SP_RANKS = 2
+S1_SHAPE = (2, 1024, 1024)
+S2_SHAPE = (2, HW, HW)
+S3_SHAPE, S3_DP = (4, HW, HW), 2
+S4_HW = 2048
+S_VARIANTS = ("bilinear", "unet_sa", "binary", "remat", "unet_pp_s")
+S_TIMED_STEPS = 5
+# S1 and S3 (f32, TF32 off) against one process's plain step on the whole
+# batch: the bounds D2 meets on the card (loss rel 1.9e-6, gradients 6.4e-5
+# of the largest, PERF.md): loss 2e-6 relative, gradients 1e-4 of the
+# largest, grad norm 1e-4, BN buffers rtol 1e-4 / atol 1e-5, parameters
+# 20 * lr.
+S_TOL = dict(loss=2e-6, grads=1e-4, grad_norm=1e-4, buf_rtol=1e-4, buf_atol=1e-5)
+# S2's variants: D2's gate.  A band's convs that cuDNN runs (Cin = 1 or > 32,
+# unet_sa's 7x7 gate) take other algorithms at the band's shape than at the
+# whole image's, so their sums round apart, and a ReLU input within that of
+# zero takes the other side: in this script's runs on the card unet_sa's
+# gradients came 2.1e-4 and binary's 1.1e-4 of the largest from the plain
+# step's, where unet_s's came 6.0e-5 (PERF.md)
+S2_TOL = D2_TOL
+
+
+# the UNet variants of S_VARIANTS: their factory's keywords
+S_UNET_KW = {"bilinear": dict(bilinear=True), "unet_sa": dict(factory=unet_sa),
+             "binary": dict(n_classes=1), "remat": dict(remat=True)}
+
+
+def s_model(name: str, compute_dtype=None):
+    """The seeded model of a spatial case on the card: unet_s, a variant of
+    S_VARIANTS, or (``served``) phase 5's unet_s in eval mode."""
+    if name == "served":
+        model = build_model(seed=MODEL_SEED).eval()
+        model.compute_dtype = compute_dtype
+    elif name == "unet_pp_s":
+        model = seeded_model("unet_pp_s", MODEL_SEED, centre=False, n_classes=3,
+                             compute_dtype=compute_dtype)
+    else:
+        model = seeded_unet_s(compute_dtype, **S_UNET_KW.get(name, {}))
+    return model.cuda()
+
+
+def s_loss(name: str) -> LossConfig:
+    return LossConfig(n_classes=1 if name == "binary" else 3)
+
+
+def s_want(name: str, dtype) -> dict:
+    """The read_launches() of one step (or, for "served", one forward) of a
+    spatial case on a rank: the plain step's counts."""
+    n = len(routed_convs(s_model_cpu(name)))
+    fwd, dx = (n, 0) if name == "served" else (2 * n if name == "remat" else n, n)
+    tc = dtype == torch.bfloat16
+    return {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd if tc else 0,
+            "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx tensor_core": dx if tc else 0}
+
+
+def s_shapes() -> list:
+    """(label, B, h, W, Cin, Cout, timed) of the 3x3 convs that a rank of
+    S1-S4 launches the kernel at: its band's rows plus the two halo rows, at
+    every level, for every conv the dispatch rule routes (the dx launches
+    the same shapes, Cout -> Cin).  S1's are timed (bf16)."""
+    rows = []
+    cases = [("S1", S1_SHAPE, 1, unet_s(), True), ("S3", S3_SHAPE, S3_DP, unet_s(), False),
+             ("S4", (1, S4_HW, S4_HW), 1, unet_s(), False)]
+    cases += [(f"S2 {name}", S2_SHAPE, 1, s_model_cpu(name), False) for name in S_VARIANTS]
+    for label, (b, h, w), dp, model, timed in cases:
+        sp = (SP_RANKS * S3_DP if label == "S3" else SP_RANKS) // dp
+        for name, cin, cout, s in routed_convs(model):
+            rows.append((f"{label} {name}", b // dp, h // (sp * s) + 2, w // s, cin, cout, timed))
+    seen, out = set(), []
+    for row in rows:  # every S1 conv (they are timed), other shapes once
+        if row[6] or row[1:6] not in seen:
+            seen.add(row[1:6])
+            out.append(row)
+    return out
+
+
+def s_model_cpu(name: str):
+    """A spatial case's architecture (no weights) for routed_convs."""
+    if name == "unet_pp_s":
+        return get_model("unet_pp_s")
+    kw = dict(S_UNET_KW.get(name, {}))
+    return kw.pop("factory", unet_s)(**kw)
+
+
+def s_step_times(step, batch, n: int = S_TIMED_STEPS) -> dict:
+    """Host ms per step (synchronised) over ``n`` steps after 2 warm-ups, and
+    the device's CUDA time per step from torch.profiler over 2 steps (None
+    where the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step(batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(batch, TRAIN_LR)
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return dict(step_ms=host_ms, device_ms=device_us / 2e3 if device_us > 0 else None)
+
+
+def s_plain_step(name: str, data: dict, dtype=None, timed: bool = False) -> dict:
+    """One process's plain step of a spatial case on the whole batch, f32
+    under exact_f32 (bf16 as phase 7 runs it): host_step, peak MiB above what
+    was allocated before the model was built, and with ``timed`` its times."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = s_model(name, dtype)
+    step = make_train_step(model, s_loss(name), RMSpropConfig(learning_rate=TRAIN_LR))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    with exact_f32() if dtype is None else contextlib.nullcontext():
+        metrics = step(batch, TRAIN_LR)
+        torch.cuda.synchronize()
+    out = dict(step=host_step(model, metrics),
+               peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    if timed:
+        out.update(s_step_times(step, batch))
+    return out
+
+
+def s_rank_step(mesh, name: str, data: dict, dtype, timed: bool) -> dict:
+    """s_plain_step's numbers for this rank's block, through the
+    row-sharded step (its launches counted)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = s_model(name, dtype)
+    step = make_spatial_train_step(model, s_loss(name), RMSpropConfig(learning_rate=TRAIN_LR),
+                                   mesh)
+    replicate(model, step.optimizer, mesh.group)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in shard_batch(data, mesh).items()}
+    with exact_f32() if dtype is None else contextlib.nullcontext():
+        reset_launches()
+        metrics = step(batch, TRAIN_LR)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    out = dict(step=host_step(model, metrics), launches=launches,
+               peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    if timed:
+        out.update(s_step_times(step, batch))
+    return out
+
+
+def s_rank_forward(mesh, image: np.ndarray, dtype) -> dict:
+    """S4 on a rank: the served unet_s's classes of the whole scan through
+    make_spatial_forward, and this rank's launches."""
+    forward = make_spatial_forward(s_model("served", dtype), mesh)
+    x = torch.from_numpy(image).cuda()
+    with exact_f32() if dtype is None else contextlib.nullcontext():
+        reset_launches()
+        logits = forward(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    return dict(classes=logits.argmax(-1).to(torch.uint8).cpu(), launches=launches)
+
+
+def s_rank(rank: int, rendezvous: str, world: int, dp: int, tasks: list, out: str) -> None:
+    """One rank of S1-S4 on cuda:0 over gloo: the (dp, world / dp) layout,
+    then each task (label, "step" | "forward", model name, data, dtype,
+    timed); its results, launches and launched shapes go to ``out``."""
+    torch.cuda.set_device(0)
+    record_launches()
+    dist.init_process_group("gloo", init_method=rendezvous, world_size=world, rank=rank)
+    mesh = make_dp_spatial_mesh(dp, world // dp)
+    result = {}
+    for label, kind, name, data, dtype, timed in tasks:
+        t0 = time.perf_counter()
+        result[label] = (s_rank_step(mesh, name, data, dtype, timed) if kind == "step"
+                         else s_rank_forward(mesh, data, dtype))
+        result[label]["seconds"] = time.perf_counter() - t0
+    result["launched"] = sorted(LAUNCHED)
+    torch.save(result, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def spawn_spatial(world: int, dp: int, tasks: list, tmp: str) -> list:
+    """S1-S4's ranks on cuda:0 (spawn_ranks) -> their results, their launched
+    shapes added to LAUNCHED; a rank that fails fails the run."""
+    codes, ranks = spawn_ranks(s_rank, world, (world, dp, tasks),
+                               os.path.join(tmp, f"spatial{world}"))
+    if any(c != 0 for c in codes) or any(r is None for r in ranks):
+        raise RuntimeError(f"[S] a spatial rank failed: exit codes {codes}")
+    for r in ranks:
+        LAUNCHED.update(r["launched"])
+    return ranks
+
+
+def s_check(label: str, ranks: list, plain: dict, want: dict, tol) -> dict:
+    """A row-sharded step's ranks against the plain step: every rank's
+    launches equal ``want``, the ranks' parameters bit-equal, and (with
+    ``tol``) the numbers within it; -> the differences."""
+    results = [r[label] for r in ranks]
+    for i, r in enumerate(results):
+        if r["launches"] != want:
+            raise RuntimeError(f"[{label}] rank {i} launched {r['launches']}, want {want}")
+    first = results[0]["step"]
+    if not all(all(torch.equal(first[2][n], r["step"][2][n]) for n in first[2])
+               for r in results[1:]):
+        raise RuntimeError(f"[{label}] the ranks' parameters differ after the step")
+    diffs = step_diffs(first, plain["step"])
+    if tol is not None:
+        check_step_diffs(label, diffs, tol, first[3], plain["step"][3])
+    return diffs
+
+
+def phase_spatial() -> tuple:
+    """S1-S4 (see the module docstring): two spawned ranks on cuda:0 run S1
+    (f32 gate, then bf16 reported and timed), S2's variants and S4's scan in
+    one spawn, four ranks S3 in a second; the plain steps and the dense
+    forward run here.  -> (launches by path, numbers)."""
+    t0 = time.perf_counter()
+    s1, s2, s3 = (rect_batch(41, *S1_SHAPE), rect_batch(42, *S2_SHAPE),
+                  rect_batch(43, *S3_SHAPE))
+    scan = smooth_images(44, 1, S4_HW, cells=64)
+    bf16 = torch.bfloat16
+    tasks = [("S1 f32", "step", "unet_s", s1, None, False),
+             ("S1 bf16", "step", "unet_s", s1, bf16, True),
+             *[(f"S2 {n}", "step", n, s2, None, False) for n in S_VARIANTS],
+             ("S4 f32", "forward", "served", scan, None, False),
+             ("S4 bf16", "forward", "served", scan, bf16, False)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_spatial(SP_RANKS, 1, tasks, tmp)
+        t_two = time.perf_counter() - t0
+        ranks4 = spawn_spatial(S3_DP * SP_RANKS, S3_DP, [("S3 f32", "step", "unet_s", s3,
+                                                          None, False)], tmp)
+    t_ranks = time.perf_counter() - t0
+    numbers, launches = {}, {}
+    plain = {"S1 f32": s_plain_step("unet_s", s1), "S1 bf16": s_plain_step("unet_s", s1, bf16,
+                                                                            timed=True),
+             "S3 f32": s_plain_step("unet_s", s3),
+             **{f"S2 {n}": s_plain_step(n, s2) for n in S_VARIANTS}}
+    for label in plain:
+        rs = ranks4 if label == "S3 f32" else ranks
+        name = label.split()[1] if label.startswith("S2") else "unet_s"
+        dtype = bf16 if label.endswith("bf16") else None
+        tol = None if dtype == bf16 else S2_TOL if label.startswith("S2") else S_TOL
+        diffs = s_check(label, rs, plain[label], s_want(name, dtype), tol)
+        per_rank = [r[label] for r in rs]
+        numbers[label] = dict(diffs, loss_value=per_rank[0]["step"][0]["loss"],
+                              peak_mib=[r["peak_mib"] for r in per_rank],
+                              plain_peak_mib=plain[label]["peak_mib"],
+                              rank_seconds=[r["seconds"] for r in per_rank])
+        for i, r in enumerate(per_rank):
+            launches[f"{label.replace(' ', '_')}_rank{i}"] = r["launches"]
+        log(f"[{label}] {per_rank[0]['launches']} launches a rank (the plain step's), ranks "
+            f"bit-equal; vs one process's plain step: loss rel {diffs['loss']:.3g}, grad norm "
+            f"rel {diffs['grad_norm']:.3g}, grads {diffs['grads']:.3g} of the largest "
+            f"({diffs['g_max']:.3g}), params max {diffs['params']:.3g}, BN buffers max "
+            f"{diffs['buffers']:.3g}{'' if tol is None else f' (gate {tol})'}; peak MiB a "
+            f"rank {[round(r['peak_mib'], 1) for r in per_rank]} vs plain "
+            f"{plain[label]['peak_mib']:.1f}")
+    s1b = [r["S1 bf16"] for r in ranks]
+    numbers["S1 bf16"].update(
+        step_ms=[r["step_ms"] for r in s1b], device_ms=[r["device_ms"] for r in s1b],
+        plain_step_ms=plain["S1 bf16"]["step_ms"], plain_device_ms=plain["S1 bf16"]["device_ms"])
+    log(f"[S1 bf16] unet_s {S1_SHAPE} over {SP_RANKS} ranks on one card: step "
+        f"{numbers['S1 bf16']['step_ms']} ms a rank on the host clock (the two ranks share "
+        f"the card), CUDA time {numbers['S1 bf16']['device_ms']} ms a rank; plain step "
+        f"{plain['S1 bf16']['step_ms']:.3f} ms, CUDA time {plain['S1 bf16']['device_ms']} ms; "
+        f"peak a rank / plain "
+        f"{[round(p / plain['S1 bf16']['peak_mib'], 3) for p in numbers['S1 bf16']['peak_mib']]}")
+    served = {None: s_model("served"), bf16: s_model("served", bf16)}
+    for dtype, label in ((None, "S4 f32"), (bf16, "S4 bf16")):
+        want = fwd_launches(len(MAIN_CONVS)) if dtype == bf16 else {
+            **fwd_launches(len(MAIN_CONVS)), "conv3x3_nhwc tensor_core": 0}
+        got = [r[label] for r in ranks]
+        for i, r in enumerate(got):
+            if r["launches"] != want:
+                raise RuntimeError(f"[{label}] rank {i} launched {r['launches']}, want {want}")
+            launches[f"{label.replace(' ', '_')}_rank{i}"] = r["launches"]
+        with torch.inference_mode(), (exact_f32() if dtype is None
+                                      else contextlib.nullcontext()):
+            dense = served[dtype](torch.from_numpy(scan).cuda()).argmax(-1).to(torch.uint8).cpu()
+        agree = [float((r["classes"] == dense).float().mean()) for r in got]
+        numbers[label] = dict(agreement=agree)
+        log(f"[{label}] one {S4_HW}² scan over {SP_RANKS} ranks (make_spatial_forward) vs one "
+            f"process's forward: masks agree on {[f'{a:.6%}' for a in agree]} of pixels; "
+            f"{want['conv3x3_nhwc']} launches a rank")
+        if dtype is None and min(agree) < 1.0:
+            raise RuntimeError(f"[{label}] f32 spatial masks differ from the dense forward's")
+    numbers["seconds"] = dict(two_ranks=t_two, four_ranks=t_ranks - t_two,
+                              total=time.perf_counter() - t0)
+    log(f"[S time] S1, S2, S4 ranks {t_two:.1f} s, S3 ranks {t_ranks - t_two:.1f} s, all of "
+        f"S1-S4 {numbers['seconds']['total']:.1f} s")
+    return launches, numbers
+
+
 def phase_launched_shapes() -> tuple:
     """Every shape at which a counted window of a main path launched the
     conv3x3 kernel (forward or dx) was held against the plain version in
@@ -3242,15 +3658,26 @@ def main(argv=None) -> int:
     dp1_launches, dp["world1"] = phase_dp_world1(args.profile)
     dp2_launches, dp["two_ranks"] = phase_dp_two_ranks()
     dp3_launches, dp["serve"] = phase_dp_serve(model)
+    t0 = time.perf_counter()
+    spatial = {"A0": phase_bn_formula()}
+    spatial["A0"]["seconds"] = time.perf_counter() - t0
+    log(f"[A0 time] {spatial['A0']['seconds']:.1f} s")
+    sp_launches, spatial["S"] = phase_spatial()
     n_shapes, n_shapes8, n_shapes8_here = phase_launched_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
+    # S1: per rank per step, the forward and dx at the band-plus-halo shapes
+    sp_rows = [r for r in rows if r["path"] == "spatial"]
+    sp_bwd_rows = [r for r in bwd_rows if r["path"] == "spatial"]
+    bwd_rows = [r for r in bwd_rows if r["path"] == "train"]
     train_paths = {"train": train_launches, "train_binary": binary_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
                    "train_remat": remat_launches,
                    # D1, D2: the data-parallel step at world size 1, and each rank of two
-                   "train_dp_world1": dp1_launches, **dp2_launches}
+                   "train_dp_world1": dp1_launches, **dp2_launches,
+                   # S1-S3: each rank of the row-sharded steps
+                   **{f"train_{k}": v for k, v in sp_launches.items() if not k.startswith("S4")}}
     # C1-C5: UNet++ and YOLOv8-seg serving, tiled, train, export and int8
     family_paths = {**pp_launches, **pp_train_launches, **yolo_launches,
                     **{k: fwd_launches(v["conv3x3_nhwc"]) for k, v in yolo8_launches.items()}}
@@ -3263,6 +3690,8 @@ def main(argv=None) -> int:
                # D3: data-parallel serving, two replicas
                "dp_predict": dp3_launches["dense"]["conv3x3_nhwc"],
                "dp_tiled": dp3_launches["tiled"]["conv3x3_nhwc"],
+               # S4: each rank of the row-sharded eval forward of one scan
+               **{k: v["conv3x3_nhwc"] for k, v in sp_launches.items() if k.startswith("S4")},
                **{k: v["conv3x3_nhwc"] for k, v in family_paths.items() if "train" not in k}}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
@@ -3317,6 +3746,10 @@ def main(argv=None) -> int:
         "tiled_shapes": shape_rows(tiled_rows),
         # yolov8_seg_s's convs at (8, 512²) that unet_s has no shape for
         "yolo_shapes": shape_rows(yolo_rows),
+        # per rank per S1 step (unet_s, 2 x 1024², 2 bands): its band and halo rows
+        "spatial": {k: sum(r[k] for r in sp_rows) for k in ("ms", "bound_ms", "plain_ms",
+                                                              "library_ms")},
+        "spatial_shapes": shape_rows(sp_rows),
     }, {
         # the int8 conv with its epilogue, per unet_s int8 forward (8, 512², 18 convs)
         "name": "conv3x3_int8",
@@ -3379,6 +3812,9 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows) else "operations",
         "library_ms": sum(r["library_ms"] for r in bwd_rows),
         "shapes": shape_rows(bwd_rows),
+        "spatial": {k: sum(r[k] for r in sp_bwd_rows) for k in ("ms", "bound_ms", "plain_ms",
+                                                                  "library_ms")},
+        "spatial_shapes": shape_rows(sp_bwd_rows),
     }]
     fwd, k8 = kernels[0], kernels[1]
     int_mm = "refused" if k8["int_mm_ms"] is None else f"{k8['int_mm_ms']:.4f} ms"
@@ -3403,6 +3839,12 @@ def main(argv=None) -> int:
         f"kernel / library {dx['ms'] / dx['library_ms']:.3f}; dw (cuDNN "
         f"wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms, bound "
         f"{sum(r['dw_bound_ms'] for r in bwd_rows):.4f} ms")
+    for kernel, what in ((fwd, "forward"), (dx, "dx")):
+        t = kernel["spatial"]
+        log(f"[kernels] {what} per rank per S1 step at the band-plus-halo shapes: kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
+            f"{t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms")
     for win, t in fwd["tiled"].items():
         log(f"[kernels] per tiled forward of {t['batch']} windows of {win}²: kernel "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
@@ -3416,6 +3858,7 @@ def main(argv=None) -> int:
     log(f"[export] {json.dumps(export)}")
     log(f"[families] {json.dumps(pp)}")
     log(f"[dp] {json.dumps(dp)}")
+    log(f"[spatial] {json.dumps(spatial)}")
     log(f"[time] {time.perf_counter() - t_start:.1f} s from the device check to the result")
     print(json.dumps({"kernels": kernels}))
     print(smi)

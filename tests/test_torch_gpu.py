@@ -18,13 +18,20 @@ from chip_smoke import (
     INT8_CONVS,
     MODEL_SEED,
     PP_SPLIT_CONVS,
+    S2_SHAPE,
+    S2_TOL,
     SILU_INV_S,
     build_model,
     int8_operands,
     phase_dp_serve,
     phase_dp_two_ranks,
     rect_batch,
+    s_check,
+    s_plain_step,
+    s_shapes,
+    s_want,
     seeded_model as seeded_family,
+    spawn_spatial,
     seeded_unet_s,
     silu_operands,
     smooth_images,
@@ -658,3 +665,33 @@ def test_dp_serving_on_card(cuda):
     assert numbers["dense_agreement"] == numbers["tiled_agreement"] == \
         numbers["int8_agreement"] == 1.0
     assert launches["int8"]["conv3x3_int8"] == 36
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_halo_shape_launches_match_plain(cuda, dtype, tol):
+    """chip_smoke's S1-S4 shapes: every rank's band plus its two halo rows
+    at every level (chip_smoke.s_shapes), the forward and the dx kernel
+    against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for _, b, h, w, cin, cout, _ in s_shapes():
+        x = torch.randn(b, h, w, cin, device=cuda, generator=gen).to(dtype)
+        wt = (torch.randn(3, 3, cin, cout, device=cuda, generator=gen) / (3 * cin ** 0.5)).to(dtype)
+        g = torch.randn(b, h, w, cout, device=cuda, generator=gen).to(dtype)
+        with exact_f32():
+            got, dx = K.conv3x3_nhwc(x, wt), K.conv3x3_nhwc_dx(g, wt)
+            want = K.conv3x3_nhwc_reference(x, wt)
+            want_dx = K.conv3x3_nhwc_reference(g, K.rotate_weight(wt))
+            torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+
+
+def test_spatial_step_two_ranks_on_one_card(cuda, tmp_path):
+    """A row-sharded f32 step of the seeded unet_s at chip_smoke's S2 shape
+    (2, 512, 512) on two spawned ranks on cuda:0 over gloo (a band of 256
+    rows each) against one process's plain step (chip_smoke.S2_TOL), the
+    ranks bit-equal, 7 + 7 launches a rank."""
+    data = rect_batch(45, *S2_SHAPE)
+    ranks = spawn_spatial(2, 1, [("S", "step", "unet_s", data, None, False)], str(tmp_path))
+    diffs = s_check("S", ranks, s_plain_step("unet_s", data), s_want("unet_s", None), S2_TOL)
+    assert diffs["loss"] <= S2_TOL["loss"]

@@ -44,9 +44,11 @@ def test_model_family_modules_are_checked(module):
 
 @pytest.mark.parametrize("module", ["parallel/data_parallel.py", "parallel/distributed.py",
                                     "ops/collectives.py", "utils/profiling.py",
-                                    "utils/version_info.py", "utils/viz.py", "utils/flops.py"])
+                                    "utils/version_info.py", "utils/viz.py", "utils/flops.py",
+                                    "parallel/spatial.py", "ops/halo.py"])
 def test_parallel_and_utils_modules_are_checked(module):
-    """Data parallelism and the utils are among the sources checked above."""
+    """Data and spatial parallelism and the utils are among the sources
+    checked above."""
     assert PORT / module in _sources()
 
 
@@ -54,6 +56,11 @@ def test_rank_bodies_import_no_jax():
     """The module that the data-parallel tests' spawned ranks import stays
     free of JAX too."""
     test_no_forbidden_import_in_source(REPO / "tests" / "torch_dp_ranks.py")
+
+
+def test_spatial_rank_bodies_import_no_jax():
+    """So does the spatial-parallel tests' (tests/torch_spatial_ranks.py)."""
+    test_no_forbidden_import_in_source(REPO / "tests" / "torch_spatial_ranks.py")
 
 
 def test_importing_everything_loads_no_jax():

@@ -245,19 +245,68 @@ def test_cc_penalty_joins_the_loss_value_only():
     assert TCC.connected_component_loss(m["cc_probs"].numpy()) > 0
 
 
+def _cc_case():
+    rng = np.random.default_rng(79)
+    logits = (rng.standard_normal((4, 64, 64, 1)) * 3).astype(np.float32)
+    targets = rng.integers(0, 3, (4, 64, 64)).astype(np.int32)
+    return logits, targets, dict(n_classes=1, connected_component=True)
+
+
+def _assert_cc_metrics(results, want):
+    for metrics in results:
+        assert set(metrics) == set(want)
+        for k in want:
+            assert metrics[k].item() == pytest.approx(float(want[k]), rel=1e-5), k
+
+
 def test_cc_penalty_needs_emitted_probs():
-    """The penalty is scored only at train_model's delayed fetch: without
-    cc_emit_probs the loss refuses, and names that route."""
-    logits = torch.zeros((1, 16, 16, 1))
-    targets = torch.zeros((1, 16, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="cc_emit_probs=True"):
-        TL.compute_loss(logits, targets, TL.LossConfig(n_classes=1, connected_component=True))
+    """The penalty's in-step form (cc_emit_probs False, JAX's default), once
+    refused: compute_loss scores the detached sigmoid map on the host and
+    adds it to the loss value, as JAX's compute_loss does through its host
+    callback; the value (``metrics["cc"]``) and the loss equal JAX's, and
+    the gradient is the loss's without the penalty, bit for bit."""
+    logits, targets, cfg = _cc_case()
+    want = JL.compute_loss(jnp.asarray(logits), jnp.asarray(targets), JL.LossConfig(**cfg))[1]
+    got = {}
+    for cc in (False, True):
+        z = torch.from_numpy(logits).requires_grad_()
+        loss, m = TL.compute_loss(z, torch.from_numpy(targets),
+                                  TL.LossConfig(n_classes=1, connected_component=cc))
+        loss.backward()
+        got[cc] = (m, z.grad)
+    torch.testing.assert_close(got[True][1], got[False][1], rtol=0, atol=0)
+    metrics = got[True][0]
+    assert metrics["cc"].item() > 0 and not metrics["cc"].requires_grad
+    assert metrics["loss"].item() == pytest.approx(
+        got[False][0]["loss"].item() + metrics["cc"].item(), rel=1e-6)
+    _assert_cc_metrics([metrics], want)
+
+
+def test_cc_penalty_in_step_over_a_data_group(tmp_path):
+    """The in-step penalty on 2 data-parallel ranks is the ranks' mean,
+    equal to JAX's ``pmean`` under shard_map on a 2-device mesh, as is
+    every other term."""
+    from jax.sharding import PartitionSpec as P
+    from torch_dp_ranks import cc_in_step, run_ranks
+
+    from unet_medical_image_contour_segmentation_tpu.parallel import make_data_mesh
+
+    logits, targets, cfg = _cc_case()
+
+    def cc_value(z, t):
+        return JL.compute_loss(z, t, JL.LossConfig(**cfg), axis_name="data")[1]
+
+    want = jax.jit(jax.shard_map(cc_value, mesh=make_data_mesh(2),
+                                 in_specs=(P("data"), P("data")), out_specs=P(),
+                                 check_vma=False))(jnp.asarray(logits), jnp.asarray(targets))
+    _assert_cc_metrics(run_ranks(cc_in_step, (logits, targets), tmp_path), want)
 
 
 @pytest.mark.parametrize("kw", [
     dict(n_classes=3), dict(n_classes=3, multiclass_boundary=True),
     dict(n_classes=1), dict(n_classes=3, connected_component=True),
     dict(n_classes=1, connected_component=True, cc_emit_probs=True),
+    dict(n_classes=1, connected_component=True),
 ])
 def test_metric_keys_match_the_real_dict(kw):
     rng = np.random.default_rng(78)

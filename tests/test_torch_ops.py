@@ -76,7 +76,7 @@ def test_batch_norm(train):
     mean, var = _rand(13, 8), np.abs(_rand(14, 8)) + 0.5
     jy, (jm, jv) = J.batch_norm(_j(x), _j(scale), _j(bias), _j(mean), _j(var), train=train)
     ty, (tm, tv) = T.batch_norm(_t(x), _t(scale), _t(bias), _t(mean), _t(var), train=train)
-    # JAX takes the batch variance one-pass (E[x^2] - E[x]^2), torch two-pass
+    # both take the batch variance one-pass (E[x^2] - E[x]^2), in other orders
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-4, atol=1e-5)

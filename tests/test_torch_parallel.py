@@ -22,9 +22,14 @@ Tolerances (f32) and why:
   20 * lr.  RMSprop's first step moves each parameter by ~10 * lr * sign(g)
   whatever |g|, so a gradient within f32 rounding of zero (measured: a few
   in 10^4) can move the other way (``tests/test_torch_train.py``);
-* against the port's single-device step on the global batch, which takes
-  the variance two-pass: the loss to 1e-5 relative, the gradients to 1e-5 of
-  the largest one, the BN statistics to 1e-6;
+* against the port's single-device step on the global batch (the same
+  one-pass variance, its sums in another order): the loss to 1e-5
+  relative, the gradients to 1e-5 of the largest one, the BN statistics to
+  1e-6;
+* the data-parallel step over a group of one rank against the plain step:
+  bit for bit.  Both take the variance one-pass (JAX's formula): in bf16
+  it is as good as the two-pass one (``chip_smoke.py``'s A0), so one
+  device takes it too, and a group's BN is the plain BN;
 * masks of data-parallel serving: exactly equal to single-device serving.
 """
 
@@ -41,6 +46,7 @@ from torch_dp_ranks import (
     bn_and_losses,
     dp_evaluate,
     np_samples,
+    plain_and_group_steps,
     run_ranks,
     train_in_group,
     train_step,
@@ -300,6 +306,27 @@ def test_parallel_train_step_matches_jax_and_single_device(tmp_path, n_classes, 
     diffs = torch.cat([(p.detach() - got[0]["state"][k]).abs().ravel()
                        for k, p in model.named_parameters()])
     assert diffs.max().item() <= 20 * LR and (diffs > 1e-5).float().mean().item() < 1e-3
+
+
+@pytest.fixture(scope="module")
+def world1_run(tmp_path_factory):
+    """Both criteria's plain and one-rank-group steps, in one spawned rank."""
+    weights = {n: random_unet_params(1, widths=WIDTHS_T, n_classes=n) for n in (3, 1)}
+    return run_ranks(plain_and_group_steps, ("unet_t", weights, rect_batch(101, 2, 64, 64)),
+                     tmp_path_factory.mktemp("world1"), n=1)[0]
+
+
+@pytest.mark.parametrize("n_classes", [3, 1], ids=["multiclass", "binary"])
+def test_group_of_one_equals_the_plain_step(world1_run, n_classes):
+    """The data-parallel step over a gloo group of one rank and the plain
+    step, from the same weights on the same (2, 64, 64) batch, end bit for
+    bit equal: metrics, gradients, parameters and BN buffers (the BN
+    variance is one formula, one-pass, on both paths)."""
+    plain, group = world1_run[n_classes, "plain"], world1_run[n_classes, "group"]
+    for key in ("metrics", "grads", "state"):
+        assert plain[key].keys() == group[key].keys()
+        for k, v in plain[key].items():
+            assert torch.equal(v, group[key][k]), (key, k)
 
 
 # -- data-parallel evaluate ---------------------------------------------------

@@ -3,8 +3,9 @@ package's, on the CPU in f32, on unet_t at (2, 64, 64) from seeded weights in
 the JAX layout.
 
 Tolerances and why:
-* BN batch statistics: JAX takes the variance one-pass, the port two-pass, so
-  train-mode logits differ by ~1e-6 relative per layer; gradients then agree
+* BN batch statistics: both take the variance one-pass, their f32 sums in
+  other orders, so train-mode logits differ by ~1e-6 relative per layer
+  (so they did when the port took it two-pass); gradients then agree
   to ~7e-4 of the largest gradient (measured), held at 2e-3.  That gap is
   JAX's f32 rounding: its eager and jitted gradients differ from each other
   by as much on some seeds, and the port's f32 gradients agree with JAX's

@@ -164,15 +164,28 @@ def test_train_model_nan_aborts(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(num_devices=2, spatial_shards=2), "data parallelism"),
+    (dict(num_devices=4, spatial_shards=2), "data parallelism"),
     (dict(spatial_shards=2), "spatial parallelism"),
 ])
-def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, kw, what):
-    """Spatial parallelism, alone or on a data-parallel mesh (JAX's 2-D
-    data x spatial mesh); data parallelism alone trains
-    (tests/test_torch_parallel.py)."""
-    with pytest.raises(NotImplementedError, match=what):
-        train_model(_cfg(data_root, tmp_path, **kw), device="cpu")
+def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, monkeypatch, kw, what):
+    """Spatial parallelism, once refused here, trains, beside data
+    parallelism or alone: the 2 x 2 (data, spatial) layout on 4 CPU ranks
+    (JAX tests/test_train_loop.py::test_train_model_dp_spatial), and 2 ranks
+    with a band of 16 rows each: 4 steps an
+    epoch (2 slices, 4 rotations each, at batch 2), every logged loss
+    finite, validation through the spatial eval step, rank 0's
+    checkpoints."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(data_root, tmp_path, save_val_predictions=False, val_postprocess=False,
+               metrics_path=str(tmp_path / "metrics.jsonl"), **kw)
+    step = train_model(cfg, device="cpu")
+    with open(cfg.metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "train_step"]
+    assert step.step == len(losses) == 8 and np.all(np.isfinite(losses)), what
+    assert len([r for r in records if r["kind"] == "validation"]) == 2
+    assert os.path.exists(tmp_path / "model_epoch2.npz")
+    assert os.path.exists(tmp_path / "ckpts" / "checkpoint_epoch2.npz")
 
 
 @pytest.mark.parametrize("model", ["unet_pp_m", "yolov8_seg_m"])
@@ -293,13 +306,15 @@ def test_cli_loads_reference_pth_weights(data_root, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", ["--num-devices=2", "--spatial-shards=2", "--distributed",
                                   "--coordinator-address=localhost:1234", "--num-processes=2",
                                   "--process-id=1"])
-def test_cli_refuses_flags_not_ported(flag, capsys):
-    """--spatial-shards 2 is refused, alone or beside each data-parallel and
-    multi-host flag (which parse: tests/test_torch_utils.py)."""
-    with pytest.raises(SystemExit) as exc:
-        train_cli.get_args(["--data-root", "d", flag, "--spatial-shards=2"])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_refuses_flags_not_ported(flag):
+    """--spatial-shards 2, once refused, parses alone and beside each
+    data-parallel and multi-host flag (train_model then keeps JAX's rules:
+    tests/test_torch_spatial.py)."""
+    args = vars(train_cli.get_args(["--data-root", "d", flag, "--spatial-shards=2"]))
+    name, _, value = flag.removeprefix("--").partition("=")
+    got = args[name.replace("-", "_")]
+    assert args["spatial_shards"] == 2
+    assert got == (type(got)(value) if value else True)
 
 
 @pytest.mark.parametrize("flags,want", [

@@ -73,8 +73,8 @@ def test_train_forward_and_running_stats_match_jax(weights, images):
     model = port_model(params, state).train()
     with torch.no_grad():
         got = model(torch.from_numpy(images)).numpy()
-    # batch statistics: JAX takes the variance one-pass (E[x^2] - E[x]^2),
-    # the port two-pass; the f32 difference grows through 18 BN layers
+    # batch statistics: both take the variance one-pass (E[x^2] - E[x]^2),
+    # their f32 sums in other orders; the difference grows through 18 BN layers
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-3, atol=1e-3)
     _, got_state, _ = params_from_state_dict(model.state_dict())
     for a, b in zip(jax.tree.leaves(got_state), jax.tree.leaves(new_state)):

@@ -4,7 +4,7 @@ on the CPU, on seeded numpy weights in the JAX layout (``chip_smoke``'s
 identity), carried into the port by ``state_dict_from_jax``.
 
 Tolerances: eval logits to 1e-4 (as the UNet's); train-mode forward to
-1e-3 (JAX takes the BN variance one-pass, the port two-pass); the train
+1e-3 (the BN variance's f32 sums in other orders); the train
 step's gradients to 1e-5 of JAX's f64 gradients (as the UNet variants');
 the int8 forward against JAX's eager ``_forward_pp`` on the same qparams to
 the bounds of ``tests/test_torch_quantize.py``.

@@ -2,8 +2,8 @@
 f32 on the CPU, on seeded numpy weights in the JAX layout (``chip_smoke``'s
 ``random_params_like``), carried into the port by ``state_dict_from_jax``.
 
-Tolerances: eval logits to 1e-4; train-mode forward to 1e-3 (one-pass
-against two-pass BN variance); the binary train step's gradients to 1e-5 of
+Tolerances: eval logits to 1e-4; train-mode forward to 1e-3 (BN variance
+sums in other orders); the binary train step's gradients to 1e-5 of
 JAX's f64 gradients.  YOLOv8-seg serves with live BN (nothing folds); its
 int8 path is held against JAX's in ``tests/test_torch_yolo_int8.py``.
 """

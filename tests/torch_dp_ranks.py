@@ -19,6 +19,7 @@ import torch.multiprocessing as mp
 
 from unet_medical_image_contour_segmentation_torch.engine.evaluate import evaluate
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig
+from unet_medical_image_contour_segmentation_torch.engine.train import TrainStep
 from unet_medical_image_contour_segmentation_torch.losses import boundary as TB
 from unet_medical_image_contour_segmentation_torch.losses import compound as TL
 from unet_medical_image_contour_segmentation_torch.losses import dice as TD
@@ -114,6 +115,14 @@ def bn_and_losses(rank, group, data):
     return out
 
 
+def cc_in_step(rank, group, logits, targets):
+    """The binary loss with the in-step connected-component penalty on this
+    rank's rows: its metrics (the penalty the ranks' mean)."""
+    cfg = TL.LossConfig(n_classes=1, connected_component=True)
+    return TL.compute_loss(torch.from_numpy(rows(rank, group, logits)),
+                           torch.from_numpy(rows(rank, group, targets)), cfg, group)[1]
+
+
 def _model(name, n_classes, params, bn_state):
     model = get_model(name, n_classes=n_classes)
     model.load_state_dict(state_dict_from_jax(params, bn_state))
@@ -131,6 +140,24 @@ def train_step(rank, group, name, n_classes, params, bn_state, batch, cc):
     return {"metrics": metrics,
             "grads": {k: p.grad for k, p in model.named_parameters()},
             "state": {k: v.detach() for k, v in model.state_dict().items()}}
+
+
+def plain_and_group_steps(rank, group, name, params_by_classes, batch):
+    """For each criterion (``params_by_classes``: {n_classes: (params,
+    bn_state)}), the plain step and the data-parallel step over ``group``
+    (of one rank) from the same weights on the same batch: metrics,
+    gradients, parameters and buffers of both."""
+    out = {}
+    for n_classes, (params, bn_state) in params_by_classes.items():
+        for label, g in (("plain", None), ("group", group)):
+            model = _model(name, n_classes, params, bn_state)
+            step = TrainStep(model, TL.LossConfig(n_classes=n_classes),
+                             RMSpropConfig(learning_rate=LR), group=g)
+            metrics = step({k: torch.from_numpy(v) for k, v in batch.items()}, LR)
+            out[n_classes, label] = {
+                "metrics": metrics, "grads": {k: p.grad for k, p in model.named_parameters()},
+                "state": {k: v.detach() for k, v in model.state_dict().items()}}
+    return out
 
 
 def dp_evaluate(rank, group, name, params, bn_state, samples, batch_size):

@@ -27,7 +27,11 @@ Across hosts, start one process per card on every host with
 --process-id I`` (P processes in all, I their global rank; rank 0 listens
 at HOST:PORT), or ``--distributed`` alone under a launcher that sets
 ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (torchrun).
-``--spatial-shards`` above 1 is rejected: spatial parallelism is not ported.
+
+Spatial parallelism: ``--spatial-shards S`` cuts every image's rows over S
+ranks of this host (beside ``--num-devices / S`` data-parallel ones; all
+the host's cards by default); H must be divisible by S times the model's
+pooling divisor.  Single-host only, and not for ``yolov8_seg_s``.
 """
 
 from __future__ import annotations
@@ -89,7 +93,8 @@ def get_args(argv=None):
     parser.add_argument("--num-devices", type=int, default=None,
                         help="Data-parallel device count (default: single device)")
     parser.add_argument("--spatial-shards", type=int, default=1,
-                        help="Only 1: spatial parallelism is not ported")
+                        help="Split each image's rows over this many devices (2-D data x "
+                             "spatial layout with --num-devices)")
     parser.add_argument("--distributed", action="store_true", default=False,
                         help="Join a torch.distributed group (multi-host training)")
     parser.add_argument("--coordinator-address", default=None,
@@ -97,9 +102,8 @@ def get_args(argv=None):
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
-    if args.spatial_shards > 1:
-        parser.error("--spatial-shards: spatial parallelism is not ported to the PyTorch "
-                     "package yet; use the JAX package's umics-train")
+    if args.spatial_shards < 1:
+        parser.error(f"--spatial-shards must be at least 1, not {args.spatial_shards}")
     if args.num_devices is not None and args.num_devices < 1:
         parser.error(f"--num-devices must be at least 1, not {args.num_devices}")
     return args
@@ -158,6 +162,7 @@ def main(argv=None) -> int:
                       scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
                       learning_rate=args.lr, amp=args.amp, scheduler_quirk=args.scheduler_quirk,
                       cc_loss=args.cc_loss, load=args.load, num_devices=args.num_devices,
+                      spatial_shards=args.spatial_shards,
                       save_val_predictions=args.save_val_predictions,
                       val_postprocess=args.val_postprocess,
                       nan_check_every=args.nan_check_every,

@@ -2,8 +2,7 @@
 package's ``config.py`` (``TrainConfig``, ``PostProcessConfig``,
 ``PipelineConfig``, ``add_dataclass_args``, ``dataclass_from_args``), field
 for field, so one config drives either package.  ``amp`` is bf16 compute
-with f32 master weights and no loss scaling.  Which fields the port's
-``train_model`` does not serve yet is said there: it raises for them.
+with f32 master weights and no loss scaling.
 """
 
 from __future__ import annotations
@@ -59,7 +58,8 @@ class TrainConfig:
     # parallelism
     num_devices: Optional[int] = None      # None: one device, as JAX's engine reads it;
                                            # N > 1: N data-parallel ranks (engine/train.py)
-    spatial_shards: int = 1                # > 1 is refused: spatial parallelism is not ported
+    spatial_shards: int = 1                # > 1: image rows over that many ranks, beside
+                                           # num_devices / spatial_shards data-parallel ones
     # misc
     seed: int = 0
     log_every: int = 10

@@ -31,9 +31,10 @@ from ..pipeline.post_process import postprocess_mask
 __all__ = ["evaluate", "eval_forward"]
 
 
-def eval_forward(model: nn.Module, image: torch.Tensor) -> torch.Tensor:
-    """(B, H, W[, C]) image on the model's device -> (B, H, W) int32 classes."""
-    logits = model(image)
+def eval_forward(model: nn.Module, image: torch.Tensor, shard=None) -> torch.Tensor:
+    """(B, H, W[, C]) image on the model's device -> (B, H, W) int32 classes;
+    with a ``shard``, of its band of rows (``parallel/spatial.py``)."""
+    logits = model(image) if shard is None else model(image, shard=shard)
     if model.n_classes == 1:
         return (torch.sigmoid(logits[..., 0]) > 0.5).int()
     return logits.argmax(dim=-1).int()
@@ -73,10 +74,11 @@ def evaluate(model: nn.Module, dataloader, *,
     ``eval_step`` maps a batch on the device to its (B, H, W) int32 classes
     (:func:`eval_forward` by default; the data-parallel step of
     ``parallel/data_parallel.py:make_parallel_eval_step`` shards it over the
-    ranks).  A batch whose size is not a multiple of ``batch_pad`` is padded
-    by repeating its last sample and its classes cropped back before any
-    host work, so the Dice triple is the single device's (JAX's
-    ``batch_pad``)."""
+    ranks, and ``parallel/spatial.py:make_spatial_eval_step`` over the ranks
+    and the images' rows).  A batch whose size is not a multiple of
+    ``batch_pad`` is padded by repeating its last sample and its classes
+    cropped back before any host work, so the Dice triple is the single
+    device's (JAX's ``batch_pad``)."""
     device = resolve_device(device)
     n_classes = model.n_classes
     if eval_step is None:

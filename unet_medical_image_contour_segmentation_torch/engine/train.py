@@ -38,8 +38,16 @@ rendezvous in a fresh temporary directory, NCCL or gloo) and returns rank
 (``parallel.distributed.initialize``: the train CLI's ``--distributed``, or
 torchrun), this process is one rank and trains as such.  Only rank 0
 logs metrics, writes prediction PNGs and saves checkpoints; validation
-shards each batch over the ranks.  Spatial parallelism is not ported and
-raises ``NotImplementedError``.
+shards each batch over the ranks.
+
+Spatial parallelism (``spatial_shards`` > 1; ``parallel/spatial.py``):
+``num_devices`` ranks (all the host's cards by default; ``spatial_shards``
+CPU processes for ``device="cpu"``) in a (dp, sp) layout of ``dp =
+num_devices / spatial_shards``: each rank takes its dp-th of every global
+batch and its band of their rows, validation gathers the classes of every
+block, and rank 0 saves checkpoints.  Single-host only, as in JAX: a process
+that has already joined a group of several raises ``NotImplementedError``.
+YOLOv8-seg does not row-shard and is refused.
 """
 
 from __future__ import annotations
@@ -89,23 +97,29 @@ class TrainStep:
     ``batch`` is this rank's rows of a global batch, BN and the loss reduce
     over the group, and the gradients are averaged over it before the clip
     (``parallel/data_parallel.py``), so every rank takes the single-device
-    step on the global batch.
+    step on the global batch.  With a ``shard`` as well (``ops/halo.py``,
+    ``parallel/spatial.py``), ``batch`` is this rank's band of rows of its
+    images, and the forward and the loss read the other bands through the
+    shard's spatial group.
     """
 
     def __init__(self, model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConfig,
-                 clipping: float = 1.0, group=None):
+                 clipping: float = 1.0, group=None, shard=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.clipping = clipping
         self.group = group
+        self.shard = shard
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.params, opt_cfg)
         self.step = 0
 
     def __call__(self, batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         self.model.train()
-        logits = self.model(batch["image"], group=self.group)
-        loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg, self.group)
+        kw = {} if self.shard is None else {"shard": self.shard}
+        logits = self.model(batch["image"], group=self.group, **kw)
+        loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg, self.group,
+                                     self.shard)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grads = [p.grad for p in self.params]
@@ -133,11 +147,24 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConf
     return TrainStep(model, loss_cfg, opt_cfg, clipping)
 
 
-def _refuse_unported(cfg: TrainConfig) -> None:
-    if cfg.spatial_shards > 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: spatial_shards > 1 (spatial parallelism, "
-            "alone or beside data parallelism); num_devices alone trains data-parallel")
+def _spatial_devices(cfg: TrainConfig, device: torch.device) -> int:
+    """The ranks of a row-sharded run (JAX ``engine/train.py``'s checks and
+    texts): ``num_devices``, by default every card of the host, or
+    ``spatial_shards`` CPU processes."""
+    sp = cfg.spatial_shards
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError("spatial_shards > 1 is single-host only; use data "
+                                  "parallelism across hosts")
+    n_dev = cfg.num_devices or (torch.cuda.device_count() if device.type == "cuda" else sp)
+    if sp > n_dev:
+        raise ValueError(f"spatial_shards {sp} exceeds the {n_dev} available devices")
+    if n_dev % sp:
+        raise ValueError(f"num_devices {n_dev} must be divisible by spatial_shards {sp}")
+    dp = n_dev // sp
+    if dp > 1 and cfg.batch_size % dp:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the "
+                         f"data-parallel degree {dp} (= num_devices/spatial_shards)")
+    return n_dev
 
 
 def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=None,
@@ -161,18 +188,21 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     receive the model, the datasets and ``metric_backends`` pickled, and the
     returned step holds rank 0's final state on ``device``.  In a process
     that has already joined a group, ``num_devices`` is the group's size
-    (None takes it).
+    (None takes it).  ``cfg.spatial_shards`` > 1 trains row-sharded (see the
+    module docstring), with JAX's rules and messages.
     """
     from ..models.unet import get_model
 
-    _refuse_unported(cfg)
     if cfg.cc_loss and cfg.classes != 1:
         # the penalty is part of the binary loss only (the reference ships it
         # commented out inside its n_classes == 1 branch)
         log.warning("--cc-loss has no effect with classes=%d: the connected-component "
                     "penalty is part of the binary (classes=1) loss only", cfg.classes)
     device = resolve_device(device)
-    if dist.is_initialized():
+    sp = cfg.spatial_shards
+    if sp > 1:
+        n_dev = _spatial_devices(cfg, device)
+    elif dist.is_initialized():
         world = dist.get_world_size()
         n_dev = cfg.num_devices or world
         if n_dev != world:
@@ -180,7 +210,7 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
                              f"process group (one device per process)")
     else:
         n_dev = cfg.num_devices or 1
-    if n_dev > 1 and cfg.batch_size % n_dev:
+    if n_dev > 1 and sp == 1 and cfg.batch_size % n_dev:
         raise ValueError(f"batch_size {cfg.batch_size} must be divisible by num_devices "
                          f"{n_dev}")
     if n_dev > 1 and not dist.is_initialized() and device.type == "cuda" \
@@ -191,6 +221,10 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
         model = get_model(cfg.model, n_channels=cfg.n_channels, n_classes=cfg.classes,
                           bilinear=cfg.bilinear, remat=cfg.remat,
                           compute_dtype=torch.bfloat16 if cfg.amp else None)
+    if sp > 1:
+        from ..parallel.spatial import check_model
+
+        check_model(model)
     if train_set is None:
         from ..data.dataset import BasicDataset
 
@@ -207,7 +241,7 @@ def train_model(cfg: TrainConfig, model: Optional[nn.Module] = None, train_set=N
     if state is not None:
         model.load_state_dict(state_dict_from_jax(state["params"], state["bn_state"]))
     run = (cfg, model, train_set, val_set, state, mask_values, metric_backends)
-    if dist.is_initialized():
+    if dist.is_initialized() and sp == 1:
         from ..parallel.distributed import rank_device
 
         device = rank_device(device, dist.get_rank())
@@ -242,7 +276,7 @@ def _spawn_ranks(run: tuple, n_dev: int, device: torch.device) -> TrainStep:
                                                  torch.get_num_threads(), result),
                                nprocs=n_dev, start_method="spawn")
         except mp.ProcessRaisedException as e:
-            raise RuntimeError(f"a data-parallel rank failed:\n{e}") from None
+            raise RuntimeError(f"a rank failed:\n{e}") from None
         final = torch.load(result, map_location="cpu", weights_only=True)
     model.load_state_dict(final["model"])
     model.to(device)
@@ -296,18 +330,28 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
     """The loop of one process: the only one (``group`` None), or one rank
     of ``group``."""
     from ..data.loader import DataLoader, prefetch_to_device
+    from ..parallel.data_parallel import make_parallel_eval_step, replicate
     from ..utils.metrics import MetricLogger
 
     lead = group is None or dist.get_rank(group) == 0
+    mesh, shard, cc_group = None, None, group
     if group is None:
-        process_slice, val_step, val_pad = None, None, 1
+        process_slice, val_step, val_pad, replicas = None, None, 1, 1
+    elif cfg.spatial_shards > 1:
+        from ..parallel import spatial
+
+        mesh = spatial.make_dp_spatial_mesh(dist.get_world_size(group) // cfg.spatial_shards,
+                                            cfg.spatial_shards)
+        group, shard, cc_group = mesh.group, mesh.shard, mesh.shard.data_group
+        process_slice = spatial.data_rows(mesh, cfg.batch_size)
+        val_step = spatial.make_spatial_eval_step(model, mesh)
+        val_pad = replicas = mesh.dp
     else:
-        from ..parallel.data_parallel import make_parallel_eval_step, replicate
         from ..parallel.distributed import local_batch_slice
 
         process_slice = local_batch_slice(cfg.batch_size)
         val_step = make_parallel_eval_step(model, group)
-        val_pad = dist.get_world_size(group)
+        val_pad = replicas = dist.get_world_size(group)
     # every train batch full when data-parallel: each rank needs its rows
     train_loader = DataLoader(train_set, cfg.batch_size, shuffle=True,
                               num_workers=cfg.num_workers, seed=cfg.seed,
@@ -321,7 +365,7 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
 
     loss_cfg = _loss_config(cfg, model)
     model.to(device)
-    step_fn = TrainStep(model, loss_cfg, _opt_config(cfg), cfg.gradient_clipping, group)
+    step_fn = TrainStep(model, loss_cfg, _opt_config(cfg), cfg.gradient_clipping, group, shard)
     if state is not None:
         step_fn.step = int(state["step"])
         if state.get("opt_state") is not None:
@@ -346,8 +390,10 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
         """Fetch and check every queued step in one copy; -> (sum, last loss).
         A step's ``cc_probs`` map comes to the host beside it, and its
         connected-component penalty joins the logged loss: the mean of the
-        ranks' penalties when data-parallel (each scores its own rows, and
-        every rank's batch is the same size)."""
+        ranks' penalties when data-parallel (each scores its own images, and
+        every rank's batch is the same size; a row-sharded step hands every
+        rank of a spatial group the same whole images, so the mean is over
+        the data group)."""
         if not pending:
             return 0.0, None
         keys = [k for k in pending[0][1] if k != "cc_probs"]
@@ -361,10 +407,10 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
                 m["cc_probs"].cpu().numpy(), edge_distance=loss_cfg.cc_edge_distance,
                 min_area=loss_cfg.cc_min_area, penalty_weight=loss_cfg.cc_penalty_weight)
                 for _, m in pending]
-            if group is not None:
+            if cc_group is not None:
                 t = torch.tensor(cc, dtype=torch.float64, device=device)
-                dist.all_reduce(t, group=group)
-                cc = (t / dist.get_world_size(group)).tolist()
+                dist.all_reduce(t, group=cc_group)
+                cc = (t / dist.get_world_size(cc_group)).tolist()
         total = last = 0.0
         for i, ((step_idx, _), row) in enumerate(zip(pending, host)):
             metrics = dict(zip(keys, row.tolist()))
@@ -396,14 +442,18 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
                             disable=None)
             t0 = time.perf_counter()
             n_seen = 0
-            for batch in prefetch_to_device(iter(train_loader), device):
+            batches = iter(train_loader)
+            if mesh is not None:  # this rank's band of its images' rows
+                batches = ({k: v[:, spatial.band_rows(mesh, v.shape[1])] for k, v in b.items()}
+                           for b in batches)
+            for batch in prefetch_to_device(batches, device):
                 image = batch["image"]
                 n_ch = 1 if image.dim() == 3 else image.shape[-1]
                 if n_ch != model.n_channels:
                     raise ValueError(f"Network has been defined with {model.n_channels} input "
                                      f"channels, but loaded images have {n_ch} channels.")
                 metrics = step_fn(batch, lr)
-                n_seen += image.shape[0] * (1 if group is None else dist.get_world_size(group))
+                n_seen += image.shape[0] * replicas
                 if pbar is not None:
                     pbar.update(image.shape[0])
                 # drain before queueing the step just launched, so the fetch

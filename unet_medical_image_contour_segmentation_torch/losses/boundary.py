@@ -25,6 +25,13 @@ group's minimum and maximum, and each region's intersection, union, BCE
 sum and count are the group's before the ratios: the global batch's value.
 Those collectives run on detached values, as JAX's ``pmin``/``pmax`` carry
 no gradient.
+
+The strip runs along whole image rows and its 3-tap boundary crosses row
+ends, so a band of rows (spatial parallelism, ``ops/halo.py``) cannot score
+it alone: with a ``shard``, the spatial group's bands of the detached
+prediction and target are gathered into whole images first, and ``group``
+must then be the data group (the ranks that hold other images), so that no
+image is counted once per band.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.collectives import pmax, psum
+from ..ops.halo import gather_rows
 
 __all__ = ["boundary_loss"]
 
@@ -93,15 +101,17 @@ def _regular_loss(pred2d: torch.Tensor, targ2d: torch.Tensor, idx: torch.Tensor,
 
 def boundary_loss(pred_mask: torch.Tensor, target_mask: torch.Tensor, edge_width: int = 64,
                   edge_weight: float = 5.0, smooth: float = 1e-6,
-                  group=None) -> torch.Tensor:
+                  group=None, shard=None) -> torch.Tensor:
     """Weighted border-frame boundary loss, a 0-dim f32 tensor without grad.
 
     pred_mask: (B, H, W) or channel-last (B, H, W, C) (C > 1: channel 1);
-    target_mask: (B, H, W).
+    target_mask: (B, H, W); with a ``shard``, both one band of rows.
     """
     if pred_mask.dim() == 4:
         pred_mask = pred_mask[..., 1] if pred_mask.shape[-1] > 1 else pred_mask[..., 0]
     pred = pred_mask.detach().float()
+    if shard is not None:
+        pred, target_mask = gather_rows(pred, shard), gather_rows(target_mask, shard)
     neg_min, mx = pmax(torch.stack([-pred.amin(), pred.amax()]), group)
     looks_like_logits = (-neg_min < -10) | (mx > 10)
     pred = torch.where(looks_like_logits, torch.sigmoid(pred), pred)

@@ -11,16 +11,27 @@ Computed in f32 on channel-last logits (B, H, W, C) and integer targets
   targets ``// 2`` ({0, 1, 2} -> {0, 1}), then ``BCEWithLogits(pred, t) +
   dice_loss(sigmoid(pred), t) + boundary_weight * boundary_loss(pred, t,
   edge_width, edge_weight)``.  With ``connected_component`` the host
-  penalty of ``losses/connected_component.py`` joins the loss value (never
-  the gradient): ``cc_emit_probs`` must be set, and hands the detached
-  sigmoid out as ``metrics["cc_probs"]`` for the caller to score on its
-  delayed fetch, as ``train_model`` does.  The JAX package's other route, a
-  host callback inside the step, has no counterpart.
+  penalty of ``losses/connected_component.py`` joins the loss value, never
+  the gradient, in one of JAX's two forms: by default (``cc_emit_probs``
+  False) inside the step, which scores the detached sigmoid map on the host
+  (a synchronous copy, JAX's host callback) and adds the value to the loss
+  as ``metrics["cc"]``; with ``cc_emit_probs`` the map goes out as
+  ``metrics["cc_probs"]`` for the caller to score on its delayed fetch, as
+  ``train_model`` does.
 
 With a process ``group`` (data parallelism; JAX's ``axis_name``) every term
 reduces over the group's global batch: CE and BCE are the mean of the ranks'
 means (equal shards: the global mean), Dice and the boundary term sum over
-the group before their ratios.  ``cc_probs`` stays this rank's rows.
+the group before their ratios, and the in-step penalty is the ranks' mean.
+``cc_probs`` stays this rank's rows.
+
+With a ``shard`` as well (spatial parallelism, ``ops/halo.py``: the logits
+are one band of rows, ``group`` holds every rank of the data x spatial
+layout) CE, BCE and Dice reduce over ``group`` as before, since every band
+has as many pixels; the boundary term and the penalty read whole images,
+so each gathers the spatial group's bands of its detached input and
+reduces over the shard's data group alone.  ``cc_probs`` then holds this
+rank's images whole.
 """
 
 from __future__ import annotations
@@ -32,7 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.collectives import pmean
+from ..ops.halo import gather_rows
 from .boundary import boundary_loss
+from .connected_component import connected_component_loss
 from .dice import dice_loss
 
 __all__ = ["LossConfig", "compute_loss", "cross_entropy", "bce_with_logits", "metric_keys"]
@@ -87,26 +100,36 @@ def metric_keys(cfg: LossConfig) -> Tuple[str, ...]:
 
 
 def compute_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: LossConfig,
-                 group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 group=None, shard=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Compound loss + per-term metrics.  logits (B, H, W, C), targets int (B, H, W);
-    every term over ``group``'s global batch when one is given."""
+    every term over ``group``'s global batch when one is given, and over
+    whole images from ``shard``'s bands of rows (see the module docstring)."""
+    # the group of the terms that read whole images
+    image_group = group if shard is None else shard.data_group
     if cfg.n_classes == 1:
         t = torch.div(targets, 2, rounding_mode="floor").float()  # {0,1,2} -> {0,1}
         pred = logits[..., 0]
         ce = bce_with_logits(pred, t, group)
         dl = dice_loss(torch.sigmoid(pred.float()), t, multiclass=False, group=group)
         bl = boundary_loss(pred, t, edge_width=cfg.boundary_edge_width,
-                           edge_weight=cfg.boundary_edge_weight, group=group)
+                           edge_weight=cfg.boundary_edge_weight, group=image_group,
+                           shard=shard)
         loss = ce + dl + cfg.boundary_weight * bl
         metrics = {"ce": ce, "dice": dl, "boundary": bl}
         if cfg.connected_component:
-            if not cfg.cc_emit_probs:
-                raise NotImplementedError(
-                    "connected_component needs cc_emit_probs=True: the penalty is scored "
-                    "on the host from metrics['cc_probs'] at train_model's delayed fetch; "
-                    "the JAX package's in-step callback is not ported")
-            # the caller adds the penalty on the host
-            metrics["cc_probs"] = torch.sigmoid(pred.detach().float())
+            probs = torch.sigmoid(pred.detach().float())
+            if shard is not None:
+                probs = gather_rows(probs, shard)
+            if cfg.cc_emit_probs:
+                metrics["cc_probs"] = probs  # the caller adds the penalty on the host
+            else:
+                cc = connected_component_loss(
+                    probs.cpu().numpy(), edge_distance=cfg.cc_edge_distance,
+                    min_area=cfg.cc_min_area, penalty_weight=cfg.cc_penalty_weight)
+                cc = pmean(torch.tensor(cc, dtype=torch.float32, device=loss.device),
+                           image_group)
+                loss = loss + cc
+                metrics["cc"] = cc
         metrics["loss"] = loss
         return loss, metrics
 
@@ -119,7 +142,7 @@ def compute_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: LossConfig,
     if cfg.multiclass_boundary:
         bl = boundary_loss(logits, targets.float(), edge_width=cfg.boundary_edge_width,
                            edge_weight=7.0,  # the reference's commented-out value
-                           group=group)
+                           group=image_group, shard=shard)
         loss = loss + cfg.boundary_weight * bl
         metrics.update({"boundary": bl, "loss": loss})
     return loss, metrics

@@ -17,7 +17,9 @@ holders named like the reference model, so its state_dict keys
 The forward passes go through ``ops.nn`` on NHWC tensors, never through the
 holders' own NCHW ``forward``.  Every forward that holds a BN takes the
 process ``group`` its train-mode statistics reduce over (None: one device),
-as the JAX blocks take ``axis_name``.
+as the JAX blocks take ``axis_name``, and every forward that holds a
+windowed op takes the ``shard`` whose band of rows it computes (spatial
+parallelism, ``ops/halo.py``; None: whole images).
 """
 
 from __future__ import annotations
@@ -67,10 +69,11 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
+                group=None, shard=None):
         for i in (0, 3):
             conv, bn = self.double_conv[i], self.double_conv[i + 1]
-            y = conv2d(x, _conv_hwio(conv), padding=1, compute_dtype=compute_dtype)
+            y = conv2d(x, _conv_hwio(conv), padding=1, compute_dtype=compute_dtype,
+                       shard=shard)
             x = torch.relu(_bn_apply(bn, y, self.training, group))
         return x
 
@@ -81,8 +84,8 @@ class Down(nn.Module):
         self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
-        return self.maxpool_conv[1](max_pool2d(x, 2), compute_dtype, group)
+                group=None, shard=None):
+        return self.maxpool_conv[1](max_pool2d(x, 2), compute_dtype, group, shard)
 
 
 def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -95,7 +98,7 @@ def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def attention_gate(x: torch.Tensor, w: torch.Tensor,
-                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   compute_dtype: Optional[torch.dtype] = None, shard=None) -> torch.Tensor:
     """The spatial attention gate of x for the HWIO (k, k, 2, 1) weight ``w``
     (JAX ``blocks.py:spatial_attention_apply``): channel mean and max in
     f32, a kxk SAME conv without bias in the compute dtype, the sigmoid in
@@ -103,7 +106,7 @@ def attention_gate(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     feats = torch.cat([xf.mean(dim=-1, keepdim=True), xf.amax(dim=-1, keepdim=True)],
                       dim=-1).to(x.dtype)
-    att = conv2d(feats, w, padding=w.shape[0] // 2, compute_dtype=compute_dtype)
+    att = conv2d(feats, w, padding=w.shape[0] // 2, compute_dtype=compute_dtype, shard=shard)
     return torch.sigmoid(att.float()).to(x.dtype)
 
 
@@ -115,8 +118,9 @@ class SpatialAttention(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
-        return attention_gate(x, _conv_hwio(self.conv1), compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                shard=None):
+        return attention_gate(x, _conv_hwio(self.conv1), compute_dtype, shard)
 
 
 class Up(nn.Module):
@@ -136,17 +140,17 @@ class Up(nn.Module):
             self.attention = SpatialAttention()
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None, group=None):
+                compute_dtype: Optional[torch.dtype] = None, group=None, shard=None):
         if self.bilinear:
-            x1 = upsample_x2_align_corners(x1)
+            x1 = upsample_x2_align_corners(x1, shard)
         else:
             # (in, out, kh, kw) -> HWIO with I = in
             x1 = conv_transpose2d(x1, self.up.weight.permute(2, 3, 0, 1), self.up.bias,
                                   stride=2, compute_dtype=compute_dtype)
         x1 = _pad_to_match(x1, x2)
         if hasattr(self, "attention"):
-            x2 = x2 * self.attention(x2, compute_dtype)
-        return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype, group)
+            x2 = x2 * self.attention(x2, compute_dtype, shard)
+        return self.conv(torch.cat([x2, x1.to(x2.dtype)], dim=-1), compute_dtype, group, shard)
 
 
 class OutConv(nn.Module):

@@ -39,9 +39,10 @@ class FoldedDoubleConv(nn.Module):
             self.register_buffer(name, t.contiguous())
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
-        x = torch.relu(conv2d(x, self.w1, self.b1, padding=1, compute_dtype=compute_dtype))
-        return torch.relu(conv2d(x, self.w2, self.b2, padding=1, compute_dtype=compute_dtype))
+                group=None, shard=None):
+        kw = dict(padding=1, compute_dtype=compute_dtype, shard=shard)
+        x = torch.relu(conv2d(x, self.w1, self.b1, **kw))
+        return torch.relu(conv2d(x, self.w2, self.b2, **kw))
 
 
 class FoldedCBS(nn.Module):

@@ -19,8 +19,13 @@ block marked ``recomputing`` and leaves them alone (``blocks._bn_apply``).
 A remat step therefore equals a plain one, statistics included, and
 launches the 3x3 kernel's forward twice for each conv it routes there.
 
-``forward(x, group)``: a train forward's BN statistics reduce over the
-process group (cross-replica BN for data parallelism; None: one device).
+``forward(x, group, shard)``: a train forward's BN statistics reduce over
+the process group (cross-replica BN for data parallelism; None: one
+device); with a ``shard`` (spatial parallelism, ``ops/halo.py``) x is one
+band of rows of the images, every 3x3 conv (and unet_sa's 7x7 gate) takes
+a halo of its neighbours' rows, and the logits are the band's rows of the
+whole images' logits.  Every band must hold a multiple of ``hw_divisor``
+rows, so that each pool sees whole windows (:func:`check_band`).
 """
 
 from __future__ import annotations
@@ -34,7 +39,17 @@ from torch.utils.checkpoint import checkpoint
 
 from .blocks import DoubleConv, Down, OutConv, Up
 
-__all__ = ["UNet", "unet", "unet_t", "unet_s", "unet_sa", "MODEL_REGISTRY", "get_model"]
+__all__ = ["UNet", "unet", "unet_t", "unet_s", "unet_sa", "MODEL_REGISTRY", "get_model",
+           "check_band"]
+
+
+def check_band(h: int, shard, hw_divisor: int) -> None:
+    """Raise unless a band of ``h`` rows of ``shard``'s images is a multiple of
+    ``hw_divisor``: the images' H must be divisible by spatial_shards *
+    hw_divisor, or a pool would drop rows inside the images."""
+    if shard is not None and h % hw_divisor:
+        raise ValueError(f"spatial sharding needs H divisible by spatial_shards * hw_divisor = "
+                         f"{shard.size} * {hw_divisor}; H {h * shard.size} is not")
 
 
 class UNet(nn.Module):
@@ -62,22 +77,23 @@ class UNet(nn.Module):
         """The H and W divisibility the four 2x2 pools need."""
         return 16
 
-    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None, shard=None) -> torch.Tensor:
         """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
+        check_band(x.shape[1], shard, self.hw_divisor)
         cd = self.compute_dtype
         run = _rematerialised if self.remat and self.training and torch.is_grad_enabled() \
             else _direct
-        x1 = run(self.inc, x, cd, group)
-        x2 = run(self.down1, x1, cd, group)
-        x3 = run(self.down2, x2, cd, group)
-        x4 = run(self.down3, x3, cd, group)
-        x5 = run(self.down4, x4, cd, group)
-        y = run(self.up1, x5, x4, cd, group)
-        y = run(self.up2, y, x3, cd, group)
-        y = run(self.up3, y, x2, cd, group)
-        y = run(self.up4, y, x1, cd, group)
+        x1 = run(self.inc, x, cd, group, shard)
+        x2 = run(self.down1, x1, cd, group, shard)
+        x3 = run(self.down2, x2, cd, group, shard)
+        x4 = run(self.down3, x3, cd, group, shard)
+        x5 = run(self.down4, x4, cd, group, shard)
+        y = run(self.up1, x5, x4, cd, group, shard)
+        y = run(self.up2, y, x3, cd, group, shard)
+        y = run(self.up3, y, x2, cd, group, shard)
+        y = run(self.up4, y, x1, cd, group, shard)
         return self.outc(y, cd).float()
 
 

@@ -19,8 +19,10 @@ Every 3x3 conv goes through ``ops/nn.py:conv2d`` (the routed ones to the
 hand kernel), as the UNet's do.  ``remat=True`` rematerialises each node's
 DoubleConv in a train forward that records gradients, as JAX's
 ``ckpt(B.double_conv_apply)``; BN statistics move once (see
-``models/unet.py``).  The JAX package's ``wide`` and ``s2d`` layouts are
-TPU tiling workarounds of the same function and are not ported.
+``models/unet.py``).  With a ``shard`` the forward computes one band of
+rows of the images, as the UNet's does (``models/unet.py``).  The JAX
+package's ``wide`` and ``s2d`` layouts are TPU tiling workarounds of the
+same function and are not ported.
 
 The submodules are named after the JAX pytree's keys (``x{i}_{j}``,
 ``up{i}_{j}``, ``outc`` / ``out{j}``), which is how
@@ -37,7 +39,7 @@ from torch import nn
 from ..ops.nn import conv_transpose2d, max_pool2d
 from ..ops.resize import upsample_x2_align_corners
 from .blocks import DoubleConv, OutConv, _pad_to_match
-from .unet import _direct, _rematerialised
+from .unet import _direct, _rematerialised, check_band
 
 __all__ = ["UNetPlusPlus", "unet_pp", "unet_pp_s"]
 
@@ -78,32 +80,34 @@ class UNetPlusPlus(nn.Module):
         """The H and W divisibility the pooling chain needs."""
         return 2 ** (self.depth - 1)
 
-    def _up(self, i: int, j: int, feat: torch.Tensor) -> torch.Tensor:
+    def _up(self, i: int, j: int, feat: torch.Tensor, shard=None) -> torch.Tensor:
         if self.bilinear:
-            return upsample_x2_align_corners(feat)
+            return upsample_x2_align_corners(feat, shard)
         up = getattr(self, f"up{i}_{j}")
         # (in, out, kh, kw) -> HWIO with I = in
         return conv_transpose2d(feat, up.weight.permute(2, 3, 0, 1), up.bias, stride=2,
                                 compute_dtype=self.compute_dtype)
 
-    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None, shard=None) -> torch.Tensor:
         """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32;
-        a train forward's BN statistics reduce over ``group`` (None: one device)."""
+        a train forward's BN statistics reduce over ``group`` (None: one device);
+        with a ``shard``, x and the logits are one band of rows."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
+        check_band(x.shape[1], shard, self.hw_divisor)
         cd, d = self.compute_dtype, self.depth
         run = _rematerialised if self.remat and self.training and torch.is_grad_enabled() \
             else _direct
         nodes = {}
         for i in range(d):
             inp = x if i == 0 else max_pool2d(nodes[(i - 1, 0)], 2)
-            nodes[(i, 0)] = run(getattr(self, f"x{i}_0"), inp, cd, group)
+            nodes[(i, 0)] = run(getattr(self, f"x{i}_0"), inp, cd, group, shard)
         for j in range(1, d):
             for i in range(d - j):
                 skips = [nodes[(i, k)] for k in range(j)]
-                upped = _pad_to_match(self._up(i, j, nodes[(i + 1, j - 1)]), skips[0])
+                upped = _pad_to_match(self._up(i, j, nodes[(i + 1, j - 1)], shard), skips[0])
                 feats = torch.cat(skips + [upped.to(skips[0].dtype)], dim=-1)
-                nodes[(i, j)] = run(getattr(self, f"x{i}_{j}"), feats, cd, group)
+                nodes[(i, j)] = run(getattr(self, f"x{i}_{j}"), feats, cd, group, shard)
         if self.deep_supervision:
             outs = [getattr(self, f"out{j}")(nodes[(0, j)], cd) for j in range(1, d)]
             logits = sum(outs) / len(outs)

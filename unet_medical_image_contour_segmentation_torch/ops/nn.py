@@ -14,6 +14,13 @@ the whole group's batch (cross-replica BN, ``ops/collectives.py``).
 :func:`conv2d` sends every conv that ``kernels.conv3x3.supported`` accepts
 (3x3, stride 1, pad 1, 8 <= Cin <= 32) to :func:`kernels.conv3x3.conv3x3_nhwc`,
 the port of the repo's one TPU kernel; the others go to ``F.conv2d``.
+
+Given a ``shard`` (``ops/halo.py``: x is one band of rows of the images), a
+padded conv exchanges a halo of ``padding`` rows, runs the same SAME conv
+on the band and its halo, and drops the first and last ``padding`` output
+rows, so a 3x3 conv still meets the dispatch rule and runs the hand kernel,
+at (B, h + 2, W, Cin).  :func:`conv_transpose2d` (k2 s2), the 1x1 convs and
+:func:`max_pool2d` (on bands of even height) are row-local.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 
 from ..kernels import conv3x3
 from .collectives import pmean, world_size
+from .halo import Shard, halo_exchange
 
 __all__ = [
     "conv2d",
@@ -56,15 +64,25 @@ def conv2d(
     stride: int = 1,
     padding: int = 0,
     compute_dtype: Optional[torch.dtype] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
-    """2-D convolution, NHWC x HWIO -> NHWC.  Matches torch.nn.Conv2d."""
+    """2-D convolution, NHWC x HWIO -> NHWC.  Matches torch.nn.Conv2d; on a
+    ``shard``'s band of rows, the SAME conv of the whole images."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
+    halo = padding if shard is not None else 0
+    if halo:
+        if stride != 1 or tuple(w.shape[:2]) != (2 * halo + 1, 2 * halo + 1):
+            raise ValueError(f"a row-sharded conv must be a SAME conv of stride 1, not a "
+                             f"{tuple(w.shape[:2])} kernel at stride {stride}, padding {padding}")
+        x = halo_exchange(x, shard, halo)
     if conv3x3.supported(w.shape, stride, padding):
         y = conv3x3.conv3x3_nhwc(x.contiguous(), w)
     else:
         y = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=padding))
+    if halo:
+        y = y[:, halo:-halo]
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -116,23 +134,21 @@ def batch_norm(
     normalises with the biased batch variance and moves the running variance
     towards the unbiased one (torch's rule); eval mode uses the running stats.
 
-    ``group`` (a ``torch.distributed`` process group; None is one device):
-    in train mode the per-channel mean, mean of squares and element count
-    are the whole group's, as the JAX ``batch_norm`` takes them under
-    ``axis_name`` (``pmean`` of both means, ``n * psum(1)``, variance
-    ``mean_sq - mean**2``), through one differentiable all-reduce.  One
-    device keeps the two-pass ``var_mean``.
+    Train mode takes JAX's one-pass statistics: the per-channel mean and
+    mean of squares, and the variance ``mean_sq - mean**2``.  With a
+    ``group`` (a ``torch.distributed`` process group; None is one device)
+    both means and the element count are the whole group's, as the JAX
+    ``batch_norm`` takes them under ``axis_name`` (``pmean`` of both,
+    ``n * psum(1)``), through one differentiable all-reduce; a group of one
+    rank computes what one device does, bit for bit.  (In bf16 the one-pass
+    variance is as good as torch's two-pass one: ``chip_smoke.py``'s A0.)
     """
     xf = x.float()
     if train:
-        n = x.shape[0] * x.shape[1] * x.shape[2]
-        if group is None:
-            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
-        else:
-            local = torch.stack([xf.mean(dim=(0, 1, 2)), xf.square().mean(dim=(0, 1, 2))])
-            mean, mean_sq = pmean(local, group)
-            n *= world_size(group)
-            var = mean_sq - mean.square()
+        n = x.shape[0] * x.shape[1] * x.shape[2] * world_size(group)
+        local = torch.stack([xf.mean(dim=(0, 1, 2)), xf.square().mean(dim=(0, 1, 2))])
+        mean, mean_sq = pmean(local, group)
+        var = mean_sq - mean.square()
         unbiased = var * (n / max(n - 1, 1))
         new_mean = (1.0 - momentum) * running_mean + momentum * mean
         new_var = (1.0 - momentum) * running_var + momentum * unbiased

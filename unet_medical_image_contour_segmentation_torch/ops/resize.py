@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from .halo import halo_exchange
+
 __all__ = ["bilinear_resize", "upsample_x2_align_corners"]
 
 
@@ -83,7 +85,27 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int, *,
     return y.to(x.dtype)
 
 
-def upsample_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """x2 bilinear upsample with align_corners=True."""
+@functools.lru_cache(maxsize=None)
+def _band_matrix_np(h: int, index: int, size: int) -> np.ndarray:
+    """(2h, h + 2): the rows of the whole images' x2 align-corners matrix
+    (``size`` bands of ``h`` rows) that band ``index``'s output rows take,
+    over its input rows with one halo row above and below.  Every output
+    row of the band reads input rows ``index * h - 1 .. (index + 1) * h``:
+    its source coordinate ``o * (H - 1) / (2H - 1)`` lies within half a row
+    below ``o / 2``."""
+    full = _interp_matrix_np(h * size, 2 * h * size, True)[2 * h * index:2 * h * (index + 1)]
+    return np.pad(full, ((0, 0), (1, 1)))[:, h * index:h * index + h + 2]
+
+
+def upsample_x2_align_corners(x: torch.Tensor, shard=None) -> torch.Tensor:
+    """x2 bilinear upsample with align_corners=True; on a ``shard``'s band of
+    rows (``ops/halo.py``), the band's rows of the whole images' upsample,
+    from the band and one halo row of each neighbour."""
     _, h, w, _ = x.shape
-    return bilinear_resize(x, 2 * h, 2 * w, align_corners=True)
+    if shard is None:
+        return bilinear_resize(x, 2 * h, 2 * w, align_corners=True)
+    mh = torch.from_numpy(_band_matrix_np(h, shard.index, shard.size)).to(x.device)
+    mw = _interp_matrix(w, 2 * w, True, x.device)
+    y = torch.einsum("oh,nhwc->nowc", mh, halo_exchange(x, shard, 1).float())
+    y = torch.einsum("pw,nowc->nopc", mw, y)
+    return y.to(x.dtype)

@@ -1,6 +1,7 @@
-"""Data parallelism over ``torch.distributed``: process bootstrap, the
-cross-replica train and eval steps (the JAX package's ``parallel/``; its
-spatial parallelism is not ported)."""
+"""Data and spatial parallelism over ``torch.distributed``: process
+bootstrap, the cross-replica train and eval steps, and the row-sharded
+forward, train and eval steps with their (data, spatial) layouts (the JAX
+package's ``parallel/``)."""
 
 from .data_parallel import (
     batch_slice,
@@ -11,6 +12,16 @@ from .data_parallel import (
 )
 from .distributed import initialize as distributed_initialize
 from .distributed import is_multi_host, local_batch_slice
+from .spatial import (
+    SpatialMesh,
+    make_dp_spatial_mesh,
+    make_spatial_eval_step,
+    make_spatial_forward,
+    make_spatial_mesh,
+    make_spatial_train_step,
+    shard_batch,
+    tiled_inference,
+)
 
 __all__ = [
     "batch_slice",
@@ -21,4 +32,12 @@ __all__ = [
     "distributed_initialize",
     "is_multi_host",
     "local_batch_slice",
+    "SpatialMesh",
+    "make_dp_spatial_mesh",
+    "make_spatial_eval_step",
+    "make_spatial_forward",
+    "make_spatial_mesh",
+    "make_spatial_train_step",
+    "shard_batch",
+    "tiled_inference",
 ]
