@@ -121,7 +121,7 @@ Phases, in order; any failure exits nonzero before the last line:
      then A0, the BN variance formulas: on D1's activations (unet_s bf16 at
      (8, 512, 512)), each of its 18 BNs' largest error of the one-pass
      (JAX's, the port's) and the two-pass formula against an f64 BN, f32
-     and rounded to bf16; and S1-S4, spatial parallelism (parallel/spatial.py),
+     and rounded to bf16; and S1-S6, spatial parallelism (parallel/spatial.py),
      the ranks spawned on cuda:0 over gloo, each rank's launches equal to
      the plain step's and its launched shapes reported: S1 unet_s at (2,
      1024, 1024) over 2 bands of 512 rows, one f32 step (TF32 off) against
@@ -132,15 +132,20 @@ Phases, in order; any failure exits nonzero before the last line:
      (S2_TOL); S3 the 2 x 2 (data, spatial) layout, four ranks, unet_s at
      (4, 512, 512), S1's gate; S4 one 2048² scan through make_spatial_forward
      over 2 ranks against one process's forward, f32 masks 100% equal, bf16
-     agreement reported;
+     agreement reported; S5 yolov8_seg_s's binary step at (2, 1024, 1024)
+     over 2 bands of 512 rows (its stride-2 convs and SPPF's -inf-filled
+     pools on bands), f32 at D2's gate with the ranks bit-equal and 4 + 4
+     launches a rank, bf16 reported and timed as S1's; S6 the served
+     (live-BN) yolov8_seg_s's forward of one 2048² scan, S4's gates (a
+     differing f32 pixel fails the run with its dense logit);
  18. launch shapes: every (B, H, W, Cin, Cout, dtype) at which a counted
      window of phases 5-17 launched the conv3x3 kernel must be one that
      phase 3 or 4 held against the plain version (phases 3 and 4 time S1's
-     band-plus-halo shapes and check S2-S4's; phase 3 times YOLO's two
-     shapes that unet_s lacks, 32->32 at 128² and at 512², and checks its
-     exported program's and its calibration's); every shape at which one
-     launched the int8 kernel was held against its plain version in phase
-     10, or is held here;
+     and S5's band-plus-halo shapes and check S2-S4's and S6's; phase 3
+     times YOLO's two shapes that unet_s lacks, 32->32 at 128² and at 512²,
+     and checks its exported program's and its calibration's); every shape
+     at which one launched the int8 kernel was held against its plain
+     version in phase 10, or is held here;
  19. a JSON ``kernels`` line (with per-shape rows and the launches of every
      path, the data-parallel ones included), then the device line and the
      result line.
@@ -154,6 +159,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import itertools
 import json
 import logging
 import os
@@ -640,9 +646,9 @@ def phase_kernels(usage: dict):
     # its int8 calibration forward (C5): the CBS fold at (CALIB_BATCH, HW, HW)
     shapes += [(f"yolo {name}@calib", CALIB_BATCH, HW // s, HW // s, cin, cout, "calibrate")
                for name, cin, cout, s in yolo]
-    # S1-S4: a rank's band of rows and its two halo rows; S1's timed
-    shapes += [(name, b, h, w, cin, cout, "spatial" if timed else "spatial variant")
-               for name, b, h, w, cin, cout, timed in s_shapes()]
+    # S1-S6: a rank's band of rows and its two halo rows; S1's and S5's timed
+    shapes += [(name, b, h, w, cin, cout, path or "spatial variant")
+               for name, b, h, w, cin, cout, path in s_shapes()]
     rows, max_err = [], 0.0
     for name, b, h, w, cin, cout, path in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -661,7 +667,8 @@ def phase_kernels(usage: dict):
                                    f"{name} {(b, h, w, cin, cout)} {dtype}: max abs err {err}")
             max_err = max(max_err, err)
             CHECKED.add((b, h, w, cin, cout, str(dtype)))
-            timed = path in ("dense", "ragged", "yolo", "spatial") or path.startswith("tiled")
+            timed = (path in ("dense", "ragged", "yolo", "spatial", "spatial_yolo")
+                     or path.startswith("tiled"))
             if dtype != torch.bfloat16 or not timed:
                 log(f"[kernels] {name:16s} {str((b, h, w, cin, cout)):26s} "
                     f"{'f32 ' if dtype == torch.float32 else 'bf16'} max_abs_err {err:.3g} ok"
@@ -715,9 +722,10 @@ def phase_backward(usage: dict):
     # D2: each rank's RANK_BATCH rows of unet_s's step
     rows_in += [(f"{name}@rank", RANK_BATCH, HW // s, HW // s, cin, cout, False, "train")
                 for name, cin, cout, s in MAIN_CONVS]
-    # S1-S3: a rank's band of rows and its two halo rows (S4 runs no backward); S1's timed
-    rows_in += [(name, b, h, w, cin, cout, timed, "spatial") for name, b, h, w, cin, cout, timed
-                in s_shapes() if not name.startswith("S4")]
+    # S1-S3, S5: a rank's band of rows and its two halo rows (S4 and S6 run no
+    # backward); S1's and S5's timed
+    rows_in += [(name, b, h, w, cin, cout, path is not None, path or "spatial variant")
+                for name, b, h, w, cin, cout, path in s_shapes() if name[:2] not in ("S4", "S6")]
     for name, b, h, w, cin, cout, timed, path in rows_in:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
@@ -3271,16 +3279,18 @@ def phase_dp_serve(model):
     return launches, numbers
 
 
-# S1-S4: spatial parallelism (parallel/spatial.py), the ranks spawned on
+# S1-S6: spatial parallelism (parallel/spatial.py), the ranks spawned on
 # cuda:0 over gloo as D2's.  S1: unet_s (3 classes, ConvT ups) at S1_SHAPE,
 # 512 rows a rank; S2: the variants at S2_SHAPE; S3: the 2 x 2 (data,
 # spatial) layout at S3_SHAPE; S4: one S4_HW² scan through the spatial eval
-# forward.
+# forward; S5: yolov8_seg_s's binary step at S5_SHAPE (S1's large scans);
+# S6: the served yolov8_seg_s's forward of one S6_HW² scan.
 SP_RANKS = 2
 S1_SHAPE = (2, 1024, 1024)
 S2_SHAPE = (2, HW, HW)
 S3_SHAPE, S3_DP = (4, HW, HW), 2
 S4_HW = 2048
+S5_SHAPE, S6_HW = S1_SHAPE, S4_HW
 S_VARIANTS = ("bilinear", "unet_sa", "binary", "remat", "unet_pp_s")
 S_TIMED_STEPS = 5
 # S1 and S3 (f32, TF32 off) against one process's plain step on the whole
@@ -3289,12 +3299,14 @@ S_TIMED_STEPS = 5
 # largest, grad norm 1e-4, BN buffers rtol 1e-4 / atol 1e-5, parameters
 # 20 * lr.
 S_TOL = dict(loss=2e-6, grads=1e-4, grad_norm=1e-4, buf_rtol=1e-4, buf_atol=1e-5)
-# S2's variants: D2's gate.  A band's convs that cuDNN runs (Cin = 1 or > 32,
-# unet_sa's 7x7 gate) take other algorithms at the band's shape than at the
-# whole image's, so their sums round apart, and a ReLU input within that of
-# zero takes the other side: in this script's runs on the card unet_sa's
-# gradients came 2.1e-4 and binary's 1.1e-4 of the largest from the plain
-# step's, where unet_s's came 6.0e-5 (PERF.md)
+# S2's variants and S5: D2's gate.  A band's convs that cuDNN runs (Cin = 1
+# or > 32, unet_sa's 7x7 gate; YOLO's stem, stride-2 and 1x1 convs) take
+# other algorithms at the band's shape than at the whole image's, so their
+# sums round apart, and a ReLU input within that of zero takes the other
+# side (in YOLO, a max-pool near-tie the other window member): in this
+# script's runs on the card unet_sa's gradients came 2.1e-4 and binary's
+# 1.1e-4 of the largest from the plain step's, where unet_s's came 6.0e-5
+# (PERF.md)
 S2_TOL = D2_TOL
 
 
@@ -3305,10 +3317,17 @@ S_UNET_KW = {"bilinear": dict(bilinear=True), "unet_sa": dict(factory=unet_sa),
 
 def s_model(name: str, compute_dtype=None):
     """The seeded model of a spatial case on the card: unet_s, a variant of
-    S_VARIANTS, or (``served``) phase 5's unet_s in eval mode."""
+    S_VARIANTS, yolov8_seg_s (C4's train model), or in eval mode
+    (``served``) phase 5's unet_s or (``served_yolo``) C4's served
+    yolov8_seg_s (live BN)."""
     if name == "served":
         model = build_model(seed=MODEL_SEED).eval()
         model.compute_dtype = compute_dtype
+    elif name == "served_yolo":
+        model = seeded_model("yolov8_seg_s", MODEL_SEED)
+        model.compute_dtype = compute_dtype
+    elif name == "yolov8_seg_s":
+        model = seeded_model(name, MODEL_SEED, centre=False, compute_dtype=compute_dtype)
     elif name == "unet_pp_s":
         model = seeded_model("unet_pp_s", MODEL_SEED, centre=False, n_classes=3,
                              compute_dtype=compute_dtype)
@@ -3318,34 +3337,37 @@ def s_model(name: str, compute_dtype=None):
 
 
 def s_loss(name: str) -> LossConfig:
-    return LossConfig(n_classes=1 if name == "binary" else 3)
+    return LossConfig(n_classes=1 if name in ("binary", "yolov8_seg_s") else 3)
 
 
 def s_want(name: str, dtype) -> dict:
-    """The read_launches() of one step (or, for "served", one forward) of a
-    spatial case on a rank: the plain step's counts."""
+    """The read_launches() of one step (or, for a served model, one forward)
+    of a spatial case on a rank: the plain step's counts."""
     n = len(routed_convs(s_model_cpu(name)))
-    fwd, dx = (n, 0) if name == "served" else (2 * n if name == "remat" else n, n)
+    fwd, dx = (n, 0) if name.startswith("served") else (2 * n if name == "remat" else n, n)
     tc = dtype == torch.bfloat16
     return {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd if tc else 0,
             "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx tensor_core": dx if tc else 0}
 
 
 def s_shapes() -> list:
-    """(label, B, h, W, Cin, Cout, timed) of the 3x3 convs that a rank of
-    S1-S4 launches the kernel at: its band's rows plus the two halo rows, at
+    """(label, B, h, W, Cin, Cout, path) of the 3x3 convs that a rank of
+    S1-S6 launches the kernel at: its band's rows plus the two halo rows, at
     every level, for every conv the dispatch rule routes (the dx launches
-    the same shapes, Cout -> Cin).  S1's are timed (bf16)."""
+    the same shapes, Cout -> Cin).  S1's (path "spatial") and S5's
+    ("spatial_yolo") are timed (bf16); the others' path is None."""
     rows = []
-    cases = [("S1", S1_SHAPE, 1, unet_s(), True), ("S3", S3_SHAPE, S3_DP, unet_s(), False),
-             ("S4", (1, S4_HW, S4_HW), 1, unet_s(), False)]
-    cases += [(f"S2 {name}", S2_SHAPE, 1, s_model_cpu(name), False) for name in S_VARIANTS]
-    for label, (b, h, w), dp, model, timed in cases:
+    yolo = get_model("yolov8_seg_s")
+    cases = [("S1", S1_SHAPE, 1, unet_s(), "spatial"), ("S3", S3_SHAPE, S3_DP, unet_s(), None),
+             ("S4", (1, S4_HW, S4_HW), 1, unet_s(), None),
+             ("S5", S5_SHAPE, 1, yolo, "spatial_yolo"), ("S6", (1, S6_HW, S6_HW), 1, yolo, None)]
+    cases += [(f"S2 {name}", S2_SHAPE, 1, s_model_cpu(name), None) for name in S_VARIANTS]
+    for label, (b, h, w), dp, model, path in cases:
         sp = (SP_RANKS * S3_DP if label == "S3" else SP_RANKS) // dp
         for name, cin, cout, s in routed_convs(model):
-            rows.append((f"{label} {name}", b // dp, h // (sp * s) + 2, w // s, cin, cout, timed))
+            rows.append((f"{label} {name}", b // dp, h // (sp * s) + 2, w // s, cin, cout, path))
     seen, out = set(), []
-    for row in rows:  # every S1 conv (they are timed), other shapes once
+    for row in rows:  # every S1 and S5 conv (they are timed), other shapes once
         if row[6] or row[1:6] not in seen:
             seen.add(row[1:6])
             out.append(row)
@@ -3354,8 +3376,10 @@ def s_shapes() -> list:
 
 def s_model_cpu(name: str):
     """A spatial case's architecture (no weights) for routed_convs."""
-    if name == "unet_pp_s":
-        return get_model("unet_pp_s")
+    if name in ("unet_pp_s", "yolov8_seg_s"):
+        return get_model(name)
+    if name == "served_yolo":
+        return get_model("yolov8_seg_s")
     kw = dict(S_UNET_KW.get(name, {}))
     return kw.pop("factory", unet_s)(**kw)
 
@@ -3428,21 +3452,32 @@ def s_rank_step(mesh, name: str, data: dict, dtype, timed: bool) -> dict:
     return out
 
 
-def s_rank_forward(mesh, image: np.ndarray, dtype) -> dict:
-    """S4 on a rank: the served unet_s's classes of the whole scan through
-    make_spatial_forward, and this rank's launches."""
-    forward = make_spatial_forward(s_model("served", dtype), mesh)
+def classes_of(logits: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 classes of (B, H, W, C) logits on the host, by the
+    eval rule (engine/evaluate.py:eval_forward): argmax, or sigmoid > 0.5
+    for one class."""
+    if logits.shape[-1] == 1:
+        return (torch.sigmoid(logits[..., 0]) > 0.5).to(torch.uint8).cpu()
+    return logits.argmax(-1).to(torch.uint8).cpu()
+
+
+def s_rank_forward(mesh, name: str, image: np.ndarray, dtype) -> dict:
+    """S4 / S6 on a rank: the served model's classes of the whole scan
+    through make_spatial_forward (a one-class model's logits too), and this
+    rank's launches."""
+    forward = make_spatial_forward(s_model(name, dtype), mesh)
     x = torch.from_numpy(image).cuda()
     with exact_f32() if dtype is None else contextlib.nullcontext():
         reset_launches()
         logits = forward(x)
         torch.cuda.synchronize()
         launches = read_launches()
-    return dict(classes=logits.argmax(-1).to(torch.uint8).cpu(), launches=launches)
+    return dict(classes=classes_of(logits), launches=launches,
+                logits=logits[..., 0].cpu() if logits.shape[-1] == 1 else None)
 
 
 def s_rank(rank: int, rendezvous: str, world: int, dp: int, tasks: list, out: str) -> None:
-    """One rank of S1-S4 on cuda:0 over gloo: the (dp, world / dp) layout,
+    """One rank of S1-S6 on cuda:0 over gloo: the (dp, world / dp) layout,
     then each task (label, "step" | "forward", model name, data, dtype,
     timed); its results, launches and launched shapes go to ``out``."""
     torch.cuda.set_device(0)
@@ -3453,7 +3488,7 @@ def s_rank(rank: int, rendezvous: str, world: int, dp: int, tasks: list, out: st
     for label, kind, name, data, dtype, timed in tasks:
         t0 = time.perf_counter()
         result[label] = (s_rank_step(mesh, name, data, dtype, timed) if kind == "step"
-                         else s_rank_forward(mesh, data, dtype))
+                         else s_rank_forward(mesh, name, data, dtype))
         result[label]["seconds"] = time.perf_counter() - t0
     result["launched"] = sorted(LAUNCHED)
     torch.save(result, f"{out}.{rank}")
@@ -3461,7 +3496,7 @@ def s_rank(rank: int, rendezvous: str, world: int, dp: int, tasks: list, out: st
 
 
 def spawn_spatial(world: int, dp: int, tasks: list, tmp: str) -> list:
-    """S1-S4's ranks on cuda:0 (spawn_ranks) -> their results, their launched
+    """S1-S6's ranks on cuda:0 (spawn_ranks) -> their results, their launched
     shapes added to LAUNCHED; a rank that fails fails the run."""
     codes, ranks = spawn_ranks(s_rank, world, (world, dp, tasks),
                                os.path.join(tmp, f"spatial{world}"))
@@ -3490,21 +3525,81 @@ def s_check(label: str, ranks: list, plain: dict, want: dict, tol) -> dict:
     return diffs
 
 
+def s_name(label: str) -> str:
+    """The model of a spatial step's label ("S2 unet_sa f32" -> unet_sa)."""
+    if label.startswith("S2"):
+        return label.split()[1]
+    return "yolov8_seg_s" if label.startswith("S5") else "unet_s"
+
+
+def s_timing(label: str, ranks: list, plain: dict, numbers: dict, shape) -> None:
+    """A bf16 spatial step's host ms and CUDA time a rank beside the plain
+    step's, into ``numbers[label]``, and its log line."""
+    got = [r[label] for r in ranks]
+    n = numbers[label]
+    n.update(step_ms=[r["step_ms"] for r in got], device_ms=[r["device_ms"] for r in got],
+             plain_step_ms=plain[label]["step_ms"], plain_device_ms=plain[label]["device_ms"])
+    log(f"[{label}] {s_name(label)} {shape} over {SP_RANKS} ranks on one card: step "
+        f"{n['step_ms']} ms a rank on the host clock (the two ranks share the card), CUDA "
+        f"time {n['device_ms']} ms a rank; plain step {n['plain_step_ms']:.3f} ms, CUDA time "
+        f"{n['plain_device_ms']} ms; peak a rank / plain "
+        f"{[round(p / plain[label]['peak_mib'], 3) for p in n['peak_mib']]}")
+
+
+def s_forward_check(label: str, ranks: list, model, scan: np.ndarray, dtype, want: dict,
+                    launches: dict) -> dict:
+    """S4 / S6: every rank's launches equal ``want`` and its classes of the
+    scan against one process's forward of ``model``; f32 must agree on
+    every pixel, else the run fails with the differing pixels' dense
+    logits (their top-2 margin for several classes).  -> the numbers."""
+    got = [r[label] for r in ranks]
+    for i, r in enumerate(got):
+        if r["launches"] != want:
+            raise RuntimeError(f"[{label}] rank {i} launched {r['launches']}, want {want}")
+        launches[f"{label.replace(' ', '_')}_rank{i}"] = r["launches"]
+    with torch.inference_mode(), (exact_f32() if dtype is None else contextlib.nullcontext()):
+        logits = model(torch.from_numpy(scan).cuda()).cpu()
+    dense = classes_of(logits)
+    agree = [float((r["classes"] == dense).float().mean()) for r in got]
+    out = dict(agreement=agree)
+    one = logits.shape[-1] == 1
+    margin = logits[..., 0].abs() if one else top2_margin(logits)
+    out["min_dense_margin"] = float(margin.min())
+    if one:  # the band logits against the dense ones, and the margin they leave
+        out["max_logit_diff"] = [float((r["logits"] - logits[..., 0]).abs().max()) for r in got]
+    log(f"[{label}] one {scan.shape[1]}² scan over {SP_RANKS} ranks (make_spatial_forward) vs "
+        f"one process's forward: masks agree on {[f'{a:.6%}' for a in agree]} of pixels; "
+        f"{want['conv3x3_nhwc']} launches a rank; smallest dense "
+        f"{'|logit|' if one else 'top-2 margin'} {out['min_dense_margin']:.3g}"
+        + (f", band logits within {out['max_logit_diff']} of the dense ones" if one else ""))
+    if dtype is None and min(agree) < 1.0:
+        differ = torch.stack([r["classes"] != dense for r in got]).any(0)
+        values = (logits[differ] if not one else logits[..., 0][differ]).tolist()
+        raise RuntimeError(f"[{label}] f32 spatial masks differ from the dense forward's on "
+                           f"{int(differ.sum())} pixels {differ.nonzero().tolist()[:20]}; their "
+                           f"dense logits {values[:20]}")
+    return out
+
+
 def phase_spatial() -> tuple:
-    """S1-S4 (see the module docstring): two spawned ranks on cuda:0 run S1
-    (f32 gate, then bf16 reported and timed), S2's variants and S4's scan in
-    one spawn, four ranks S3 in a second; the plain steps and the dense
-    forward run here.  -> (launches by path, numbers)."""
+    """S1-S6 (see the module docstring): two spawned ranks on cuda:0 run S1
+    and S5 (f32 gate, then bf16 reported and timed), S2's variants and S4's
+    and S6's scans in one spawn, four ranks S3 in a second; the plain steps
+    and the dense forwards run here.  -> (launches by path, numbers)."""
     t0 = time.perf_counter()
-    s1, s2, s3 = (rect_batch(41, *S1_SHAPE), rect_batch(42, *S2_SHAPE),
-                  rect_batch(43, *S3_SHAPE))
-    scan = smooth_images(44, 1, S4_HW, cells=64)
+    s1, s2, s3, s5 = (rect_batch(41, *S1_SHAPE), rect_batch(42, *S2_SHAPE),
+                      rect_batch(43, *S3_SHAPE), rect_batch(46, *S5_SHAPE))
+    scans = {"S4": ("served", smooth_images(44, 1, S4_HW, cells=64)),
+             "S6": ("served_yolo", smooth_images(47, 1, S6_HW, cells=64))}
     bf16 = torch.bfloat16
     tasks = [("S1 f32", "step", "unet_s", s1, None, False),
              ("S1 bf16", "step", "unet_s", s1, bf16, True),
              *[(f"S2 {n}", "step", n, s2, None, False) for n in S_VARIANTS],
-             ("S4 f32", "forward", "served", scan, None, False),
-             ("S4 bf16", "forward", "served", scan, bf16, False)]
+             ("S5 f32", "step", "yolov8_seg_s", s5, None, False),
+             ("S5 bf16", "step", "yolov8_seg_s", s5, bf16, True),
+             *[(f"{key} {dt}", "forward", name, scan, dtype, False)
+               for key, (name, scan) in scans.items()
+               for dt, dtype in (("f32", None), ("bf16", bf16))]]
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_spatial(SP_RANKS, 1, tasks, tmp)
         t_two = time.perf_counter() - t0
@@ -3515,12 +3610,14 @@ def phase_spatial() -> tuple:
     plain = {"S1 f32": s_plain_step("unet_s", s1), "S1 bf16": s_plain_step("unet_s", s1, bf16,
                                                                             timed=True),
              "S3 f32": s_plain_step("unet_s", s3),
-             **{f"S2 {n}": s_plain_step(n, s2) for n in S_VARIANTS}}
+             **{f"S2 {n}": s_plain_step(n, s2) for n in S_VARIANTS},
+             "S5 f32": s_plain_step("yolov8_seg_s", s5),
+             "S5 bf16": s_plain_step("yolov8_seg_s", s5, bf16, timed=True)}
     for label in plain:
         rs = ranks4 if label == "S3 f32" else ranks
-        name = label.split()[1] if label.startswith("S2") else "unet_s"
+        name = s_name(label)
         dtype = bf16 if label.endswith("bf16") else None
-        tol = None if dtype == bf16 else S2_TOL if label.startswith("S2") else S_TOL
+        tol = None if dtype == bf16 else S2_TOL if label[:2] in ("S2", "S5") else S_TOL
         diffs = s_check(label, rs, plain[label], s_want(name, dtype), tol)
         per_rank = [r[label] for r in rs]
         numbers[label] = dict(diffs, loss_value=per_rank[0]["step"][0]["loss"],
@@ -3536,39 +3633,20 @@ def phase_spatial() -> tuple:
             f"{diffs['buffers']:.3g}{'' if tol is None else f' (gate {tol})'}; peak MiB a "
             f"rank {[round(r['peak_mib'], 1) for r in per_rank]} vs plain "
             f"{plain[label]['peak_mib']:.1f}")
-    s1b = [r["S1 bf16"] for r in ranks]
-    numbers["S1 bf16"].update(
-        step_ms=[r["step_ms"] for r in s1b], device_ms=[r["device_ms"] for r in s1b],
-        plain_step_ms=plain["S1 bf16"]["step_ms"], plain_device_ms=plain["S1 bf16"]["device_ms"])
-    log(f"[S1 bf16] unet_s {S1_SHAPE} over {SP_RANKS} ranks on one card: step "
-        f"{numbers['S1 bf16']['step_ms']} ms a rank on the host clock (the two ranks share "
-        f"the card), CUDA time {numbers['S1 bf16']['device_ms']} ms a rank; plain step "
-        f"{plain['S1 bf16']['step_ms']:.3f} ms, CUDA time {plain['S1 bf16']['device_ms']} ms; "
-        f"peak a rank / plain "
-        f"{[round(p / plain['S1 bf16']['peak_mib'], 3) for p in numbers['S1 bf16']['peak_mib']]}")
-    served = {None: s_model("served"), bf16: s_model("served", bf16)}
-    for dtype, label in ((None, "S4 f32"), (bf16, "S4 bf16")):
-        want = fwd_launches(len(MAIN_CONVS)) if dtype == bf16 else {
-            **fwd_launches(len(MAIN_CONVS)), "conv3x3_nhwc tensor_core": 0}
-        got = [r[label] for r in ranks]
-        for i, r in enumerate(got):
-            if r["launches"] != want:
-                raise RuntimeError(f"[{label}] rank {i} launched {r['launches']}, want {want}")
-            launches[f"{label.replace(' ', '_')}_rank{i}"] = r["launches"]
-        with torch.inference_mode(), (exact_f32() if dtype is None
-                                      else contextlib.nullcontext()):
-            dense = served[dtype](torch.from_numpy(scan).cuda()).argmax(-1).to(torch.uint8).cpu()
-        agree = [float((r["classes"] == dense).float().mean()) for r in got]
-        numbers[label] = dict(agreement=agree)
-        log(f"[{label}] one {S4_HW}² scan over {SP_RANKS} ranks (make_spatial_forward) vs one "
-            f"process's forward: masks agree on {[f'{a:.6%}' for a in agree]} of pixels; "
-            f"{want['conv3x3_nhwc']} launches a rank")
-        if dtype is None and min(agree) < 1.0:
-            raise RuntimeError(f"[{label}] f32 spatial masks differ from the dense forward's")
+    s_timing("S1 bf16", ranks, plain, numbers, S1_SHAPE)
+    s_timing("S5 bf16", ranks, plain, numbers, S5_SHAPE)
+    for key, (name, scan) in scans.items():
+        for dt, dtype in (("f32", None), ("bf16", bf16)):
+            numbers[f"{key} {dt}"] = s_forward_check(f"{key} {dt}", ranks,
+                                                     s_model(name, dtype), scan, dtype,
+                                                     s_want(name, dtype), launches)
     numbers["seconds"] = dict(two_ranks=t_two, four_ranks=t_ranks - t_two,
-                              total=time.perf_counter() - t0)
-    log(f"[S time] S1, S2, S4 ranks {t_two:.1f} s, S3 ranks {t_ranks - t_two:.1f} s, all of "
-        f"S1-S4 {numbers['seconds']['total']:.1f} s")
+                              total=time.perf_counter() - t0,
+                              yolo_rank_seconds=[sum(r[k]["seconds"] for k in r
+                                                     if k[:2] in ("S5", "S6")) for r in ranks])
+    log(f"[S time] S1, S2, S4-S6 ranks {t_two:.1f} s (S5 and S6 "
+        f"{numbers['seconds']['yolo_rank_seconds']} s a rank), S3 ranks "
+        f"{t_ranks - t_two:.1f} s, all of S1-S6 {numbers['seconds']['total']:.1f} s")
     return launches, numbers
 
 
@@ -3667,17 +3745,19 @@ def main(argv=None) -> int:
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
-    # S1: per rank per step, the forward and dx at the band-plus-halo shapes
+    # S1 and S5: per rank per step, the forward and dx at the band-plus-halo shapes
     sp_rows = [r for r in rows if r["path"] == "spatial"]
     sp_bwd_rows = [r for r in bwd_rows if r["path"] == "spatial"]
+    spy_rows = [r for r in rows if r["path"] == "spatial_yolo"]
+    spy_bwd_rows = [r for r in bwd_rows if r["path"] == "spatial_yolo"]
     bwd_rows = [r for r in bwd_rows if r["path"] == "train"]
     train_paths = {"train": train_launches, "train_binary": binary_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
                    "train_remat": remat_launches,
                    # D1, D2: the data-parallel step at world size 1, and each rank of two
                    "train_dp_world1": dp1_launches, **dp2_launches,
-                   # S1-S3: each rank of the row-sharded steps
-                   **{f"train_{k}": v for k, v in sp_launches.items() if not k.startswith("S4")}}
+                   # S1-S3, S5: each rank of the row-sharded steps
+                   **{f"train_{k}": v for k, v in sp_launches.items() if k[:2] not in ("S4", "S6")}}
     # C1-C5: UNet++ and YOLOv8-seg serving, tiled, train, export and int8
     family_paths = {**pp_launches, **pp_train_launches, **yolo_launches,
                     **{k: fwd_launches(v["conv3x3_nhwc"]) for k, v in yolo8_launches.items()}}
@@ -3690,8 +3770,8 @@ def main(argv=None) -> int:
                # D3: data-parallel serving, two replicas
                "dp_predict": dp3_launches["dense"]["conv3x3_nhwc"],
                "dp_tiled": dp3_launches["tiled"]["conv3x3_nhwc"],
-               # S4: each rank of the row-sharded eval forward of one scan
-               **{k: v["conv3x3_nhwc"] for k, v in sp_launches.items() if k.startswith("S4")},
+               # S4, S6: each rank of the row-sharded eval forward of one scan
+               **{k: v["conv3x3_nhwc"] for k, v in sp_launches.items() if k[:2] in ("S4", "S6")},
                **{k: v["conv3x3_nhwc"] for k, v in family_paths.items() if "train" not in k}}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
@@ -3750,6 +3830,10 @@ def main(argv=None) -> int:
         "spatial": {k: sum(r[k] for r in sp_rows) for k in ("ms", "bound_ms", "plain_ms",
                                                               "library_ms")},
         "spatial_shapes": shape_rows(sp_rows),
+        # per rank per S5 step (yolov8_seg_s, 2 x 1024², 2 bands)
+        "spatial_yolo": {k: sum(r[k] for r in spy_rows) for k in ("ms", "bound_ms", "plain_ms",
+                                                                    "library_ms")},
+        "spatial_yolo_shapes": shape_rows(spy_rows),
     }, {
         # the int8 conv with its epilogue, per unet_s int8 forward (8, 512², 18 convs)
         "name": "conv3x3_int8",
@@ -3815,6 +3899,9 @@ def main(argv=None) -> int:
         "spatial": {k: sum(r[k] for r in sp_bwd_rows) for k in ("ms", "bound_ms", "plain_ms",
                                                                   "library_ms")},
         "spatial_shapes": shape_rows(sp_bwd_rows),
+        "spatial_yolo": {k: sum(r[k] for r in spy_bwd_rows) for k in ("ms", "bound_ms",
+                                                                        "plain_ms", "library_ms")},
+        "spatial_yolo_shapes": shape_rows(spy_bwd_rows),
     }]
     fwd, k8 = kernels[0], kernels[1]
     int_mm = "refused" if k8["int_mm_ms"] is None else f"{k8['int_mm_ms']:.4f} ms"
@@ -3839,9 +3926,10 @@ def main(argv=None) -> int:
         f"kernel / library {dx['ms'] / dx['library_ms']:.3f}; dw (cuDNN "
         f"wgrad) {sum(r['dw_library_ms'] for r in bwd_rows):.4f} ms, bound "
         f"{sum(r['dw_bound_ms'] for r in bwd_rows):.4f} ms")
-    for kernel, what in ((fwd, "forward"), (dx, "dx")):
-        t = kernel["spatial"]
-        log(f"[kernels] {what} per rank per S1 step at the band-plus-halo shapes: kernel "
+    for (kernel, what), (key, step) in itertools.product(
+            ((fwd, "forward"), (dx, "dx")), (("spatial", "S1"), ("spatial_yolo", "S5"))):
+        t = kernel[key]
+        log(f"[kernels] {what} per rank per {step} step at the band-plus-halo shapes: kernel "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (roofline "
             f"{t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms")

@@ -13,6 +13,8 @@ seeded weights and batches from ``chip_smoke.py``):
 import numpy as np
 import pytest
 import torch
+from torch_dp_ranks import run_ranks
+from torch_spatial_ranks import check_halo, halo_data, spatial_cases
 
 from chip_smoke import (
     INT8_CONVS,
@@ -695,3 +697,16 @@ def test_spatial_step_two_ranks_on_one_card(cuda, tmp_path):
     ranks = spawn_spatial(2, 1, [("S", "step", "unet_s", data, None, False)], str(tmp_path))
     diffs = s_check("S", ranks, s_plain_step("unet_s", data), s_want("unet_s", None), S2_TOL)
     assert diffs["loss"] <= S2_TOL["loss"]
+
+
+def test_yolo_halo_ops_on_card_match_the_whole_image(cuda, tmp_path):
+    """S5's equality in small: two spawned ranks on cuda:0 over gloo, a band
+    of 8 rows each, run YOLOv8-seg's 3x3 stride-2 conv (one halo row above
+    the band, no H padding; cuDNN) and its 5x5 SPPF pool (2 halo rows, -inf
+    beyond the image, on an input negative there) in f32, forward and
+    backward, against the whole-image ops on the card
+    (tests/torch_spatial_ranks.py:check_halo: 1e-5)."""
+    data = halo_data("cuda")
+    ranks = run_ranks(spatial_cases, (1, 2, {"halo": ("halo", data)}), tmp_path, timeout=300)
+    for name in ("conv_s2", "maxpool5"):
+        check_halo(ranks, name, data)

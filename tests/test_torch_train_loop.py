@@ -3,6 +3,7 @@ config, on the CPU at a tiny size (unet_t, the synthetic 64x64 PNG set of
 ``tests/test_train_loop.py`` at scale 0.5), against the JAX package where it
 has the same component."""
 
+import copy
 import dataclasses
 import json
 import os
@@ -186,6 +187,28 @@ def test_train_model_refuses_what_is_not_ported(data_root, tmp_path, monkeypatch
     assert len([r for r in records if r["kind"] == "validation"]) == 2
     assert os.path.exists(tmp_path / "model_epoch2.npz")
     assert os.path.exists(tmp_path / "ckpts" / "checkpoint_epoch2.npz")
+
+
+def test_train_model_trains_yolo_row_sharded(tmp_path, monkeypatch):
+    """A small YOLOv8-seg (binary criterion) on 2 CPU ranks with a band of 64
+    rows each (2 at stride 32, the least SPPF's halo allows) logs the losses
+    of one process's run to 1e-5 relative, step for step."""
+    from unet_medical_image_contour_segmentation_torch.models.yolov8_seg import YOLOv8Seg
+
+    monkeypatch.chdir(tmp_path)
+    torch.manual_seed(0)
+    model = YOLOv8Seg(n_classes=1, widths=(8, 16, 32, 32, 64), depths=(1, 1, 1, 1))
+    losses = {}
+    for sp in (1, 2):
+        cfg = _cfg(tmp_path, tmp_path, epochs=1, classes=1, learning_rate=1e-5,
+                   spatial_shards=sp, save_val_predictions=False, val_postprocess=False,
+                   save_checkpoint=False, metrics_path=str(tmp_path / f"metrics{sp}.jsonl"))
+        train_model(cfg, model=copy.deepcopy(model), train_set=_Arrays(4, hw=128),
+                    val_set=_Arrays(2, seed=4, hw=128), device="cpu")
+        with open(cfg.metrics_path) as f:
+            losses[sp] = [r["loss"] for r in map(json.loads, f) if r["kind"] == "train_step"]
+    assert len(losses[1]) == 2
+    np.testing.assert_allclose(losses[2], losses[1], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("model", ["unet_pp_m", "yolov8_seg_m"])

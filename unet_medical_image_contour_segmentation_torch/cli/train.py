@@ -31,7 +31,8 @@ at HOST:PORT), or ``--distributed`` alone under a launcher that sets
 Spatial parallelism: ``--spatial-shards S`` cuts every image's rows over S
 ranks of this host (beside ``--num-devices / S`` data-parallel ones; all
 the host's cards by default); H must be divisible by S times the model's
-pooling divisor.  Single-host only, and not for ``yolov8_seg_s``.
+pooling divisor (16 for the UNets, 32 for ``yolov8_seg_s``, which also
+needs H >= S * 64).  Single-host only.
 """
 
 from __future__ import annotations

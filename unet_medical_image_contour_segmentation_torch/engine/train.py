@@ -47,7 +47,7 @@ num_devices / spatial_shards``: each rank takes its dp-th of every global
 batch and its band of their rows, validation gathers the classes of every
 block, and rank 0 saves checkpoints.  Single-host only, as in JAX: a process
 that has already joined a group of several raises ``NotImplementedError``.
-YOLOv8-seg does not row-shard and is refused.
+Every model trains row-sharded (YOLOv8-seg with H >= spatial_shards * 64).
 """
 
 from __future__ import annotations

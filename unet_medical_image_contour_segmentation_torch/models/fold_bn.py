@@ -56,9 +56,9 @@ class FoldedCBS(nn.Module):
         self.register_buffer("b", b.contiguous())
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
+                group=None, shard=None):
         y = conv2d(x, self.w, self.b, stride=self.stride, padding=self.w.shape[0] // 2,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, shard=shard)
         return silu_f32(y)
 
 

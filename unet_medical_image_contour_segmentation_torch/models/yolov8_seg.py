@@ -30,6 +30,16 @@ as the JAX main path leaves them to XLA.  Submodules are named after the
 JAX pytree's keys (``stem``, ``down{i}``, ``c2f{i}/m{k}/cv{1,2}``, ``sppf``,
 ``n4``, ``n3``, ``p_up{k}``, ``p_c{k}``, ``head``), each CBS holding
 ``conv`` and ``bn``.
+
+``forward(x, group, shard)``, as the UNet's: with a ``shard`` (spatial
+parallelism, ``ops/halo.py``) x is one band of rows of the images.  Every
+3x3 conv takes a 1-row halo (``ops/nn.py:conv2d``: the stride-1 rule, or
+the stride-2 one for the stem and ``down{i}``), and each of SPPF's three
+pools a 2-row halo of -inf (:func:`maxpool5_same`); the x2 upsamples, the
+concatenations, the ConvT ups, the 1x1 convs and the head are row-local.
+A band must hold a multiple of ``hw_divisor`` rows (``unet.check_band``),
+and at least 2 rows at stride 32, so that a pool's halo comes from the
+neighbouring band alone: H >= spatial_shards * 64.
 """
 
 from __future__ import annotations
@@ -40,8 +50,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.halo import halo_exchange
 from ..ops.nn import conv2d, conv_transpose2d
 from .blocks import OutConv, _bn_apply, _conv_hwio
+from .unet import check_band
 
 __all__ = ["CBS", "Bottleneck", "C2f", "SPPF", "YOLOv8Seg", "yolov8_seg_s", "silu_f32",
            "maxpool5_same", "upsample_nearest2"]
@@ -53,9 +65,15 @@ def silu_f32(y: torch.Tensor) -> torch.Tensor:
     return (yf * torch.sigmoid(yf)).to(y.dtype)
 
 
-def maxpool5_same(x: torch.Tensor) -> torch.Tensor:
-    """5x5 stride-1 SAME max pool of NHWC x (padding counts as -inf)."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 5, stride=1, padding=2).permute(0, 2, 3, 1)
+def maxpool5_same(x: torch.Tensor, shard=None) -> torch.Tensor:
+    """5x5 stride-1 SAME max pool of NHWC x (padding counts as -inf); on a
+    ``shard``'s band, that pool of the whole images: 2 rows of each
+    neighbour, -inf beyond the image (a zero row would win the max over
+    SiLU outputs, which go down to -0.278)."""
+    pad = 2
+    if shard is not None:
+        x, pad = halo_exchange(x, shard, 2, fill=float("-inf")), (0, 2)
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 5, stride=1, padding=pad).permute(0, 2, 3, 1)
 
 
 def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
@@ -73,10 +91,10 @@ class CBS(nn.Module):
         self.bn = nn.BatchNorm2d(cout)
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
+                group=None, shard=None):
         k = self.conv.kernel_size[0]
         y = conv2d(x, _conv_hwio(self.conv), stride=self.stride, padding=k // 2,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, shard=shard)
         return silu_f32(_bn_apply(self.bn, y, self.training, group))
 
 
@@ -88,8 +106,9 @@ class Bottleneck(nn.Module):
         self.cv1, self.cv2 = CBS(c, c, 3), CBS(c, c, 3)
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
-        return x + self.cv2(self.cv1(x, compute_dtype, group), compute_dtype, group)
+                group=None, shard=None):
+        y = self.cv1(x, compute_dtype, group, shard)
+        return x + self.cv2(y, compute_dtype, group, shard)
 
 
 class C2f(nn.Module):
@@ -105,12 +124,12 @@ class C2f(nn.Module):
             self.add_module(f"m{i}", Bottleneck(c))
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
+                group=None, shard=None):
         y = self.cv1(x, compute_dtype, group)
         c = y.shape[-1] // 2
         parts = [y[..., :c], y[..., c:]]
         for i in range(self.n):
-            parts.append(getattr(self, f"m{i}")(parts[-1], compute_dtype, group))
+            parts.append(getattr(self, f"m{i}")(parts[-1], compute_dtype, group, shard))
         return self.cv2(torch.cat(parts, dim=-1), compute_dtype, group)
 
 
@@ -122,11 +141,13 @@ class SPPF(nn.Module):
         self.cv1, self.cv2 = CBS(c, c // 2, 1), CBS(c * 2, c, 1)
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                group=None):
+                group=None, shard=None):
         y = self.cv1(x, compute_dtype, group)
-        p1 = maxpool5_same(y)
-        p2 = maxpool5_same(p1)
-        p3 = maxpool5_same(p2)
+        # each pool exchanges its own input: one 6-row exchange would need
+        # p1's and p2's rows beyond the image set back to -inf between pools
+        p1 = maxpool5_same(y, shard)
+        p2 = maxpool5_same(p1, shard)
+        p3 = maxpool5_same(p2, shard)
         return self.cv2(torch.cat([y, p1, p2, p3], dim=-1), compute_dtype, group)
 
 
@@ -172,24 +193,33 @@ class YOLOv8Seg(nn.Module):
         return conv_transpose2d(t, up.weight.permute(2, 3, 0, 1), up.bias, stride=2,
                                 compute_dtype=self.compute_dtype)
 
-    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None, shard=None) -> torch.Tensor:
         """x: (B, H, W, n_channels) or (B, H, W) -> logits (B, H, W, n_classes) f32;
-        a train forward's BN statistics reduce over ``group`` (None: one device)."""
+        a train forward's BN statistics reduce over ``group`` (None: one
+        device); with a ``shard``, x and the logits are one band of rows
+        (see the module docstring)."""
         if x.dim() == 3:
             x = x.unsqueeze(-1)
-        cd, g = self.compute_dtype, group
-        y = self.stem(x, cd, g)                                       # /2
+        check_band(x.shape[1], shard, self.hw_divisor)
+        if shard is not None and x.shape[1] < 2 * self.hw_divisor:
+            raise ValueError(
+                f"spatial sharding of {self.name} needs bands of at least 2 rows at stride 32 "
+                f"(SPPF's 5x5 pools read 2 rows of each neighbour): H must be at least "
+                f"spatial_shards * 64 = {shard.size * 2 * self.hw_divisor}; H "
+                f"{x.shape[1] * shard.size} is not")
+        cd, g, s = self.compute_dtype, group, shard
+        y = self.stem(x, cd, g, s)                                    # /2
         feats = []
         for i in range(4):
-            y = getattr(self, f"down{i}")(y, cd, g)                   # /4 /8 /16 /32
-            y = getattr(self, f"c2f{i}")(y, cd, g)
+            y = getattr(self, f"down{i}")(y, cd, g, s)                # /4 /8 /16 /32
+            y = getattr(self, f"c2f{i}")(y, cd, g, s)
             feats.append(y)
-        y = self.sppf(y, cd, g)                                       # P5 /32
-        p4 = self.n4(torch.cat([upsample_nearest2(y), feats[2]], dim=-1), cd, g)   # /16
-        p3 = self.n3(torch.cat([upsample_nearest2(p4), feats[1]], dim=-1), cd, g)  # /8
-        t = self.p_c1(self._up("p_up1", p3), cd, g)                   # /4
-        t = self.p_c2(self._up("p_up2", t), cd, g)                    # /2
-        t = self.p_c3(self._up("p_up3", t), cd, g)                    # /1
+        y = self.sppf(y, cd, g, s)                                    # P5 /32
+        p4 = self.n4(torch.cat([upsample_nearest2(y), feats[2]], dim=-1), cd, g, s)   # /16
+        p3 = self.n3(torch.cat([upsample_nearest2(p4), feats[1]], dim=-1), cd, g, s)  # /8
+        t = self.p_c1(self._up("p_up1", p3), cd, g, s)                # /4
+        t = self.p_c2(self._up("p_up2", t), cd, g, s)                 # /2
+        t = self.p_c3(self._up("p_up3", t), cd, g, s)                 # /1
         return self.head(t, cd).float()
 
 

@@ -4,11 +4,13 @@ XLA's partitioner inserts around the JAX package's sharded convolutions.
 
 An image's H axis is cut into ``size`` equal bands of rows, band ``index``
 on one rank of a spatial group (:class:`Shard`).  A windowed op (a kxk SAME
-conv with k = 2p + 1) needs p rows of each neighbour's band: the halo.
-:func:`halo_exchange` hands them over and returns the band with p rows
-above and below it (zeros beyond the image's first and last row, as SAME
-padding reads), and its backward sends the halo rows' gradients back to
-their owners, who add them to their boundary rows.
+conv or pool with k = 2p + 1) needs p rows of each neighbour's band: the
+halo.  :func:`halo_exchange` hands them over and returns the band with p
+rows above and below it (beyond the image's first and last row, rows of a
+``fill`` value: zeros, as a conv's SAME padding reads, or -inf for a max
+pool's), and its backward sends the halo rows' gradients back to their
+owners, who add them to their boundary rows.  The fill rows are made
+locally: they are never sent and take no gradient.
 
 Every rank issues the same collectives at the same shapes: the first and
 last bands exchange zero rows like any other, so every rank launches the
@@ -62,7 +64,7 @@ class _HaloExchange(torch.autograd.Function):
     """(B, h, W, C) band -> (B, h + 2k, W, C) with k rows of each neighbour."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, shard: Shard, k: int) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, shard: Shard, k: int, fill: float) -> torch.Tensor:
         ctx.shard, ctx.k = shard, k
         b, h, w, c = x.shape
         slots = x.new_zeros((shard.size, 2, b, k, w, c))
@@ -70,8 +72,8 @@ class _HaloExchange(torch.autograd.Function):
         slots[shard.index, 1] = x[:, h - k:]
         all_reduce_bits(slots, shard.group)
         r = shard.index
-        top = slots[r - 1, 1] if r > 0 else slots.new_zeros((b, k, w, c))
-        bottom = slots[r + 1, 0] if r < shard.size - 1 else slots.new_zeros((b, k, w, c))
+        top = slots[r - 1, 1] if r > 0 else slots.new_full((b, k, w, c), fill)
+        bottom = slots[r + 1, 0] if r < shard.size - 1 else slots.new_full((b, k, w, c), fill)
         return torch.cat([top, x, bottom], dim=1)
 
     @staticmethod
@@ -90,17 +92,17 @@ class _HaloExchange(torch.autograd.Function):
         dx = g[:, k:k + h].clone()
         dx[:, :k] += slots[r, 0]
         dx[:, h - k:] += slots[r, 1]
-        return dx, None, None
+        return dx, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, shard: Shard, k: int) -> torch.Tensor:
+def halo_exchange(x: torch.Tensor, shard: Shard, k: int, fill: float = 0.0) -> torch.Tensor:
     """NHWC band ``x`` with ``k`` rows of each neighbouring band above and
-    below it, zero rows beyond the image; differentiable (see the module
-    docstring).  Every band must hold at least ``k`` rows."""
+    below it, rows of ``fill`` beyond the image; differentiable (see the
+    module docstring).  Every band must hold at least ``k`` rows."""
     if x.shape[1] < k:
         raise ValueError(f"a band of {x.shape[1]} rows cannot lend a halo of {k} rows: use "
                          f"fewer spatial shards or larger images")
-    return _HaloExchange.apply(x, shard, k)
+    return _HaloExchange.apply(x, shard, k, fill)
 
 
 def gather_rows(x: torch.Tensor, shard: Shard) -> torch.Tensor:

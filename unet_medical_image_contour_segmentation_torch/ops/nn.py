@@ -16,11 +16,18 @@ the whole group's batch (cross-replica BN, ``ops/collectives.py``).
 the port of the repo's one TPU kernel; the others go to ``F.conv2d``.
 
 Given a ``shard`` (``ops/halo.py``: x is one band of rows of the images), a
-padded conv exchanges a halo of ``padding`` rows, runs the same SAME conv
-on the band and its halo, and drops the first and last ``padding`` output
-rows, so a 3x3 conv still meets the dispatch rule and runs the hand kernel,
-at (B, h + 2, W, Cin).  :func:`conv_transpose2d` (k2 s2), the 1x1 convs and
-:func:`max_pool2d` (on bands of even height) are row-local.
+padded conv exchanges a halo of ``padding`` rows.  At stride 1 it runs the
+same SAME conv on the band and its halo and drops the first and last
+``padding`` output rows, so a 3x3 conv still meets the dispatch rule and
+runs the hand kernel, at (B, h + 2, W, Cin).  At stride 2 the whole
+images' output row i reads input rows 2i - p .. 2i + p, so a band that
+starts at an even row needs ``padding`` rows above it: the conv runs on
+the band and its halo with no H padding and gives exactly the band's h / 2
+output rows (the bottom halo rows are read by no output; they are
+exchanged all the same, one code path, and take a zero gradient).  A
+SAME conv with rows dropped would centre its outputs on odd rows.
+:func:`conv_transpose2d` (k2 s2), the 1x1 convs and :func:`max_pool2d` (on
+bands of even height) are row-local.
 """
 
 from __future__ import annotations
@@ -67,21 +74,23 @@ def conv2d(
     shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC.  Matches torch.nn.Conv2d; on a
-    ``shard``'s band of rows, the SAME conv of the whole images."""
+    ``shard``'s band of rows, that conv of the whole images (a kxk conv of
+    padding k // 2, stride 1 or 2)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
     halo = padding if shard is not None else 0
     if halo:
-        if stride != 1 or tuple(w.shape[:2]) != (2 * halo + 1, 2 * halo + 1):
-            raise ValueError(f"a row-sharded conv must be a SAME conv of stride 1, not a "
+        if stride not in (1, 2) or tuple(w.shape[:2]) != (2 * halo + 1, 2 * halo + 1):
+            raise ValueError(f"a row-sharded conv must be a SAME conv of stride 1 or 2, not a "
                              f"{tuple(w.shape[:2])} kernel at stride {stride}, padding {padding}")
         x = halo_exchange(x, shard, halo)
     if conv3x3.supported(w.shape, stride, padding):
         y = conv3x3.conv3x3_nhwc(x.contiguous(), w)
     else:
-        y = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=padding))
-    if halo:
+        pad = (0, padding) if halo and stride == 2 else padding
+        y = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
+    if halo and stride == 1:
         y = y[:, halo:-halo]
     if b is not None:
         y = y + b.to(y.dtype)

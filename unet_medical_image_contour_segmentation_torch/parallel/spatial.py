@@ -11,12 +11,15 @@ Torch has no partitioner, so the port writes them by hand:
   (JAX's ``reshape(dp, sp)`` grid).  :func:`make_dp_spatial_mesh` builds
   its groups: every rank of the layout, the spatial group of each data
   index, and the data group of each band;
-* the forward: every padded conv (the 3x3 convs, unet_sa's 7x7 gate) and
-  the bilinear upsample read a halo of the neighbouring bands' rows
-  (``ops/halo.py``, ``ops/nn.py:conv2d``, ``ops/resize.py``); the 3x3 convs
-  still run the hand kernel, at (B, h + 2, W, Cin).  Max pools, the k2 s2
-  transpose convs and the 1x1 head are row-local, given bands whose height
-  is a multiple of ``hw_divisor`` (H divisible by ``sp * hw_divisor``);
+* the forward: every padded conv (the 3x3 convs of stride 1 and 2,
+  unet_sa's 7x7 gate), the bilinear upsample and YOLOv8-seg's 5x5 SPPF
+  pools (a halo of -inf) read a halo of the neighbouring bands' rows
+  (``ops/halo.py``, ``ops/nn.py:conv2d``, ``ops/resize.py``,
+  ``models/yolov8_seg.py:maxpool5_same``); the 3x3 stride-1 convs still
+  run the hand kernel, at (B, h + 2, W, Cin).  The 2x2 max pools, the k2
+  s2 transpose convs, the nearest upsamples and the 1x1 convs are
+  row-local, given bands whose height is a multiple of ``hw_divisor`` (H
+  divisible by ``sp * hw_divisor``);
 * the reductions: BN statistics, CE/BCE and Dice over every rank of the
   layout (equal bands keep ``pmean`` exact); the boundary term and the cc
   penalty, which read whole images, over gathered bands and the data group
@@ -33,9 +36,10 @@ Torch has no partitioner, so the port writes them by hand:
   batch.
 
 The UNet family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``, bilinear or
-transpose-conv ups, remat) and UNet++ row-shard.  YOLOv8-seg does not: its
-stride-2 convs and SPPF's 5x5 pool would need halos of their own, and
-:func:`check_model` refuses it by name.
+transpose-conv ups, remat), UNet++ and YOLOv8-seg row-shard.  One departure
+from JAX: SPPF's pools read 2 rows of each neighbour at stride 32, so
+YOLOv8-seg needs bands of at least 2 rows there (H >= ``sp * 64``) and
+raises ValueError below that, where GSPMD also takes bands of 1 row.
 
 :func:`tiled_inference` is JAX's single-device library form of tiled
 serving, on the Predictor's device grid (``engine/predict.py:_tile_grid``).
@@ -122,12 +126,12 @@ def check_model(model: nn.Module) -> None:
     """Raise NotImplementedError for a model that does not row-shard."""
     from ..models.unet import UNet
     from ..models.unet_nested import UNetPlusPlus
+    from ..models.yolov8_seg import YOLOv8Seg
 
-    if not isinstance(model, (UNet, UNetPlusPlus)):
+    if not isinstance(model, (UNet, UNetPlusPlus, YOLOv8Seg)):
         raise NotImplementedError(
             f"spatial sharding is not ported for {getattr(model, 'name', type(model).__name__)}"
-            f": YOLOv8-seg's stride-2 convs and SPPF's 5x5 pool would need halos of their "
-            f"own; the UNet family and UNet++ train and serve row-sharded")
+            f": the UNet family, UNet++ and YOLOv8-seg train and serve row-sharded")
 
 
 def data_rows(mesh: SpatialMesh, batch: int) -> slice:
