@@ -9,7 +9,11 @@
 Phases, in order; any failure exits nonzero before the last line:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel source with nvcc (all at once) and prints
-     the build seconds and ptxas's registers / shared memory / spills;
+     the build seconds and ptxas's registers / shared memory / spills; the
+     libraries must lie in the checkout's build/torch_kernels/, and, beside
+     that build, a copy of the package laid out as installed in a
+     site-packages builds its 3x3 kernel into its HOME's
+     ~/.cache/umics/torch_kernels (utils/compile_cache.py) and loads it;
   3. kernels vs plain: each kernel at the shapes the main paths give it (the
      dense forward's, the tiled forward's windows of 704² and 1216², a
      ragged one, and, checked but not timed, the train variants' own convs,
@@ -36,9 +40,20 @@ Phases, in order; any failure exits nonzero before the last line:
      compute with f32 master weights, on a seeded batch of bright rectangles
      on noise: 7 forward and 7 dx launches per step, all on the tensor-core
      kernel, a finite falling loss,
-     step time, slices/s and peak memory; then one epoch of train_model on
-     an in-memory dataset of 512x512 slices, without tqdm, PIL or cv2;
-     then the rest of the reference's training, each at (8, 512, 512) bf16:
+     step time, slices/s and peak memory; then the slice's main path: two
+     epochs of train_model on an in-memory dataset of 512x512 slices,
+     without tqdm, PIL or cv2, with a checkpoint after each epoch written
+     asynchronously (7 + 7 launches a step and 7 a validation forward;
+     checkpoint_epoch2.npz must equal model_epoch2.npz array for array); the
+     seconds the training thread spends in save_checkpoint against
+     save_checkpoint_async for the full unet with its RMSprop state (the
+     files must be equal), and the full unet's train_model with its saves
+     asynchronous against synchronous, in turns; prefetch_to_device feeding 24 seeded (8, 512,
+     512, 1) f32 batches and their masks to a consumer with a fixed device
+     busy-wait a batch (every yielded batch must equal its host batch, also
+     when the consumer zeroes and drops it after use), its ms a batch
+     against the consumer alone, the copy alone and the two in line on one
+     stream; then the rest of the reference's training, each at (8, 512, 512) bf16:
      A1 the binary criterion (BCE + Dice + 0.25 * boundary) on unet_s with
      one output channel: phase 6's f32 card-vs-CPU step, 7 + 7 launches a
      step, a falling loss, the boundary term's device ms and share of the
@@ -151,7 +166,8 @@ Phases, in order; any failure exits nonzero before the last line:
      result line.
 
 Imports nothing of JAX.  Reads nothing outside the checkout; the kernels
-build into build/torch_kernels/.
+build into build/torch_kernels/ (writes beyond it go to temporary
+directories).
 """
 
 from __future__ import annotations
@@ -164,6 +180,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -176,16 +193,22 @@ import torch.distributed as dist
 import torch.multiprocessing
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+REPO = Path(__file__).resolve().parent
+PORT_NAME = "unet_medical_image_contour_segmentation_torch"
+sys.path.insert(0, str(REPO))
 
 from unet_medical_image_contour_segmentation_torch import exact_f32  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.config import (  # noqa: E402
     PipelineConfig,
     TrainConfig,
 )
+from unet_medical_image_contour_segmentation_torch.data.loader import (  # noqa: E402
+    prefetch_to_device,
+)
 from unet_medical_image_contour_segmentation_torch.engine.checkpoint import (  # noqa: E402
     load_checkpoint,
     save_checkpoint,
+    save_checkpoint_async,
 )
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor  # noqa: E402
@@ -269,6 +292,7 @@ from unet_medical_image_contour_segmentation_torch.pipeline.seg_main import (  #
     _build_predictor,
     run_pipeline,
 )
+from unet_medical_image_contour_segmentation_torch.utils import compile_cache  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -339,6 +363,7 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 ROTATE_BYTES = 64 * 2**20
 MAX_ROOFLINE = 1.05
 SLEEP_HZ = 2.0e9              # above the H100's highest SM clock (1.98 GHz)
+QUEUED_ATTEMPTS = 3
 MIN_AGREEMENT = 0.99
 # tiled vs dense f32 masks (TF32 off), >= HALO from the border.  In bf16 the
 # two agreed on 100% of the interior at 2048² but on 99.78% at 4096² on an
@@ -370,29 +395,37 @@ def time_ms(fn, reps: int, warmup: int = 3, queued: bool = True):
 
     queued: the timed calls wait behind a sleep kernel long enough for the
     host to issue them all, so the CUDA events time the device alone and
-    not the host's issue rate, which the host clock times instead.  Else
-    the calls run as a caller issues them, and the events time both."""
+    not the host's issue rate, which the host clock times instead; where
+    the host took longer than the sleep to issue them (a stall of the
+    shared host), they are timed again on the next inputs, and the run
+    fails after QUEUED_ATTEMPTS such attempts.  Else the calls run as a
+    caller issues them, and the events time both."""
     t0 = time.perf_counter()
     for i in range(warmup):
         fn(i)
     issue_s = (time.perf_counter() - t0) / warmup
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
     # at most SLEEP_HZ cycles a second, so the sleep lasts at least sleep_s
     sleep_s = 4 * reps * issue_s + 2e-3
-    if queued:
-        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
-    start.record()
-    t0 = time.perf_counter()
-    for i in range(reps):
-        fn(warmup + i)
-    host_s = time.perf_counter() - t0
-    end.record()
-    torch.cuda.synchronize()
-    if queued and host_s > sleep_s:
-        raise RuntimeError(f"the host took {host_s:.4f} s to issue {reps} calls, longer than "
-                           f"the {sleep_s:.4f} s sleep they queued behind")
-    return start.elapsed_time(end) / reps, host_s / reps * 1e3
+    for attempt in range(1, QUEUED_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(reps):  # each attempt on the next inputs, none in the L2
+            fn(warmup + (attempt - 1) * reps + i)
+        host_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if not queued or host_s <= sleep_s:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e3
+        # the events then timed the host's issue too: a stall of the shared
+        # host; measure again, and give up after QUEUED_ATTEMPTS
+        log(f"[time_ms] attempt {attempt}: the host took {host_s:.4f} s to issue {reps} "
+            f"calls, longer than the {sleep_s:.4f} s sleep they queued behind")
+    raise RuntimeError(f"the host took {host_s:.4f} s to issue {reps} calls, longer than "
+                       f"the {sleep_s:.4f} s sleep they queued behind, {QUEUED_ATTEMPTS} times")
 
 
 def copies(t: torch.Tensor) -> list:
@@ -452,14 +485,75 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> dict:
-    """Build every source; -> ptxas's {kernel: "R registers, S/L bytes spill
-    stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", and the int8
+# run by a copy of the package laid out as installed (outside any checkout)
+INSTALLED_PROBE = """
+import ctypes
+import unet_medical_image_contour_segmentation_torch as port
+from unet_medical_image_contour_segmentation_torch.kernels import _build
+lib = _build.build(["conv3x3"])["conv3x3"].library
+ctypes.CDLL(str(lib))
+print(port.__file__)
+print(lib)
+"""
+
+
+def start_installed_build(tmp: Path) -> subprocess.Popen:
+    """Copy the package into ``tmp``/site-packages, as a wheel installs it,
+    and build its 3x3 kernel there in a process of its own, with HOME in
+    ``tmp`` and no UMICS_COMPILE_CACHE_DIR."""
+    site = tmp / "site-packages"
+    shutil.copytree(REPO / PORT_NAME, site / PORT_NAME,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp / "work").mkdir()
+    env = dict(os.environ, HOME=str(tmp / "home"), PYTHONPATH=str(site))
+    env.pop(compile_cache.CACHE_DIR_ENV, None)
+    return subprocess.Popen([sys.executable, "-c", INSTALLED_PROBE], cwd=tmp / "work", env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def check_build_dirs(results: dict, probe: subprocess.Popen, tmp: Path) -> dict:
+    """The checkout's libraries lie under its build/torch_kernels/ (under
+    $UMICS_COMPILE_CACHE_DIR/torch_kernels when that is set); the installed
+    copy's under its HOME's ~/.cache/umics/torch_kernels, outside the tree
+    it was installed into."""
+    override = os.environ.get(compile_cache.CACHE_DIR_ENV)
+    want = (Path(override) / "torch_kernels" if override
+            else REPO / "build" / "torch_kernels")
+    misplaced = {n: str(r.library) for n, r in results.items() if r.library.parent != want}
+    out, err = probe.communicate(timeout=_build.NVCC_TIMEOUT_S + 120)
+    lines = out.split()
+    home_dir = tmp / "home" / ".cache" / "umics" / "torch_kernels"
+    if (misplaced or probe.returncode != 0 or len(lines) != 2
+            or Path(lines[0]).parent != tmp / "site-packages" / PORT_NAME
+            or Path(lines[1]).parent != home_dir):
+        raise RuntimeError(f"[build] libraries outside {want}: {misplaced}; the installed "
+                           f"copy (exit {probe.returncode}) built {lines[1:]} from {lines[:1]}, "
+                           f"want {home_dir}:\n{err[-3000:]}")
+    log(f"[build] the checkout's libraries lie in {want}; a copy installed as into "
+        f"site-packages built {Path(lines[1]).name} into $HOME/.cache/umics/torch_kernels "
+        f"and loaded it")
+    return {"checkout": str(want), "installed": str(lines[1])}
+
+
+def phase_build() -> tuple:
+    """Build every source; -> (ptxas's {kernel: "R registers, S/L bytes
+    spill stores/loads"} for the 3x3 kernels ("f32", "mma<NT>", and the int8
     kernels "int8_tma<N,OUT>" / "int8_im2col<N,OUT>" with ReLU,
-    "int8_tma<N,OUT,silu>" with SiLU).  An int8 kernel that spills fails
-    the run (its wgmma accumulators must stay in registers)."""
+    "int8_tma<N,OUT,silu>" with SiLU), the build directories).  An int8
+    kernel that spills fails the run (its wgmma accumulators must stay in
+    registers), as does a library outside the build directory that
+    check_build_dirs wants.  An installed copy of the package builds the
+    3x3 kernel beside the checkout's build, in a process of its own."""
     t0 = time.perf_counter()
-    results = _build.build(["conv3x3", "conv3x3_int8"])
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = start_installed_build(Path(tmp))
+        try:
+            results = _build.build(["conv3x3", "conv3x3_int8"])
+            dirs = check_build_dirs(results, probe, Path(tmp))
+        finally:
+            if probe.poll() is None:
+                probe.kill()
+                probe.communicate()
     log(f"[build] {len(results)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
     usage, name, spills = {}, None, ""
     for r in results.values():
@@ -482,7 +576,7 @@ def phase_build() -> dict:
         "0/0 bytes spill stores/loads")}
     if spilled or not any(k.startswith("int8_tma") for k in usage):
         raise RuntimeError(f"int8 kernels spill, or ptxas printed none of them: {spilled}")
-    return usage
+    return usage, dirs
 
 
 def kernel_usage(usage: dict, cin: int, cout: int, dtype) -> dict:
@@ -1567,55 +1661,335 @@ class ArrayDataset:
 HOST_ONLY_MODULES = ("tqdm", "PIL", "cv2")
 
 
+TRAIN_MODEL_EPOCHS = 2
+
+
 def phase_train_model(n_train: int = 32):
-    """One epoch of train_model on in-memory 512x512 slices, with progress,
-    post-processing and prediction dumps off, checkpoints into a temp dir;
-    it must not import tqdm, PIL or cv2."""
+    """The slice's main path: train_model on in-memory 512x512 slices for
+    TRAIN_MODEL_EPOCHS epochs, a checkpoint saved after each (asynchronously,
+    on the loop's writer thread), progress, post-processing and prediction
+    dumps off; it must not import tqdm, PIL or cv2, it must launch the
+    kernel 7 + 7 times a step and 7 times a validation forward, and the
+    last periodic checkpoint must equal the final model_epoch{N}.npz array
+    for array (both hold the final state).  -> (launches, numbers)."""
     train_set = ArrayDataset(rect_batch(7, n_train, HW, HW))
     val_set = ArrayDataset(rect_batch(8, 2 * BATCH, HW, HW))
+    epochs = TRAIN_MODEL_EPOCHS
     records = []
     before = {m for m in HOST_ONLY_MODULES if m in sys.modules}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = TrainConfig(model="unet_s", epochs=1, batch_size=BATCH, learning_rate=TRAIN_LR,
-                          amp=True, num_workers=4, checkpoint_every=1,
+        cfg = TrainConfig(model="unet_s", epochs=epochs, batch_size=BATCH,
+                          learning_rate=TRAIN_LR, amp=True, num_workers=4, checkpoint_every=1,
                           checkpoint_after_frac=0.0,
                           dir_checkpoint=os.path.join(tmp, "checkpoints"),
                           predictions_dir=os.path.join(tmp, "predictions"),
                           save_val_predictions=False, val_postprocess=False, progress=False,
                           log_every=0)
         os.chdir(tmp)
+        model = seeded_unet_s(torch.bfloat16)
         try:
+            reset_launches()
             t0 = time.perf_counter()
-            result = train_model(cfg, model=seeded_unet_s(torch.bfloat16), train_set=train_set,
-                                 val_set=val_set, device="cuda",
+            result = train_model(cfg, model=model, train_set=train_set, val_set=val_set,
+                                 device="cuda",
                                  metric_backends=[lambda kind, rec: records.append((kind, rec))])
             seconds = time.perf_counter() - t0
+            launches = read_launches()
         finally:
             os.chdir(cwd)
-        final = load_checkpoint(os.path.join(tmp, "model_epoch1.npz"))
-        periodic = os.path.exists(os.path.join(tmp, "checkpoints", "checkpoint_epoch1.npz"))
+        final_path = os.path.join(tmp, f"model_epoch{epochs}.npz")
+        final = load_checkpoint(final_path)
+        periodic = [os.path.join(tmp, "checkpoints", f"checkpoint_epoch{e}.npz")
+                    for e in range(1, epochs + 1)]
+        written = [os.path.exists(f) for f in periodic]
+        differing = npz_differences(periodic[-1], final_path) if all(written) else None
     loaded = sorted({m for m in HOST_ONLY_MODULES if m in sys.modules} - before)
     val = [rec for kind, rec in records if kind == "validation"]
-    steps = n_train // BATCH
+    steps = epochs * (n_train // BATCH)
+    fwd = steps * len(MAIN_CONVS) + epochs * (len(val_set) // BATCH) * len(MAIN_CONVS)
+    want = {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd,
+            "conv3x3_nhwc_dx": steps * len(MAIN_CONVS),
+            "conv3x3_nhwc_dx tensor_core": steps * len(MAIN_CONVS)}
     train_losses = [rec["loss"] for kind, rec in records if kind == "train_step"]
     if (result.step != steps or final["step"] != steps or final["opt_state"] is None
-            or not periodic or loaded or len(val) != 1 or len(train_losses) != steps
+            or not all(written) or differing or loaded or len(val) != epochs
+            or len(train_losses) != steps or launches != want
             or not np.all(np.isfinite(train_losses))
-            or not np.all(np.isfinite([val[0][k] for k in ("dice", "dice_postprocessed",
-                                                            "min_dice")]))):
-        raise RuntimeError(f"train_model epoch: steps {result.step} (want {steps}), checkpoint "
+            or not np.all(np.isfinite([v[k] for v in val for k in ("dice", "dice_postprocessed",
+                                                                    "min_dice")]))):
+        raise RuntimeError(f"train_model: steps {result.step} (want {steps}), checkpoint "
                            f"step {final['step']}, opt_state {final['opt_state'] is not None}, "
-                           f"periodic checkpoint {periodic}, imported {loaded}, records {records}")
-    v = val[0]
-    log(f"[train_model] 1 epoch, {n_train} slices {HW}x{HW} in batches of {BATCH}: "
-        f"{v['slices_per_sec']:.1f} slices/s (host clock, the epoch's train loop), "
-        f"{seconds:.2f} s end to end with validation and checkpoints; validation "
-        f"(dice, dice_postprocessed, min_dice) = ({v['dice']:.4f}, "
-        f"{v['dice_postprocessed']:.4f}, {v['min_dice']:.4f}); train losses "
-        f"{' '.join(f'{x:.4f}' for x in train_losses)}; no import of {HOST_ONLY_MODULES}")
-    return dict(slices_per_s=v["slices_per_sec"], seconds=seconds, dice=v["dice"],
-                dice_postprocessed=v["dice_postprocessed"], min_dice=v["min_dice"])
+                           f"periodic checkpoints {written}, arrays of the last one that "
+                           f"differ from the final one {differing}, imported {loaded}, "
+                           f"launches {launches} (want {want}), records {records}")
+    v = val[-1]
+    rates = [r["slices_per_sec"] for r in val]
+    log(f"[train_model] {epochs} epochs, {n_train} slices {HW}x{HW} in batches of {BATCH}: "
+        f"{' '.join(f'{x:.1f}' for x in rates)} slices/s by epoch (host clock, the epoch's "
+        f"train loop), {seconds:.2f} s end to end with validation and {epochs} asynchronous "
+        f"checkpoints; launches {launches}; checkpoint_epoch{epochs}.npz equals "
+        f"model_epoch{epochs}.npz array for array; validation (dice, dice_postprocessed, "
+        f"min_dice) = ({v['dice']:.4f}, {v['dice_postprocessed']:.4f}, {v['min_dice']:.4f}); "
+        f"train losses {' '.join(f'{x:.4f}' for x in train_losses)}; no import of "
+        f"{HOST_ONLY_MODULES}")
+    return launches, dict(slices_per_s=rates, seconds=seconds, dice=v["dice"],
+                          dice_postprocessed=v["dice_postprocessed"], min_dice=v["min_dice"])
+
+
+def npz_differences(a: str, b: str) -> list:
+    """The keys of two .npz files whose arrays differ, or that one lacks."""
+    with np.load(a) as za, np.load(b) as zb:
+        keys = set(za.files) | set(zb.files)
+        return sorted(k for k in keys if k not in za.files or k not in zb.files
+                      or not np.array_equal(za[k], zb[k]))
+
+
+SAVE_REPS = 3
+
+
+def phase_checkpoint_save() -> dict:
+    """The seconds the training thread spends in a checkpoint save of the
+    full unet (widths 64..1024) with its RMSprop state, bf16 compute and f32
+    master weights on the card: save_checkpoint against
+    save_checkpoint_async (the call, then the worker's write), SAVE_REPS
+    times in turns; each asynchronous file must equal the synchronous one
+    written from the same state."""
+    model = seeded_unet_s(torch.bfloat16, factory=unet).cuda()
+    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=TRAIN_LR))
+    step({k: torch.from_numpy(v).cuda() for k, v in rect_batch(9, 2, 64, 64).items()},
+         TRAIN_LR)  # RMSprop's state exists from the first step
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    times = {"sync_s": [], "async_call_s": [], "async_write_s": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(SAVE_REPS):
+            sync_path = os.path.join(tmp, f"sync{rep}.npz")
+            async_path = os.path.join(tmp, f"async{rep}.npz")
+            t0 = time.perf_counter()
+            save_checkpoint(sync_path, model, step=step.step, optimizer=step.optimizer)
+            times["sync_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fut = save_checkpoint_async(async_path, model, step=step.step,
+                                        optimizer=step.optimizer)
+            times["async_call_s"].append(time.perf_counter() - t0)
+            fut.result()
+            times["async_write_s"].append(time.perf_counter() - t0)
+            differing = npz_differences(sync_path, async_path)
+            if differing:
+                raise RuntimeError(f"[save] the asynchronous checkpoint differs from the "
+                                   f"synchronous one at {differing}")
+            nbytes = os.path.getsize(sync_path)
+            os.remove(sync_path)
+            os.remove(async_path)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[save] full unet ({n_params} parameters, {nbytes / 2**20:.1f} MiB .npz with the "
+        f"RMSprop state), seconds on the training thread, {SAVE_REPS} saves each in turns: "
+        f"save_checkpoint {' '.join(f'{x:.4f}' for x in times['sync_s'])}; "
+        f"save_checkpoint_async {' '.join(f'{x:.4f}' for x in times['async_call_s'])} "
+        f"(its write done after {' '.join(f'{x:.4f}' for x in times['async_write_s'])}); "
+        f"median {med['sync_s']:.4f} against {med['async_call_s']:.4f} "
+        f"({med['sync_s'] / med['async_call_s']:.1f}x); asynchronous files equal the "
+        f"synchronous ones")
+    return dict(params=n_params, npz_mib=nbytes / 2**20, **times,
+                **{f"median_{k}": v for k, v in med.items()})
+
+
+@contextlib.contextmanager
+def synchronous_saves():
+    """train_model's periodic saves made on the loop's thread, as before
+    save_checkpoint_async (a comparison for the timing only)."""
+    from concurrent.futures import Future
+
+    from unet_medical_image_contour_segmentation_torch.engine import train as train_module
+
+    def save_now(path, model, step=0, mask_values=None, extra=None, optimizer=None, *,
+                 executor=None):
+        save_checkpoint(path, model, step, mask_values, extra, optimizer)
+        done = Future()
+        done.set_result(None)
+        return done
+
+    train_module.save_checkpoint_async = save_now
+    try:
+        yield
+    finally:
+        train_module.save_checkpoint_async = save_checkpoint_async
+
+
+def phase_train_model_saves(n_train: int = 32) -> dict:
+    """train_model of the full unet (bf16, 2 epochs of 4 steps at (8, 512,
+    512), a checkpoint of ~355 MiB after each) with its periodic saves
+    asynchronous, as the loop makes them, against the same saves made on
+    the loop's thread, in turns (async, sync, sync, async): seconds end to
+    end and each epoch's slices/s (the writer thread shares the host, and
+    its GIL, with a host-bound loop)."""
+    import copy
+
+    base = seeded_unet_s(torch.bfloat16, factory=unet)
+    train_set = ArrayDataset(rect_batch(13, n_train, HW, HW))
+    val_set = ArrayDataset(rect_batch(14, BATCH, HW, HW))
+    runs = {"async": [], "sync": []}
+    cwd = os.getcwd()
+    for mode in ("async", "sync", "sync", "async"):
+        records = []
+        with tempfile.TemporaryDirectory() as tmp, (
+                synchronous_saves() if mode == "sync" else contextlib.nullcontext()):
+            cfg = TrainConfig(model="unet", epochs=2, batch_size=BATCH, learning_rate=TRAIN_LR,
+                              amp=True, num_workers=4, checkpoint_every=1,
+                              checkpoint_after_frac=0.0,
+                              dir_checkpoint=os.path.join(tmp, "checkpoints"),
+                              save_val_predictions=False, val_postprocess=False,
+                              progress=False, log_every=0)
+            os.chdir(tmp)
+            try:
+                t0 = time.perf_counter()
+                train_model(cfg, model=copy.deepcopy(base), train_set=train_set,
+                            val_set=val_set, device="cuda",
+                            metric_backends=[lambda kind, rec: records.append((kind, rec))])
+                seconds = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+        runs[mode].append(dict(seconds=seconds, slices_per_s=[
+            rec["slices_per_sec"] for kind, rec in records if kind == "validation"]))
+    text = "; ".join(f"{mode} " + ", ".join(
+        f"{r['seconds']:.3f} s ({' '.join(f'{x:.1f}' for x in r['slices_per_s'])} slices/s)"
+        for r in rs) for mode, rs in runs.items())
+    log(f"[train_model saves] full unet, 2 epochs with a checkpoint after each, in turns "
+        f"(async, sync, sync, async): {text}")
+    return runs
+
+
+PREFETCH_BATCHES = 24
+PREFETCH_REPS = 5
+# the consumer's fixed device work a batch: long enough that the thread's
+# pinning of each 16 MiB batch keeps ahead of it, so that the card sets the
+# pace
+PREFETCH_BUSY_S = 6e-3
+
+
+def prefetch_host_batches(seed: int, n: int, b: int = BATCH, hw: int = HW) -> list:
+    """n seeded batches: (b, hw, hw, 1) f32 images and (b, hw, hw) int32 masks."""
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.random((b, hw, hw, 1), dtype=np.float32),
+             "mask": rng.integers(0, 3, (b, hw, hw), dtype=np.int32)} for _ in range(n)]
+
+
+def prefetch_gate(host: list, device="cuda", busy_cycles: int = 0, zero: bool = True) -> tuple:
+    """``host`` through prefetch_to_device into a consumer that queues a
+    busy-wait of ``busy_cycles``, counts on the card the elements of each
+    batch that differ from its host batch (uploaded beforehand), and, with
+    ``zero``, zeroes the batch and drops it (the allocator-reuse hazard: a
+    later copy into that memory would race the queued work).  -> (differing
+    elements, batches seen, device ms a batch from the first batch's arrival
+    on the card to the last one's end (CUDA events))."""
+    ref = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in host]
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    seen = 0
+    for i, batch in enumerate(prefetch_to_device(iter(host), device)):
+        if i == 0:
+            start.record()
+        if busy_cycles:
+            torch.cuda._sleep(busy_cycles)
+        for k, t in batch.items():
+            bad += (t != ref[i][k]).sum()
+            if zero:
+                t.zero_()
+        seen += 1
+        del batch, t
+    end.record()
+    torch.cuda.synchronize()
+    return int(bad), seen, start.elapsed_time(end) / max(seen, 1)
+
+
+def phase_prefetch() -> dict:
+    """prefetch_to_device on the card: PREFETCH_BATCHES seeded batches of
+    (BATCH, HW, HW, 1) f32 images and int32 masks into a consumer with a
+    fixed device busy-wait a batch.  Gates: every yielded batch equals its
+    host batch, with the consumer zeroing and dropping each one after use,
+    and without.  Reports the time per batch against the consumer's work
+    alone, the copy alone and both in line on one stream (the copy on the
+    compute stream, as before the side stream), and, as a control, the
+    differing elements when record_stream is skipped (the hazard the gate
+    is for)."""
+    host = prefetch_host_batches(12, PREFETCH_BATCHES)
+    busy = int(PREFETCH_BUSY_S * SLEEP_HZ)
+    n = len(host)
+    for zero in (True, False):
+        bad, seen, _ = prefetch_gate(host, busy_cycles=busy, zero=zero)
+        if bad or seen != n:
+            raise RuntimeError(f"[prefetch] {bad} elements differ from the host batches "
+                               f"({seen} of {n} batches seen, zero after use {zero})")
+    # timing, each in turns PREFETCH_REPS times (a stall of the shared host
+    # shows in one run, not in the median): the prefetch, the consumer alone,
+    # the copy alone on a side stream, and copy + consumer in line on the
+    # compute stream
+    for _ in range(2):  # the second pass reuses the first's freed pinned blocks
+        pinned = None
+        t0 = time.perf_counter()
+        pinned = [{k: torch.from_numpy(v).pin_memory() for k, v in b.items()} for b in host]
+        pin_ms = (time.perf_counter() - t0) / n * 1e3
+    resident = [{k: v.cuda() for k, v in b.items()} for b in pinned]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def consumer(batch):
+        torch.cuda._sleep(busy)
+        for t in batch.values():
+            (t != t).sum()
+            t.zero_()
+
+    def device_ms(body):
+        torch.cuda.synchronize()
+        start.record()
+        body()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def copies_alone():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for b in pinned:
+                for v in b.values():
+                    v.to("cuda", non_blocking=True)
+        torch.cuda.current_stream().wait_stream(side)
+
+    def in_line():
+        for b in pinned:
+            consumer({k: v.to("cuda", non_blocking=True) for k, v in b.items()})
+
+    times = {"prefetch": [], "consumer": [], "copy": [], "in_line": []}
+    for _ in range(PREFETCH_REPS):
+        times["prefetch"].append(prefetch_gate(host, busy_cycles=busy)[2])
+        times["consumer"].append(device_ms(lambda: [consumer(b) for b in resident]))
+        times["copy"].append(device_ms(copies_alone))
+        times["in_line"].append(device_ms(in_line))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    hidden = (med["consumer"] + med["copy"] - med["prefetch"]) / med["copy"]
+    # the control: without record_stream the allocator may hand a dropped
+    # batch's memory to a later copy while the zeroing is still queued
+    record_stream = torch.Tensor.record_stream
+    torch.Tensor.record_stream = lambda self, stream: None
+    try:
+        unsafe_bad = prefetch_gate(host, busy_cycles=busy)[0]
+    finally:
+        torch.Tensor.record_stream = record_stream
+    mib = sum(v.nbytes for v in host[0].values()) / 2**20
+    log(f"[prefetch] {n} batches of {mib:.0f} MiB ({BATCH}, {HW}, {HW}, 1) f32 images + int32 "
+        f"masks: every yielded batch equals its host batch, zeroed and dropped after use or "
+        f"not; ms a batch on the card (medians of {PREFETCH_REPS}, in turns): prefetch "
+        f"{med['prefetch']:.4f} ({' '.join(f'{x:.4f}' for x in times['prefetch'])}), "
+        f"consumer alone {med['consumer']:.4f}, copy alone "
+        f"{med['copy']:.4f}, copy and consumer in line on one stream {med['in_line']:.4f}; "
+        f"{hidden:.1%} of the copy hidden behind the consumer; pinning {pin_ms:.4f} ms a "
+        f"batch on the host (the thread's pace); without record_stream "
+        f"{unsafe_bad} elements differed (the hazard the gate catches)")
+    return dict(batches=n, batch_mib=mib, busy_s=PREFETCH_BUSY_S, ms=times, pin_ms=pin_ms,
+                **{f"median_{k}_ms": v for k, v in med.items()}, copy_hidden=hidden,
+                unsafe_differing=unsafe_bad)
 
 
 def tiled_logits(model, x: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
@@ -3702,7 +4076,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     smi = phase_device()
-    usage = phase_build()
+    usage, build_dirs = phase_build()
     record_launches()
     rows, max_err = phase_kernels(usage)
     bwd_rows, bwd_err = phase_backward(usage)
@@ -3711,7 +4085,10 @@ def main(argv=None) -> int:
     launches, main = phase_main_path(model, args.profile)
     phase_train_reference()
     train_launches, train, trained = phase_train(args.profile)
-    train["epoch"] = phase_train_model()
+    train_model_launches, train["train_model"] = phase_train_model()
+    train["save"] = phase_checkpoint_save()
+    train["save"]["train_model"] = phase_train_model_saves()
+    train["prefetch"] = phase_prefetch()
     phase_train_reference(n_classes=1)
     binary_launches, train["binary"] = phase_train_binary(train)
     variant_launches, train["variants"] = phase_train_variants()
@@ -3752,6 +4129,8 @@ def main(argv=None) -> int:
     spy_bwd_rows = [r for r in bwd_rows if r["path"] == "spatial_yolo"]
     bwd_rows = [r for r in bwd_rows if r["path"] == "train"]
     train_paths = {"train": train_launches, "train_binary": binary_launches,
+                   # the slice's main path: 2 epochs of train_model with validation
+                   "train_model": train_model_launches,
                    **{f"train_{k}": v for k, v in variant_launches.items()},
                    "train_remat": remat_launches,
                    # D1, D2: the data-parallel step at world size 1, and each rank of two
@@ -3940,6 +4319,7 @@ def main(argv=None) -> int:
             f"{t['library_ms']:.4f} ms")
     log(f"[main] {json.dumps(main)}")
     log(f"[train] {json.dumps(train)}")
+    log(f"[build-dirs] {json.dumps(build_dirs)}")
     log(f"[tiled] {json.dumps(tiled)}")
     log(f"[pipeline] {json.dumps(pipeline)}")
     log(f"[int8-main] {json.dumps(int8_main)}")

@@ -20,13 +20,18 @@ from chip_smoke import (
     INT8_CONVS,
     MODEL_SEED,
     PP_SPLIT_CONVS,
+    PREFETCH_BUSY_S,
     S2_SHAPE,
     S2_TOL,
     SILU_INV_S,
+    SLEEP_HZ,
     build_model,
     int8_operands,
+    npz_differences,
     phase_dp_serve,
     phase_dp_two_ranks,
+    prefetch_gate,
+    prefetch_host_batches,
     rect_batch,
     s_check,
     s_plain_step,
@@ -41,6 +46,10 @@ from chip_smoke import (
     top2_margin,
 )
 from unet_medical_image_contour_segmentation_torch import exact_f32
+from unet_medical_image_contour_segmentation_torch.engine.checkpoint import (
+    save_checkpoint,
+    save_checkpoint_async,
+)
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor
 from unet_medical_image_contour_segmentation_torch.engine.train import make_train_step
@@ -710,3 +719,31 @@ def test_yolo_halo_ops_on_card_match_the_whole_image(cuda, tmp_path):
     ranks = run_ranks(spatial_cases, (1, 2, {"halo": ("halo", data)}), tmp_path, timeout=300)
     for name in ("conv_s2", "maxpool5"):
         check_halo(ranks, name, data)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+@pytest.mark.parametrize("zero", [True, False])
+def test_prefetch_batches_equal_their_host_batches(cuda, device, zero):
+    """chip_smoke's prefetch gate on 8 batches of (8, 512, 512, 1) f32 and
+    their int32 masks: the copies run on a side stream, and every yielded
+    batch equals its host batch, also when the consumer zeroes and drops
+    it behind a queued busy-wait (the memory must not go to a later copy
+    before that work has run)."""
+    host = prefetch_host_batches(14, 8)
+    bad, seen, _ = prefetch_gate(host, device, int(PREFETCH_BUSY_S * SLEEP_HZ), zero)
+    assert (bad, seen) == (0, 8)
+
+
+def test_async_checkpoint_of_a_card_model_is_its_state_at_the_call(cuda, tmp_path):
+    """A step taken on the card once save_checkpoint_async has returned does
+    not reach the file: it equals a synchronous save made before the step."""
+    model = seeded_unet_s(torch.bfloat16).cuda()
+    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=1e-4))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in rect_batch(46, 2, 64, 64).items()}
+    step(batch, 1e-4)
+    save_checkpoint(str(tmp_path / "pre.npz"), model, step=1, optimizer=step.optimizer)
+    fut = save_checkpoint_async(str(tmp_path / "async.npz"), model, step=1,
+                                optimizer=step.optimizer)
+    step(batch, 1e-4)
+    fut.result(timeout=120)
+    assert npz_differences(str(tmp_path / "pre.npz"), str(tmp_path / "async.npz")) == []

@@ -52,6 +52,21 @@ def test_parallel_and_utils_modules_are_checked(module):
     assert PORT / module in _sources()
 
 
+@pytest.mark.parametrize("module", ["utils/compile_cache.py", "kernels/_build.py",
+                                    "engine/checkpoint.py", "engine/train.py",
+                                    "engine/evaluate.py", "engine/optim.py", "data/loader.py",
+                                    "data/dataset.py", "utils/metrics.py", "__init__.py",
+                                    "data/__init__.py", "engine/__init__.py",
+                                    "losses/__init__.py", "models/__init__.py",
+                                    "ops/__init__.py", "utils/__init__.py",
+                                    "parallel/__init__.py"])
+def test_api_checkpoint_and_prefetch_modules_are_checked(module):
+    """The public API's package files, the build directory, the checkpoint
+    writer, the train loop and the prefetch are among the sources checked
+    above."""
+    assert PORT / module in _sources()
+
+
 def test_rank_bodies_import_no_jax():
     """The module that the data-parallel tests' spawned ranks import stays
     free of JAX too."""

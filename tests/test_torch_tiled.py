@@ -25,7 +25,8 @@ from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (
 from unet_medical_image_contour_segmentation_torch.models.torch_compat import (
     params_from_state_dict,
 )
-from unet_medical_image_contour_segmentation_torch.models import unet as presets
+from unet_medical_image_contour_segmentation_torch.models import unet_s as unet_s_preset
+from unet_medical_image_contour_segmentation_torch.models import unet_t as unet_t_preset
 from unet_medical_image_contour_segmentation_tpu.engine.predict import Predictor as JaxPredictor
 from unet_medical_image_contour_segmentation_tpu.models.unet import UNet as JaxUNet
 
@@ -45,7 +46,7 @@ def seeded(seed, factory):
 
 @pytest.fixture(scope="module")
 def unet_t():
-    return seeded(11, presets.unet_t)
+    return seeded(11, unet_t_preset)
 
 
 def jax_predictor(params, state, widths, **kw):
@@ -127,7 +128,7 @@ def test_uint8_tiles_like_its_normalised_float(unet_t):
 
 @pytest.fixture(scope="module")
 def unet_s():
-    return seeded(12, presets.unet_s)
+    return seeded(12, unet_s_preset)
 
 
 def test_border_semantics_match_jax(unet_s):

@@ -518,6 +518,49 @@ def test_prefetch_yields_every_batch_in_order():
                for b in out)
 
 
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_prefetch_batches_equal_their_numpy_batches(size):
+    rng = np.random.default_rng(size)
+    batches = [{"image": rng.random((2, 8, 8, 1), dtype=np.float32),
+                "mask": rng.integers(0, 3, (2, 8, 8)).astype(np.int32)} for _ in range(7)]
+    out = list(prefetch_to_device(iter(batches), "cpu", size=size))
+    assert len(out) == len(batches)
+    for got, want in zip(out, batches):
+        for k in want:
+            assert got[k].dtype == torch.from_numpy(want[k]).dtype
+            np.testing.assert_array_equal(got[k].numpy(), want[k])
+
+
+@pytest.mark.parametrize("size", [1, 3])
+def test_prefetch_runs_at_most_size_batches_ahead(size):
+    """While the consumer holds a batch, the thread hands over ``size`` more
+    and has pulled one further, which waits for a slot (JAX's queue of
+    ``size`` and the batch its thread holds)."""
+    import threading
+    import time
+
+    pulled = []
+
+    def batches():
+        for i in range(50):
+            pulled.append(i)
+            yield {"mask": np.full((1, 2), i, np.int32)}
+
+    it = prefetch_to_device(batches(), "cpu", size=size)
+    assert int(next(it)["mask"][0, 0]) == 0
+    deadline = time.monotonic() + 10
+    while len(pulled) < size + 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    threading.Event().wait(0.3)
+    assert len(pulled) == size + 2
+    assert [int(b["mask"][0, 0]) for b in it] == list(range(1, 50))
+
+
+def test_prefetch_refuses_an_empty_queue():
+    with pytest.raises(ValueError, match="size must be at least 1"):
+        next(prefetch_to_device(iter([]), "cpu", size=0))
+
+
 def test_prefetch_passes_producer_errors_on():
     def broken():
         yield {"image": np.zeros((1, 2, 2, 1), np.float32)}

@@ -34,7 +34,7 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["BasicDataset", "load_image", "unique_mask_values"]
+__all__ = ["BasicDataset", "CarvanaDataset", "load_image", "unique_mask_values"]
 
 log = logging.getLogger(__name__)
 
@@ -132,6 +132,11 @@ class BasicDataset:
     def rotate_image_and_mask(img, mask, angle: int):
         return img.rotate(angle, expand=True), mask.rotate(angle, expand=True)
 
+    def sample_name(self, idx: int) -> str:
+        """The id of the image that sample ``idx`` comes from (each image
+        gives 4 samples under ``augment``)."""
+        return self.ids[idx // 4 if self.augment else idx]
+
     def __getstate__(self) -> dict:
         """Pickled for a spawned data-parallel rank: without the lock, and
         with an empty RAM cache of the same budget."""
@@ -215,3 +220,10 @@ class BasicDataset:
         if cache_path is not None:
             self._disk_cache_store(cache_path, sample, img_file[0], mask_file[0])
         return self._ram_cache_insert(idx, sample)
+
+
+class CarvanaDataset(BasicDataset):
+    """The reference's Carvana layout: masks named ``<id>_mask.*``."""
+
+    def __init__(self, images_dir, mask_dir, scale: float = 1, augment: bool = True):
+        super().__init__(images_dir, mask_dir, scale, mask_suffix="_mask", augment=augment)

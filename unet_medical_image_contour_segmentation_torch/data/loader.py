@@ -1,17 +1,17 @@
-"""Batched, multi-worker input pipeline with a one-batch-ahead device copy.
+"""Batched, multi-worker input pipeline and its prefetch to the card.
 
 The port's counterpart of the JAX package's ``data/loader.py``: a thread
 pool decodes and augments samples (PIL and numpy release the GIL) and
-batches are stacked channel-last.  :func:`prefetch_to_device` pins batches
-in a background thread and issues each batch's host-to-card copy
-(``non_blocking``, from pinned memory) before the previous batch is handed
-out.  The copy is queued on the current stream, ahead of the step that
-takes the previous batch: the host never waits for it, but on the card it
-does not run beside a kernel (a side copy stream would be a later change).
+batches are stacked channel-last.  :func:`prefetch_to_device` keeps up to
+``size`` batches in flight ahead of the consumer, as JAX's ``device_put``
+thread does: a background thread pins each batch and issues its
+host-to-card copy on a side stream of the card, so that on the card the
+copy of a later batch runs beside the step that reads an earlier one.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -66,59 +66,85 @@ class DataLoader:
 
 def prefetch_to_device(iterator, device: Optional[Union[str, torch.device]] = None,
                        size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
-    """numpy batches -> tensors on ``device`` (``cuda`` by default).
+    """numpy batches -> tensors on ``device`` (``cuda`` by default), in order,
+    each equal to its numpy batch.
 
-    A background thread turns up to ``size`` batches into (pinned, on a
-    card) host tensors; the consumer side issues the copy of batch i+1
-    before it yields batch i.
+    A background thread turns batches into tensors, at most ``size`` ahead
+    of the one the consumer holds.  On a card it pins each batch, copies it
+    on one side stream of ``device`` and records an event after the copies;
+    before a batch is yielded, the consumer's current stream waits on its
+    event, and each tensor is marked as used by that stream
+    (``record_stream``), so that the caching allocator gives its memory to
+    no later copy while the consumer's work on it is still queued.  Each
+    pinned host batch is held until its copy has finished.  On the CPU the
+    batches are the numpy arrays' tensors.  An exception of ``iterator``
+    is raised to the consumer in the batch's place.
     """
+    if size < 1:
+        raise ValueError(f"size must be at least 1, got {size}")
     device = resolve_device(device)
-    pin = device.type == "cuda"
-    q: "queue.Queue" = queue.Queue(maxsize=size)
+    cuda = device.type == "cuda"
+    if cuda and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    q: "queue.Queue" = queue.Queue()
+    slots = threading.Semaphore(size)  # batches handed over, not yet taken
     end = object()
     stop = threading.Event()
 
-    def put(item) -> bool:
+    def wait_slot() -> bool:
         while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
+            if slots.acquire(timeout=0.1):
                 return True
-            except queue.Full:
-                continue
         return False
 
     def producer():
+        copying = collections.deque()  # (event, pinned batch) until its copy ends
         try:
+            if cuda:
+                torch.cuda.set_device(device)
+                side = torch.cuda.Stream(device)
             for batch in iterator:
                 host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-                if pin:
+                if cuda:
                     host = {k: v.pin_memory() for k, v in host.items()}
-                if not put(host):
+                if not wait_slot():
                     return
+                if not cuda:
+                    q.put((host, None))
+                    continue
+                with torch.cuda.stream(side):
+                    out = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+                    event = torch.cuda.Event()
+                    event.record(side)
+                q.put((out, event))
+                copying.append((event, host))
+                while copying and copying[0][0].query():
+                    copying.popleft()
         except BaseException as e:  # handed to the consumer, which re-raises it
-            put(e)
+            q.put(e)
             return
-        put(end)
-
-    def upload(host):
-        return {k: v.to(device, non_blocking=True) for k, v in host.items()}
+        finally:
+            for event, _ in copying:
+                event.synchronize()
+        q.put(end)
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     try:
-        ready = None
         while True:
             item = q.get()
             if isinstance(item, BaseException):
                 raise item
             if item is end:
                 break
-            nxt = upload(item)
-            if ready is not None:
-                yield ready
-            ready = nxt
-        if ready is not None:
-            yield ready
+            slots.release()
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(event)
+                for t in batch.values():
+                    t.record_stream(stream)
+            yield batch
     finally:
         stop.set()
         thread.join(timeout=10)

@@ -8,6 +8,14 @@ other unchanged, for the UNet family, UNet++ and YOLOv8-seg.  ``.pth`` is
 the reference UNet's format only: the reference ships no UNet++ or YOLO
 weights, and the JAX package reads and writes no ``.pth`` of them, so the
 port refuses one too.
+
+A save is two parts: a host snapshot (copies of the state_dict and of the
+optimizer state, taken when the call is made) and the write of that
+snapshot (the conversion to the JAX layout and ``np.savez``).
+:func:`save_checkpoint` does both on the caller's thread;
+:func:`save_checkpoint_async` takes the snapshot there and leaves the write
+to a worker thread, as the JAX package's does, so a training loop does not
+wait on the disk.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+from concurrent.futures import Executor, Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -22,9 +31,15 @@ import torch
 from torch import nn
 
 from ..models.torch_compat import load_pth, params_from_state_dict, state_dict_from_jax
-from .optim import opt_state_to_jax
+from .optim import opt_state_tensors
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_weights", "latest_checkpoint"]
+__all__ = [
+    "save_checkpoint",
+    "save_checkpoint_async",
+    "load_checkpoint",
+    "load_weights",
+    "latest_checkpoint",
+]
 
 _SEP = "//"
 
@@ -50,6 +65,43 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
     return tree
 
 
+def _snapshot(path, model: nn.Module,
+              optimizer: Optional[torch.optim.Optimizer]) -> Tuple[dict, Optional[dict]]:
+    """Host copies of what a checkpoint of ``model`` holds, as they are now:
+    its state_dict and, with ``optimizer``, the RMSprop state per parameter
+    name.  Copies also of CPU tensors, whose ``.cpu()`` would share the
+    storage that the next ``optimizer.step`` updates in place."""
+    sd = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    if str(path).endswith(".pth"):
+        _require_reference_unet(sd, path)
+        return sd, None
+    return sd, None if optimizer is None else opt_state_tensors(model, optimizer)
+
+
+def _write(path, sd: dict, opt: Optional[dict], step: int, mask_values,
+           extra: Optional[dict]) -> None:
+    """Write a snapshot of :func:`_snapshot` to ``path``."""
+    if str(path).endswith(".pth"):
+        if mask_values is not None:
+            sd = dict(sd, mask_values=mask_values)
+        torch.save(sd, path)
+        return
+    params, bn_state, _ = params_from_state_dict(sd)
+    blobs: Dict[str, np.ndarray] = {}
+    blobs.update({f"params{_SEP}{k}": v for k, v in _flatten(params).items()})
+    blobs.update({f"bn_state{_SEP}{k}": v for k, v in _flatten(bn_state).items()})
+    if opt is not None:
+        # the parameters' entries replaced by their state, as opt_state_to_jax
+        opt_state = {key: params_from_state_dict({**sd, **tensors})[0]
+                     for key, tensors in opt.items()}
+        blobs.update({f"opt_state{_SEP}{k}": v for k, v in _flatten(opt_state).items()})
+    meta = {"step": int(step), "mask_values": mask_values, "extra": extra or {},
+            "format": "umics-tpu-v1"}
+    blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    np.savez(path, **blobs)
+
+
 def save_checkpoint(path: str, model: nn.Module, step: int = 0,
                     mask_values=None, extra: Optional[dict] = None,
                     optimizer: Optional[torch.optim.Optimizer] = None) -> None:
@@ -60,25 +112,28 @@ def save_checkpoint(path: str, model: nn.Module, step: int = 0,
     also holds its state as the JAX package's ``opt_state``, so a training
     run resumes from it in either package.  A ``.pth`` of a UNet++ or
     YOLOv8-seg raises ValueError (see the module docstring)."""
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    if str(path).endswith(".pth"):
-        _require_reference_unet(sd, path)
-        if mask_values is not None:
-            sd["mask_values"] = mask_values
-        torch.save(sd, path)
-        return
-    params, bn_state, _ = params_from_state_dict(sd)
-    blobs: Dict[str, np.ndarray] = {}
-    blobs.update({f"params{_SEP}{k}": v for k, v in _flatten(params).items()})
-    blobs.update({f"bn_state{_SEP}{k}": v for k, v in _flatten(bn_state).items()})
-    if optimizer is not None:
-        opt_state = opt_state_to_jax(model, optimizer)
-        blobs.update({f"opt_state{_SEP}{k}": v for k, v in _flatten(opt_state).items()})
-    meta = {"step": int(step), "mask_values": mask_values, "extra": extra or {},
-            "format": "umics-tpu-v1"}
-    blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    np.savez(path, **blobs)
+    _write(path, *_snapshot(path, model, optimizer), step, mask_values, extra)
+
+
+def save_checkpoint_async(path: str, model: nn.Module, step: int = 0,
+                          mask_values=None, extra: Optional[dict] = None,
+                          optimizer: Optional[torch.optim.Optimizer] = None, *,
+                          executor: Optional[Executor] = None) -> Future:
+    """:func:`save_checkpoint` without the wait on the disk: the snapshot is
+    taken on the caller's thread before this returns (so the model and the
+    optimizer may step on at once), the write runs on a worker, and the
+    returned Future holds its result or its exception.  The file equals the
+    one :func:`save_checkpoint` would write at the call.
+
+    ``executor``: where the write runs (a single-worker executor keeps a
+    run's saves in order); by default a worker of its own, as the JAX
+    package's ``save_checkpoint_async``."""
+    snapshot = _snapshot(path, model, optimizer)
+    worker = executor or ThreadPoolExecutor(max_workers=1, thread_name_prefix="umics-checkpoint")
+    future = worker.submit(_write, path, *snapshot, step, mask_values, extra)
+    if executor is None:
+        worker.shutdown(wait=False)  # its thread ends after the write
+    return future
 
 
 def _require_reference_unet(sd: dict, path) -> None:

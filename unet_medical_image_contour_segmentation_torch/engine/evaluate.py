@@ -28,16 +28,36 @@ from torch import nn
 from ..device import resolve_device
 from ..pipeline.post_process import postprocess_mask
 
-__all__ = ["evaluate", "eval_forward"]
+__all__ = ["evaluate", "eval_forward", "make_eval_step"]
+
+
+def _classes(logits: torch.Tensor, n_classes: int) -> torch.Tensor:
+    if n_classes == 1:
+        return (torch.sigmoid(logits[..., 0]) > 0.5).int()
+    return logits.argmax(dim=-1).int()
 
 
 def eval_forward(model: nn.Module, image: torch.Tensor, shard=None) -> torch.Tensor:
     """(B, H, W[, C]) image on the model's device -> (B, H, W) int32 classes;
     with a ``shard``, of its band of rows (``parallel/spatial.py``)."""
     logits = model(image) if shard is None else model(image, shard=shard)
-    if model.n_classes == 1:
-        return (torch.sigmoid(logits[..., 0]) > 0.5).int()
-    return logits.argmax(dim=-1).int()
+    return _classes(logits, model.n_classes)
+
+
+def make_eval_step(model: nn.Module, n_classes: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """JAX's ``make_eval_step``: the step ``image -> (B, H, W)`` int32
+    classes that :func:`evaluate` takes as ``eval_step`` (sigmoid > 0.5 for
+    one class, else the argmax).  Each call runs ``model`` in ``eval()``
+    mode under ``inference_mode`` and restores its mode."""
+    def eval_step(image: torch.Tensor) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return _classes(model(image), n_classes)
+        finally:
+            model.train(was_training)
+    return eval_step
 
 
 def _dice_np(pred: np.ndarray, true: np.ndarray, eps: float = 1e-6) -> float:
@@ -72,7 +92,7 @@ def evaluate(model: nn.Module, dataloader, *,
     train/eval mode on return.
 
     ``eval_step`` maps a batch on the device to its (B, H, W) int32 classes
-    (:func:`eval_forward` by default; the data-parallel step of
+    (:func:`make_eval_step`'s by default; the data-parallel step of
     ``parallel/data_parallel.py:make_parallel_eval_step`` shards it over the
     ranks, and ``parallel/spatial.py:make_spatial_eval_step`` over the ranks
     and the images' rows).  A batch whose size is not a multiple of
@@ -81,9 +101,7 @@ def evaluate(model: nn.Module, dataloader, *,
     device's (JAX's ``batch_pad``)."""
     device = resolve_device(device)
     n_classes = model.n_classes
-    if eval_step is None:
-        def eval_step(image):
-            return eval_forward(model, image)
+    eval_step = eval_step or make_eval_step(model, n_classes)
 
     postprocessed_dir = None
     if epoch_pred_dir is not None and postprocess:

@@ -14,7 +14,8 @@ momentum on the preconditioned gradient), so here the update is
   reference's quirk of stepping the schedule with the Dice score works.
 * :func:`opt_state_to_jax` / :func:`load_opt_state`: the optimizer state in
   the JAX layout ``{"square_avg": params, "momentum_buf": params}``, for the
-  ``.npz`` checkpoints both packages read.
+  ``.npz`` checkpoints both packages read; :func:`opt_state_tensors` is its
+  host copy per parameter name, before the conversion.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "make_optimizer",
     "clip_by_global_norm",
     "warm_restarts_lr",
+    "opt_state_tensors",
     "opt_state_to_jax",
     "load_opt_state",
 ]
@@ -79,19 +81,27 @@ def warm_restarts_lr(t: float, base_lr: float, T_0: int = 4, T_mult: int = 2,
 _STATE_KEYS = (("square_avg", "square_avg"), ("momentum_buf", "momentum_buffer"))
 
 
-def opt_state_to_jax(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
-    """The RMSprop state of ``model``'s parameters in the JAX layout (numpy;
-    zeros for a parameter that has not been stepped yet)."""
+def opt_state_tensors(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """The RMSprop state of ``model``'s parameters as ``{JAX key: {parameter
+    name: f32 CPU tensor}}``: copies, never views, so a later
+    ``optimizer.step`` leaves them as they are (zeros for a parameter that
+    has not been stepped yet)."""
     out = {}
     for jax_key, torch_key in _STATE_KEYS:
         tensors = {}
         for name, p in model.named_parameters():
-            state = optimizer.state.get(p, {})
-            t = state.get(torch_key)
+            t = optimizer.state.get(p, {}).get(torch_key)
             tensors[name] = (torch.zeros(p.shape) if t is None
-                             else t.detach().float().cpu())
-        out[jax_key] = params_tree_from_tensors(model, tensors)
+                             else t.detach().to("cpu", torch.float32, copy=True))
+        out[jax_key] = tensors
     return out
+
+
+def opt_state_to_jax(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """The RMSprop state of ``model``'s parameters in the JAX layout (numpy;
+    zeros for a parameter that has not been stepped yet)."""
+    return {jax_key: params_tree_from_tensors(model, tensors)
+            for jax_key, tensors in opt_state_tensors(model, optimizer).items()}
 
 
 def load_opt_state(model: nn.Module, optimizer: torch.optim.Optimizer, opt_state: dict,

@@ -15,6 +15,10 @@ new state, the port updates the model and the optimizer in place.
   reference steps the schedule with the Dice score);
 * checkpoints every ``checkpoint_every`` epochs past ``checkpoint_after_frac``
   of the run, and the final ``model_epoch{N}.npz``, with the optimizer state.
+  The periodic ones are written by ``save_checkpoint_async`` on one worker
+  thread per run, in epoch order, so the loop does not wait on the disk (as
+  JAX's loop); the loop waits for them before the final save and before it
+  returns or raises, and a failed write raises from ``train_model``.
 
 * with ``cc_loss`` (binary models only), the connected-component penalty
   scored on the host on that same delayed fetch and added to the logged
@@ -56,6 +60,7 @@ import logging
 import os
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Union
 
@@ -68,7 +73,7 @@ from ..config import TrainConfig
 from ..device import resolve_device
 from ..losses.compound import LossConfig, compute_loss
 from ..models.torch_compat import state_dict_from_jax
-from .checkpoint import save_checkpoint
+from .checkpoint import save_checkpoint, save_checkpoint_async
 from .evaluate import evaluate
 from .optim import (
     RMSpropConfig,
@@ -425,6 +430,10 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
         pending.clear()
         return total, last
 
+    # one worker: the periodic saves land in epoch order (latest_checkpoint
+    # goes by modification time)
+    saver = ThreadPoolExecutor(max_workers=1, thread_name_prefix="umics-checkpoint")
+    saves = []
     try:
         for epoch in range(1, cfg.epochs + 1):
             epoch_loss = 0.0
@@ -494,14 +503,23 @@ def _train(cfg: TrainConfig, model: nn.Module, train_set, val_set, state: Option
             if (cfg.save_checkpoint and lead and epoch > cfg.epochs * cfg.checkpoint_after_frac
                     and epoch % cfg.checkpoint_every == 0):
                 Path(cfg.dir_checkpoint).mkdir(parents=True, exist_ok=True)
-                save_checkpoint(str(Path(cfg.dir_checkpoint) / f"checkpoint_epoch{epoch}.npz"),
-                                model, step=step_fn.step, mask_values=mask_values,
-                                optimizer=step_fn.optimizer)
+                saves.append(save_checkpoint_async(
+                    str(Path(cfg.dir_checkpoint) / f"checkpoint_epoch{epoch}.npz"), model,
+                    step=step_fn.step, mask_values=mask_values, optimizer=step_fn.optimizer,
+                    executor=saver))
                 log.info("Checkpoint %d saved!", epoch)
 
+        for fut in saves:
+            fut.result()  # a failed write raises here, before the final save
         if lead:
             save_checkpoint(f"model_epoch{cfg.epochs}.npz", model, step=step_fn.step,
                             mask_values=mask_values, optimizer=step_fn.optimizer)
     finally:
+        # on every path, no write outlives the call; on the error path the
+        # loop's exception goes on, and a write that failed too is logged
+        saver.shutdown(wait=True)
+        for fut in saves:
+            if fut.exception() is not None:
+                log.error("checkpoint write failed: %r", fut.exception())
         mlog.close()
     return step_fn

@@ -1,10 +1,15 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
-Hopper (``sm_90a``) into ``build/torch_kernels/<name>-<hash>.so`` at the root
-of the checkout, on first use; the hash covers the source and the flags, so
-an edited source builds anew.  Nothing here runs at import time: the CPU
-tests import every module, and this machine may have no nvcc.
+Hopper (``sm_90a``) into ``<build dir>/<name>-<hash>.so`` on first use; the
+hash covers the source and the flags, so an edited source builds anew.  The
+build directory is resolved at each build, never at import, by
+``utils/compile_cache.py:kernel_build_dir``: ``build/torch_kernels/`` of a
+source checkout, ``$UMICS_COMPILE_CACHE_DIR/torch_kernels`` when that is
+set, else ``~/.cache/umics/torch_kernels`` (an installed package).  The
+build is never skipped: a kernel whose library fails to build raises, and
+no plain version runs in its place.  Nothing here runs at import time: the
+CPU tests import every module, and this machine may have no nvcc.
 """
 
 from __future__ import annotations
@@ -20,10 +25,11 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["BuildResult", "build", "load_library", "BUILD_DIR", "CSRC_DIR"]
+from ..utils.compile_cache import kernel_build_dir
+
+__all__ = ["BuildResult", "build", "load_library", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,19 +56,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
+def _target(build_dir: Path, name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return build_dir / f"{name}-{digest}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, BuildResult]:
-    """Compile every named source not yet built, one nvcc each, all at once."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile every named source not yet built, one nvcc each, all at once,
+    into the build directory (see the module docstring)."""
+    build_dir = kernel_build_dir()
+    build_dir.mkdir(parents=True, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     running = []
     for name in names:
-        lib = _target(name)
+        lib = _target(build_dir, name)
         log_path = lib.with_suffix(".log")
         if lib.exists():
             log = log_path.read_text() if log_path.exists() else ""

@@ -1,7 +1,13 @@
 """Data and spatial parallelism over ``torch.distributed``: process
 bootstrap, the cross-replica train and eval steps, and the row-sharded
 forward, train and eval steps with their (data, spatial) layouts (the JAX
-package's ``parallel/``)."""
+package's ``parallel/``).
+
+JAX's device meshes and shardings are process groups and row slices here:
+
+* ``make_data_mesh`` -> ``make_data_group``;
+* ``batch_sharding`` -> ``batch_slice``.
+"""
 
 from .data_parallel import (
     batch_slice,

@@ -33,6 +33,11 @@ class MetricLogger:
         self._start = time.time()
         self._backends = list(backends or ())
 
+    def add_backend(self, backend: Backend) -> None:
+        """Register an experiment-tracker hook, called once per record from
+        the next :meth:`log` on (with or without a file)."""
+        self._backends.append(backend)
+
     def log(self, kind: str, **fields):
         if self._fh is None and not self._backends:
             return
