@@ -1,5 +1,5 @@
-"""The port's ``utils/`` (version report, step timer, memory stats, the
-profiler trace, FLOP counts, the mask plot) against the JAX package's, and
+"""The port's ``utils/`` (version report, memory stats, the profiler
+trace, FLOP counts, the mask plot) against the JAX package's, and
 the train and predict CLIs' data-parallel, multi-host and ``--viz`` flags.
 
 About 25 s on one worker: the two multi-process CLI runs (2 spawned CPU
@@ -34,7 +34,6 @@ from unet_medical_image_contour_segmentation_tpu.cli import predict as jax_predi
 from unet_medical_image_contour_segmentation_tpu.cli import train as jax_train_cli
 from unet_medical_image_contour_segmentation_tpu.models.unet import get_model as jax_get_model
 from unet_medical_image_contour_segmentation_tpu.utils import flops as JF
-from unet_medical_image_contour_segmentation_tpu.utils import profiling as JP
 
 
 @pytest.fixture(autouse=True)
@@ -51,21 +50,6 @@ def test_version_info_keys():
     assert info["torch"] == torch.__version__ and info["devices"]
     if not torch.cuda.is_available():
         assert info["devices"] == ["cpu"] and info["cudnn"] is None
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The same clock readings give JAX's StepTimer's numbers."""
-    clock = iter(float(t) for t in range(100))
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    monkeypatch.setattr(JP.time, "perf_counter", lambda: next(clock))
-    got, want = profiling.StepTimer(warmup=2), JP.StepTimer(warmup=2)
-    for timer in (got, want):
-        assert timer.items_per_sec is None
-        for _ in range(5):
-            timer.step(4)
-    assert got.count == want.count == 5 and got.items == want.items == 12
-    # one clock: t0 at 0 and 1, read at 2 and 3
-    assert got.items_per_sec == want.items_per_sec == 12 / 2
 
 
 def test_device_memory_stats_and_trace(tmp_path):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 
 __all__ = ["DataLoader", "prefetch_to_device"]
 
@@ -132,18 +133,19 @@ def prefetch_to_device(iterator, device: Optional[Union[str, torch.device]] = No
     thread.start()
     try:
         while True:
-            item = q.get()
-            if isinstance(item, BaseException):
-                raise item
-            if item is end:
-                break
-            slots.release()
-            batch, event = item
-            if event is not None:
-                stream = torch.cuda.current_stream(device)
-                stream.wait_event(event)
-                for t in batch.values():
-                    t.record_stream(stream)
+            with span("loader.wait"):
+                item = q.get()
+                if isinstance(item, BaseException):
+                    raise item
+                if item is end:
+                    break
+                slots.release()
+                batch, event = item
+                if event is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(event)
+                    for t in batch.values():
+                        t.record_stream(stream)
             yield batch
     finally:
         stop.set()

@@ -76,6 +76,7 @@ from ..models.fold_bn import fold_for_quantize, serving_copy
 from ..models.quantize import apply_int8, build_for, calibrate_amax, folded_tree
 from ..ops.resize import bilinear_resize
 from ..pipeline.post_process import postprocess_mask
+from ..utils.profiling import span
 
 __all__ = ["Predictor", "ExportedPredictor", "mask_to_image", "collect_image_files",
            "replica_devices"]
@@ -196,8 +197,11 @@ class _Serving:
         k, n = len(self.devices), images.shape[0]
         if k > 1:
             images = np.concatenate([images, np.repeat(images[-1:], -n % k, axis=0)])
-        outs = [fn(r, torch.from_numpy(np.ascontiguousarray(part)).to(dev))
-                for r, (dev, part) in enumerate(zip(self.devices, np.array_split(images, k)))]
+        outs = []
+        for r, (dev, part) in enumerate(zip(self.devices, np.array_split(images, k))):
+            with span("predict.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(part)).to(dev)
+            outs.append(fn(r, x))
         if k == 1:
             return outs[0]
         return torch.cat([o.to(self.device) for o in outs])[:n]
@@ -221,11 +225,12 @@ class _Serving:
         replica's rows."""
 
         def serve(r: int, x: torch.Tensor) -> torch.Tensor:
-            x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
-            logits = self._dense_logits(x, gate_batch, r)
-            if tuple(logits.shape[1:3]) != tuple(out_hw):
-                logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
-            return self._classes(logits)
+            with span("predict.forward"):
+                x = _norm_uint8(x) if x.dtype == torch.uint8 else x.float()
+                logits = self._dense_logits(x, gate_batch, r)
+                if tuple(logits.shape[1:3]) != tuple(out_hw):
+                    logits = bilinear_resize(logits, out_hw[0], out_hw[1], align_corners=False)
+                return self._classes(logits)
 
         return self._on_replicas(images, serve)
 
@@ -330,7 +335,8 @@ class _Serving:
         out_hw = tuple(out_hw or in_hw)
         self._prepare(images)
         if self._use_tiling(in_hw, out_hw):
-            return self._tiled_predict(images)
+            with span("predict.forward"):
+                return self._tiled_predict(images)
         return self._forward(images, out_hw, len(images) if gate_batch is None else gate_batch)
 
     def predict_array(self, images: np.ndarray,
@@ -343,10 +349,15 @@ class _Serving:
         ``batch_size`` only to bound device memory, each chunk on that one
         program.  (``predict_paths`` gates each batch, as JAX's does.)"""
         images = np.asarray(images)
-        self._prepare(images)
-        preds = [self._predict_device(images[i:i + self.batch_size], out_hw, len(images))
-                 .cpu().numpy() for i in range(0, len(images), self.batch_size)]
-        return np.concatenate(preds).astype(np.int32, copy=False)
+        starts = range(0, len(images), self.batch_size)
+        with span("predict", slices=len(images), chunks=len(starts)):
+            self._prepare(images)
+            preds = []
+            for i in starts:
+                out = self._predict_device(images[i:i + self.batch_size], out_hw, len(images))
+                with span("predict.fetch"):
+                    preds.append(out.cpu().numpy())
+            return np.concatenate(preds).astype(np.int32, copy=False)
 
     def predict_image(self, img, postprocess: bool = True) -> np.ndarray:
         """One PIL image -> {0,1,2} mask at its own size."""
@@ -460,32 +471,33 @@ class Predictor(_Serving):
                  tile_threshold: Optional[int] = None, quantize: bool = False,
                  num_devices: Optional[int] = None,
                  devices: Optional[Sequence[Union[str, torch.device]]] = None):
-        devices = replica_devices(device, num_devices, devices)
-        super().__init__(devices[0], batch_size, tile, tile_halo, tile_threshold)
-        self.devices = devices
-        # the spatial divisor of the int8 program and of the calibration crop
-        self.hw_divisor = model.hw_divisor
-        cd = model.compute_dtype if compute_dtype is None else compute_dtype
-        net = serving_copy(model, cd)
-        net.compute_dtype = cd
-        self.model = net.to(self.device)
-        # one copy of the served weights per distinct device
-        copies = {self.device: self.model}
-        for d in devices[1:]:
-            if d not in copies:
-                copies[d] = copy.deepcopy(self.model).to(d)
-        self._replicas = [copies[d] for d in devices]
-        self._qreplicas: List[dict] = []
-        self.compute_dtype = cd
-        self.arch = getattr(model, "name", "")
-        self.quantize = quantize
-        self._qparams: Optional[dict] = None
-        self._amax: Optional[Dict[str, float]] = None
-        # calibration and quantisation read an f32 fold on the device (the
-        # JAX package's folded params); for the UNets its forward in the
-        # compute dtype is the serving fold's, for YOLOv8-seg the CBS fold
-        self._qfolded = (folded_tree(fold_for_quantize(model).to(self.device))
-                         if quantize else None)
+        with span("setup.predictor"):
+            devices = replica_devices(device, num_devices, devices)
+            super().__init__(devices[0], batch_size, tile, tile_halo, tile_threshold)
+            self.devices = devices
+            # the spatial divisor of the int8 program and of the calibration crop
+            self.hw_divisor = model.hw_divisor
+            cd = model.compute_dtype if compute_dtype is None else compute_dtype
+            net = serving_copy(model, cd)
+            net.compute_dtype = cd
+            self.model = net.to(self.device)
+            # one copy of the served weights per distinct device
+            copies = {self.device: self.model}
+            for d in devices[1:]:
+                if d not in copies:
+                    copies[d] = copy.deepcopy(self.model).to(d)
+            self._replicas = [copies[d] for d in devices]
+            self._qreplicas: List[dict] = []
+            self.compute_dtype = cd
+            self.arch = getattr(model, "name", "")
+            self.quantize = quantize
+            self._qparams: Optional[dict] = None
+            self._amax: Optional[Dict[str, float]] = None
+            # calibration and quantisation read an f32 fold on the device (the
+            # JAX package's folded params); for the UNets its forward in the
+            # compute dtype is the serving fold's, for YOLOv8-seg the CBS fold
+            self._qfolded = (folded_tree(fold_for_quantize(model).to(self.device))
+                             if quantize else None)
 
     # -- int8 serving (models/quantize.py) ----------------------------------
 

@@ -73,6 +73,7 @@ from ..config import TrainConfig
 from ..device import resolve_device
 from ..losses.compound import LossConfig, compute_loss
 from ..models.torch_compat import state_dict_from_jax
+from ..utils.profiling import span
 from .checkpoint import save_checkpoint, save_checkpoint_async
 from .evaluate import evaluate
 from .optim import (
@@ -120,29 +121,35 @@ class TrainStep:
         self.step = 0
 
     def __call__(self, batch: Dict[str, torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
-        self.model.train()
-        kw = {} if self.shard is None else {"shard": self.shard}
-        logits = self.model(batch["image"], group=self.group, **kw)
-        loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg, self.group,
-                                     self.shard)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in self.params]
-        if self.group is not None:
-            # JAX's pmean of the gradients: one all-reduce of them all, flattened
-            flat = torch._utils._flatten_dense_tensors(grads)
-            dist.all_reduce(flat, group=self.group)
-            flat /= dist.get_world_size(self.group)
-            torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
-        grad_norm = clip_by_global_norm(grads, self.clipping)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = grad_norm
-        metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=loss.device)
-        return metrics
+        with span("train.step"):
+            self.model.train()
+            kw = {} if self.shard is None else {"shard": self.shard}
+            with span("train.forward"):
+                logits = self.model(batch["image"], group=self.group, **kw)
+            with span("train.loss"):
+                loss, metrics = compute_loss(logits, batch["mask"], self.loss_cfg, self.group,
+                                             self.shard)
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            grads = [p.grad for p in self.params]
+            if self.group is not None:
+                # JAX's pmean of the gradients: one all-reduce of them all, flattened
+                flat = torch._utils._flatten_dense_tensors(grads)
+                dist.all_reduce(flat, group=self.group)
+                flat /= dist.get_world_size(self.group)
+                torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
+            with span("train.clip"):
+                grad_norm = clip_by_global_norm(grads, self.clipping)
+            with span("train.optimizer"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            self.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = grad_norm
+            metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=loss.device)
+            return metrics
 
 
 def make_train_step(model: nn.Module, loss_cfg: LossConfig, opt_cfg: RMSpropConfig,

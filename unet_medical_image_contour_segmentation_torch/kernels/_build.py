@@ -26,6 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 from ..utils.compile_cache import kernel_build_dir
+from ..utils.profiling import span
 
 __all__ = ["BuildResult", "build", "load_library", "CSRC_DIR"]
 
@@ -106,8 +107,12 @@ _load_lock = threading.Lock()
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it on first use."""
+    """The built library for ``csrc/<name>.cu``, building it on first use
+    (the span ``setup.kernels``; ``built``: nvcc ran)."""
     with _load_lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build([name])[name].library))
+            with span("setup.kernels", kernel=name) as s:
+                result = build([name])[name]
+                s["built"] = result.seconds > 0
+                _loaded[name] = ctypes.CDLL(str(result.library))
         return _loaded[name]
