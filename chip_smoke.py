@@ -24,6 +24,11 @@ Phases, in order; any failure exits nonzero before the last line:
      shapes) / library times and the bound from the bytes and operations;
      every timed call takes the next of enough copies of its input to
      exceed the 50 MB L2, and a roofline share above 105% fails the run;
+     then the folded convs' one-pass bias + ReLU (csrc/bias_relu.cu):
+     bit for bit torch.relu(y + b) at every shape unet_s's served forward
+     gives it at (8, 512²), bf16 and f32, and timed at unet's and unet_s's
+     widest outputs, (8, 512², 64) and (8, 512², 16) bf16, against its byte
+     bound and that plain pair, with the host's µs a call of each;
   4. backward vs plain: the 3x3 conv's dx (the same kernel on the output
      gradient with the rotated weight) and dw (cuDNN's weight gradient) at
      the training shapes of every trained model (the bilinear unet_s's
@@ -160,7 +165,10 @@ Phases, in order; any failure exits nonzero before the last line:
      times YOLO's two shapes that unet_s lacks, 32->32 at 128² and at 512²,
      and checks its exported program's and its calibration's); every shape
      at which one launched the int8 kernel was held against its plain
-     version in phase 10, or is held here;
+     version in phase 10, or is held here; so is every (B, H, W, C, dtype)
+     at which one launched the one-pass bias + ReLU that phase 3 did not
+     hold (each window also counts the pass's launches: 18 a served UNet
+     forward, 30 a UNet++ one, none in training, YOLO or int8);
  19. a JSON ``kernels`` line (with per-shape rows and the launches of every
      path, the data-parallel ones included), then the device line and the
      result line.
@@ -218,6 +226,13 @@ from unet_medical_image_contour_segmentation_torch.engine.train import (  # noqa
 )
 from unet_medical_image_contour_segmentation_torch.kernels import _build  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
+    bias_relu as bias_relu_module,
+)
+from unet_medical_image_contour_segmentation_torch.kernels.bias_relu import (  # noqa: E402
+    bias_relu_nhwc,
+    bias_relu_nhwc_reference,
+)
+from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
     conv3x3 as conv3x3_module,
 )
 from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
@@ -263,6 +278,10 @@ from unet_medical_image_contour_segmentation_torch.models import (  # noqa: E402
 )
 from unet_medical_image_contour_segmentation_torch.models import (  # noqa: E402
     quantize as quantize_module,
+)
+from unet_medical_image_contour_segmentation_torch.models.fold_bn import (  # noqa: E402
+    FoldedDoubleConv,
+    serving_copy,
 )
 from unet_medical_image_contour_segmentation_torch.models.quantize import (  # noqa: E402
     apply_int8,
@@ -310,6 +329,13 @@ MAIN_CONVS = [
     ("up4.conv1", 32, 16, 1),
     ("up4.conv2", 16, 16, 1),
 ]
+# (name, B, H, W, C) of the one-pass bias + ReLU timed on the card: the
+# widest folded conv output of unet and of unet_s at (BATCH, HW, HW)
+BIAS_RELU_SHAPES = [("unet inc", BATCH, HW, HW, 64), ("unet_s inc", BATCH, HW, HW, 16)]
+# launches of the one-pass bias + ReLU a served forward makes: two a
+# BN-folded DoubleConv (9 in unet_s and in unet, 15 UNet++ nodes); training,
+# YOLOv8-seg's CBS blocks and the int8 forwards make none
+UNET_PASSES, PP_PASSES = 18, 30
 RAGGED = ("ragged", 1, 37, 53, 24, 40)
 # the int8 paths calibrate on the first 4 images of a batch: a bf16 forward
 # of MAIN_CONVS at (CALIB_BATCH, HW, HW)
@@ -548,7 +574,7 @@ def phase_build() -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         probe = start_installed_build(Path(tmp))
         try:
-            results = _build.build(["conv3x3", "conv3x3_int8"])
+            results = _build.build(["conv3x3", "conv3x3_int8", "bias_relu"])
             dirs = check_build_dirs(results, probe, Path(tmp))
         finally:
             if probe.poll() is None:
@@ -609,6 +635,120 @@ def roofline(bound_ms: float, **timed_ms) -> float:
     return bound_ms / timed_ms["kernel"]
 
 
+def folded_outputs(model, hw: int = 64) -> list:
+    """(C, downsampling) of each output of the one-pass bias + ReLU in a
+    served forward of ``model``, in the order the forward makes them: one
+    f32 forward of its serving copy on the CPU at (1, hw, hw), each folded
+    block's two conv widths read at its output's width."""
+    import copy
+
+    net = serving_copy(copy.deepcopy(model).float().cpu())
+    net.compute_dtype = None
+    rows = []
+
+    def record(block, args, out):
+        rows.extend((w.shape[3], hw // out.shape[2]) for w in (block.w1, block.w2))
+
+    hooks = [m.register_forward_hook(record) for m in net.modules()
+             if isinstance(m, FoldedDoubleConv)]
+    try:
+        with torch.no_grad():
+            net(torch.zeros(1, hw, hw, net.n_channels))
+    finally:
+        for h in hooks:
+            h.remove()
+    return rows
+
+
+def bias_relu_key(y: torch.Tensor) -> tuple:
+    return (*y.shape, str(y.dtype))
+
+
+def bias_relu_check(shape: tuple, dtype, seed: int) -> None:
+    """The pass at ``shape`` in ``dtype`` on seeded operands (a NaN in y and
+    in the bias, -0.0 in both, a pixel that the bias cancels exactly), bit
+    for bit against ``torch.relu(y + b)``, under inference mode as the
+    Predictor runs it; the shape joins BR_CHECKED, or the run fails."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    y = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    b = torch.randn((c,), generator=g, device="cuda").to(dtype)
+    y[0, 0, 0, 0] = float("nan")
+    y[-1, -1, -1, -1] = -0.0
+    y[0, -1, -1] = -b
+    b[0] = y[0, 0, -1, 0] = -0.0  # a sum of -0.0
+    b[c // 2] = float("nan")
+    with torch.inference_mode():
+        got, want = bias_relu_nhwc(y, b), bias_relu_nhwc_reference(y, b)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), want.view(bits)):
+        raise RuntimeError(f"bias_relu_nhwc at {shape} {dtype} differs from torch.relu(y + b) "
+                           f"in {int((got.view(bits) != want.view(bits)).sum())} elements")
+    BR_CHECKED.add(bias_relu_key(y))
+
+
+def phase_bias_relu() -> list:
+    """The one-pass bias + ReLU (csrc/bias_relu.cu): bit for bit the plain
+    pair ``torch.relu(y + b)`` at every shape unet_s's served forward gives
+    it at (BATCH, HW, HW), in bf16 and in f32 (:func:`bias_relu_check`);
+    then at BIAS_RELU_SHAPES in bf16 its device ms against the byte bound
+    (y read and the output written once, the bias once, at 3.35 TB/s), the
+    pair's ms as ``library_ms`` (the plain version is that same pair), and
+    the host's µs a call of each, there and at a shape small enough that
+    the host alone sets the pace."""
+    main = sorted({(BATCH, HW // d, HW // d, c) for c, d in folded_outputs(unet_s())})
+    for i, shape in enumerate(main):
+        for dtype in (torch.bfloat16, torch.float32):
+            bias_relu_check(shape, dtype, seed=100 + i)
+    log(f"[bias_relu] bit for bit torch.relu(y + b) at the {len(main)} (B, H, W, C) shapes of "
+        f"unet_s's served forward, bf16 and f32 (NaN, -0.0 and cancelling sums): {main}")
+    rows = []
+    for name, b, h, w, c in BIAS_RELU_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(c)
+        y = torch.randn((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        bias = torch.randn((c,), generator=g, device="cuda").to(torch.bfloat16)
+        y[0, 0, 0, :2] = float("nan")
+        ys = copies(y)
+        with torch.inference_mode():
+            got = bias_relu_nhwc(y, bias)
+            want = bias_relu_nhwc_reference(y, bias)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise RuntimeError(f"bias_relu_nhwc at {tuple(y.shape)} differs from "
+                                   f"torch.relu(y + b) in {int((got != want).sum())} elements")
+            ms, host_ms = time_ms(lambda i: bias_relu_nhwc(ys[i % len(ys)], bias), reps=40)
+            pair_ms, pair_host_ms = time_ms(
+                lambda i: bias_relu_nhwc_reference(ys[i % len(ys)], bias), reps=40)
+        bound_ms = (2 * y.numel() + c) * y.element_size() / HBM_BYTES_PER_S * 1e3
+        share = roofline(bound_ms, kernel=ms, library=pair_ms)
+        rows.append(dict(name=name, path="dense", shape=[b, h, w, c], ms=ms, bound_ms=bound_ms,
+                         library_ms=pair_ms, roofline=share, host_us=host_ms * 1e3,
+                         library_host_us=pair_host_ms * 1e3))
+        log(f"[bias_relu] {name} {(b, h, w, c)} bf16: equal to torch.relu(y + b); kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; roofline {share:.1%}, "
+            f"{(2 * y.numel() + c) * y.element_size() / ms / 1e9:.3f} TB/s), "
+            f"torch.relu(y + b) {pair_ms:.4f} ms; host {host_ms * 1e3:.2f} us a call "
+            f"against the pair's {pair_host_ms * 1e3:.2f} us")
+    # the host's cost alone: a (1, 8, 8, 64) tensor, which the card takes
+    # faster than the host issues it; median of 5 runs of 500 calls
+    y, bias = torch.randn((1, 8, 8, 64), device="cuda"), torch.randn((64,), device="cuda")
+    host = {}
+    with torch.inference_mode():
+        for label, fn in (("op", bias_relu_nhwc), ("pair", bias_relu_nhwc_reference)) * 2:
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(500):
+                    fn(y, bias)
+                host.setdefault(label, []).append((time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+    host = {k: float(np.median(v)) for k, v in host.items()}
+    log(f"[bias_relu] host us a call at (1, 8, 8, 64) f32 (median of 10 x 500 calls): op "
+        f"{host['op']:.2f}, torch.relu(y + b) {host['pair']:.2f}")
+    for r in rows:
+        r["small_host_us"], r["small_library_host_us"] = host["op"], host["pair"]
+    return rows
+
+
 # (B, H, W, Cin, Cout, dtype) of every conv3x3 launch held against the plain
 # version by phases 3 and 4, and of every launch inside a counted window of
 # the main paths (reset_launches .. read_launches / int8_counts): the run
@@ -618,6 +758,9 @@ CHECKED, LAUNCHED = set(), set()
 # held against the plain version in phase 10, or in phase 17 where phase 10
 # has no such shape
 CHECKED8, LAUNCHED8 = set(), set()
+# the same for the one-pass bias + ReLU: (B, H, W, C, dtype), held against
+# torch.relu(y + b) in phase 3 (unet_s's served forward) or in phase 18
+BR_CHECKED, BR_LAUNCHED = set(), set()
 RECORDING = [False]
 
 
@@ -641,8 +784,16 @@ def record_launches() -> None:
             LAUNCHED8.add(int8_key(x, x2, mul.shape[0], out_dtype, act))
         return launch8(x, wp, mul, badd, out_dtype, x2, act, inv_s)
 
+    launch_br = bias_relu_module._launch
+
+    def recorded_br(y, b):
+        if RECORDING[0]:
+            BR_LAUNCHED.add(bias_relu_key(y))
+        return launch_br(y, b)
+
     conv3x3_module._launch = recorded
     conv3x3_int8_module._launch = recorded8
+    bias_relu_module._launch = recorded_br
 
 
 def conv_label(path: str) -> str:
@@ -1172,6 +1323,7 @@ def reset_launches() -> None:
     for fn in (conv3x3_nhwc, conv3x3_nhwc_dx):
         fn.launches = fn.tensor_core_launches = 0
     conv3x3_int8.launches = 0
+    bias_relu_nhwc.launches = 0
     RECORDING[0] = True
 
 
@@ -1182,11 +1334,15 @@ def int8_counts() -> dict:
 
 
 def read_launches() -> dict:
+    """The counts since the last reset: the 3x3 kernel's forward and dx
+    launches, those on the tensor cores, and the one-pass bias + ReLU's."""
     RECORDING[0] = False
-    return {key: getattr(fn, attr)
-            for fn in (conv3x3_nhwc, conv3x3_nhwc_dx)
-            for key, attr in ((fn.__name__, "launches"),
-                              (f"{fn.__name__} tensor_core", "tensor_core_launches"))}
+    counts = {key: getattr(fn, attr)
+              for fn in (conv3x3_nhwc, conv3x3_nhwc_dx)
+              for key, attr in ((fn.__name__, "launches"),
+                                (f"{fn.__name__} tensor_core", "tensor_core_launches"))}
+    counts["bias_relu_nhwc"] = bias_relu_nhwc.launches
+    return counts
 
 
 def phase_main_path(model, profile_dir=None):
@@ -1202,17 +1358,15 @@ def phase_main_path(model, profile_dir=None):
     masks_u8 = pred.predict_array(images_u8)
     launches = read_launches()
     per_forward = len(MAIN_CONVS)
-    if launches != {"conv3x3_nhwc": 2 * per_forward, "conv3x3_nhwc_dx": 0,
-                    "conv3x3_nhwc tensor_core": 2 * per_forward,
-                    "conv3x3_nhwc_dx tensor_core": 0}:
+    if launches != fwd_launches(2 * per_forward, 2 * UNET_PASSES):
         raise RuntimeError(f"two predict forwards launched {launches}, want "
                            f"{2 * per_forward} forward launches, all on the tensor cores, "
-                           f"and no dx launches")
+                           f"no dx launches, and {2 * UNET_PASSES} bias + ReLU passes")
     check_masks(masks, (BATCH, HW, HW))
     check_masks(masks_u8, (BATCH, HW, HW))
     log(f"[main] unet_s bf16 predict_array (8, 512, 512) float + uint8: "
         f"conv3x3_nhwc launches {launches['conv3x3_nhwc']} ({per_forward} per forward, all on "
-        f"the tensor-core kernel); "
+        f"the tensor-core kernel), bias_relu_nhwc {launches['bias_relu_nhwc']}; "
         f"class shares {np.bincount(masks.ravel(), minlength=3) / masks.size}")
 
     with exact_f32():
@@ -1378,7 +1532,8 @@ def train_steps(model, loss_cfg, batch, label: str, per_step: int,
     per_step_fwd = per_step if per_step_fwd is None else per_step_fwd
     step = make_train_step(model, loss_cfg, RMSpropConfig(learning_rate=TRAIN_LR))
     want = {"conv3x3_nhwc": per_step_fwd, "conv3x3_nhwc tensor_core": per_step_fwd,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+            "bias_relu_nhwc": 0}
 
     reset_launches()
     losses = [step(batch, TRAIN_LR)["loss"]]
@@ -1518,7 +1673,8 @@ def remat_equals_plain(runs: dict, per_step: int, label: str) -> tuple:
     (loss, grads, bufs, _, _, _), (r_loss, r_grads, r_bufs, _, r_launch, _) = (
         runs[False], runs[True])
     want = {"conv3x3_nhwc": 2 * per_step, "conv3x3_nhwc tensor_core": 2 * per_step,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+            "bias_relu_nhwc": 0}
     g_max = max(g.abs().max().item() for g in grads.values())
     grad_err = max((r_grads[k] - grads[k]).abs().max().item() for k in grads) / g_max
     loss_err = abs(r_loss - loss) / abs(loss)
@@ -1710,7 +1866,7 @@ def phase_train_model(n_train: int = 32):
     fwd = steps * len(MAIN_CONVS) + epochs * (len(val_set) // BATCH) * len(MAIN_CONVS)
     want = {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd,
             "conv3x3_nhwc_dx": steps * len(MAIN_CONVS),
-            "conv3x3_nhwc_dx tensor_core": steps * len(MAIN_CONVS)}
+            "conv3x3_nhwc_dx tensor_core": steps * len(MAIN_CONVS), "bias_relu_nhwc": 0}
     train_losses = [rec["loss"] for kind, rec in records if kind == "train_step"]
     if (result.step != steps or final["step"] != steps or final["opt_state"] is None
             or not all(written) or differing or loaded or len(val) != epochs
@@ -2066,11 +2222,10 @@ def phase_tiled(model):
     launches = read_launches()
     forwards = sum(group_forwards(pred, *images.shape[:3]) for _, pred, images in runs)
     per_forward = len(MAIN_CONVS)
-    if launches != {"conv3x3_nhwc": per_forward * forwards, "conv3x3_nhwc_dx": 0,
-                    "conv3x3_nhwc tensor_core": per_forward * forwards,
-                    "conv3x3_nhwc_dx tensor_core": 0}:
+    if launches != fwd_launches(per_forward * forwards, UNET_PASSES * forwards):
         raise RuntimeError(f"{forwards} tiled group forwards launched {launches}, want "
-                           f"{per_forward} each, all on the tensor cores")
+                           f"{per_forward} each, all on the tensor cores, and "
+                           f"{UNET_PASSES} bias + ReLU passes each")
     for (name, _, images), m in zip(runs, masks):
         check_masks(m, images.shape[:3])
     log(f"[tiled] unet_s bf16 predict_array, halo {HALO}, {', '.join(n for n, _, _ in runs)}: "
@@ -2260,8 +2415,10 @@ def phase_pipeline():
         seconds = time.perf_counter() - t0
         launches = read_launches()
         check_masks(masks, batch.shape)
-        if launches["conv3x3_nhwc"]:
-            raise RuntimeError(f"the full unet launched the 3x3 kernel: {launches}")
+        passes = -(-len(batch) // pred.batch_size) * UNET_PASSES
+        if launches["conv3x3_nhwc"] or launches["bias_relu_nhwc"] != passes:
+            raise RuntimeError(f"the full unet launched {launches}: want no 3x3 kernel launch "
+                               f"and {passes} bias + ReLU passes")
         log(f"[pipeline] stage 3 device work only: full unet bf16 predict_array "
             f"{batch.shape} uint8 in {seconds:.3f} s, kernel launches {launches}")
         return launches, dict(host_libraries=libs, stage3_only_seconds=seconds)
@@ -2290,9 +2447,12 @@ def phase_pipeline():
             n_json, n_poly = check_results(root)
             batches = -(-PIPE_SCANS // injected.batch_size)
             want = batches * len(MAIN_CONVS) if predictor is injected else 0
-            if (launches["conv3x3_nhwc"], launches["conv3x3_nhwc tensor_core"]) != (want, want):
+            passes = batches * UNET_PASSES  # unet_s and the full unet both fold 9 blocks
+            if ((launches["conv3x3_nhwc"], launches["conv3x3_nhwc tensor_core"]) != (want, want)
+                    or launches["bias_relu_nhwc"] != passes):
                 raise RuntimeError(f"pipeline with the {name} predictor launched {launches}, "
-                                   f"want {want} forward launches, all on the tensor cores")
+                                   f"want {want} forward launches, all on the tensor cores, "
+                                   f"and {passes} bias + ReLU passes")
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
             result[name] = dict(seconds=seconds, stage_seconds=stages, json_files=n_json,
@@ -2655,8 +2815,7 @@ def phase_export(model) -> tuple:
     masks = exported.predict_array(images)
     masks_wide = exported.predict_array(wide)
     launches = read_launches()
-    want = {"conv3x3_nhwc": 2 * len(MAIN_CONVS), "conv3x3_nhwc tensor_core": 2 * len(MAIN_CONVS),
-            "conv3x3_nhwc_dx": 0, "conv3x3_nhwc_dx tensor_core": 0}
+    want = fwd_launches(2 * len(MAIN_CONVS), 2 * UNET_PASSES)
     agree = float((masks == live.predict_array(images)).mean())
     agree_wide = float((masks_wide == live.predict_array(wide)).mean())
     check_masks(masks, (BATCH, HW, HW))
@@ -2754,10 +2913,11 @@ YOLO_INT8_FULL = sum(n for *_, n in YOLO_SILU_CONVS)
 MIN_YOLO_CARD_VS_CPU = 0.9999
 
 
-def fwd_launches(n: int) -> dict:
-    """The read_launches() of n forward launches on the tensor cores, no dx."""
+def fwd_launches(n: int, passes: int) -> dict:
+    """The read_launches() of n forward launches on the tensor cores, no dx,
+    and ``passes`` launches of the one-pass bias + ReLU."""
     return {"conv3x3_nhwc": n, "conv3x3_nhwc tensor_core": n, "conv3x3_nhwc_dx": 0,
-            "conv3x3_nhwc_dx tensor_core": 0}
+            "conv3x3_nhwc_dx tensor_core": 0, "bias_relu_nhwc": passes}
 
 
 def in_dtype(model, dtype):
@@ -2824,7 +2984,8 @@ def phase_pp_serve():
     images = smooth_images(1, BATCH, HW)
     pred = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
     pred.predict_array(images[:1])  # warm-up: cuDNN picks its algorithms here
-    masks = counted_masks(pred, images, fwd_launches(PP_PER_FORWARD), "C1 unet_pp_s predict")
+    masks = counted_masks(pred, images, fwd_launches(PP_PER_FORWARD, PP_PASSES),
+                          "C1 unet_pp_s predict")
     check_masks(masks, (BATCH, HW, HW))
     with exact_f32():
         ref = Predictor(model, device="cuda").predict_array(images)
@@ -2846,7 +3007,8 @@ def phase_pp_serve():
     full.predict_array(images[:1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    check_masks(counted_masks(full, images, fwd_launches(0), "C1 unet_pp predict"),
+    check_masks(counted_masks(full, images, fwd_launches(0, PP_PASSES),
+                                      "C1 unet_pp predict"),
                 (BATCH, HW, HW))
     full_peak = torch.cuda.max_memory_allocated() / 2**20
     x = torch.from_numpy(images).cuda()
@@ -2865,7 +3027,8 @@ def phase_pp_serve():
     dense = Predictor(model, device="cuda", compute_dtype=torch.bfloat16, tile_threshold=0)
     tiled.predict_array(scan)  # warm-up
     forwards = group_forwards(tiled, n, s, s)
-    t_masks = counted_masks(tiled, scan, fwd_launches(PP_PER_FORWARD * forwards),
+    t_masks = counted_masks(tiled, scan,
+                            fwd_launches(PP_PER_FORWARD * forwards, PP_PASSES * forwards),
                             "C1 unet_pp_s tiled")
     inner = float((interior(t_masks) == interior(dense.predict_array(scan))).mean())
     with exact_f32():
@@ -2887,8 +3050,9 @@ def phase_pp_serve():
         f"window-group forwards of {PP_PER_FORWARD} launches; tiled vs dense interior "
         f"{inner:.4%} (bf16), {inner_f32:.4%} (f32); {rate:.3f} slices/s ({call_ms:.2f} ms a "
         f"call, host clock), device {dev_ms / n:.3f} ms per image")
-    return model, {"pp_predict": fwd_launches(PP_PER_FORWARD),
-                   "pp_tiled": fwd_launches(PP_PER_FORWARD * forwards)}, result
+    return model, {"pp_predict": fwd_launches(PP_PER_FORWARD, PP_PASSES),
+                   "pp_tiled": fwd_launches(PP_PER_FORWARD * forwards,
+                                            PP_PASSES * forwards)}, result
 
 
 def phase_pp_int8(model):
@@ -3021,7 +3185,7 @@ def phase_yolo():
     images = smooth_images(1, BATCH, HW)
     pred = Predictor(model, device="cuda", compute_dtype=torch.bfloat16)
     pred.predict_array(images[:1])
-    masks = counted_masks(pred, images, fwd_launches(YOLO_PER_FORWARD), "C4 yolo predict")
+    masks = counted_masks(pred, images, fwd_launches(YOLO_PER_FORWARD, 0), "C4 yolo predict")
     if masks.shape != (BATCH, HW, HW) or not set(np.unique(masks)) <= {0, 1}:
         raise RuntimeError(f"[C4] masks {masks.shape} with values {np.unique(masks)}")
     with exact_f32():
@@ -3058,7 +3222,7 @@ def phase_yolo():
     e_launches = read_launches()
     e_agree = float((e_masks == pred.predict_array(images)).mean())
     e_agree_wide = float((e_wide == pred.predict_array(wide)).mean())
-    if (e_launches != fwd_launches(2 * YOLO_PER_FORWARD) or e_wide.shape != (1, *EXPORT_WIDE)
+    if (e_launches != fwd_launches(2 * YOLO_PER_FORWARD, 0) or e_wide.shape != (1, *EXPORT_WIDE)
             or min(e_agree, e_agree_wide) < MIN_EXPORT_AGREEMENT):
         raise RuntimeError(f"[C4 export] two program forwards launched {e_launches}; masks "
                            f"agree with the live Predictor's on {e_agree:.6%} and "
@@ -3070,7 +3234,7 @@ def phase_yolo():
         f"{YOLO_PER_FORWARD} launches a forward ({e_launches} in two); masks equal to the live "
         f"Predictor's on {e_agree:.6%} of ({BATCH}, {HW}, {HW}) and {e_agree_wide:.6%} of one "
         f"1024x768 image; host {export['slices_per_s']:.1f} slices/s")
-    return ({"yolo_predict": fwd_launches(YOLO_PER_FORWARD), "yolo_train": t_launches,
+    return ({"yolo_predict": fwd_launches(YOLO_PER_FORWARD, 0), "yolo_train": t_launches,
              "yolo_export": e_launches}, dict(serve=serve, train=train, export=export))
 
 
@@ -3429,7 +3593,8 @@ def phase_dp_world1(profile_dir=None):
     numbers)."""
     per_step = len(MAIN_CONVS)
     want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": per_step,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step}
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+            "bias_relu_nhwc": 0}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
                                 rank=0)
@@ -3568,7 +3733,7 @@ def phase_dp_two_ranks():
         raise RuntimeError(f"[D2] a gloo rank failed: exit codes {codes}")
     per_step = len(MAIN_CONVS)
     want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": 0,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": 0}
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": 0, "bias_relu_nhwc": 0}
     numbers, launches = {"nccl_two_ranks_one_device": nccl}, {}
     for n_classes, label in ((3, "multiclass"), (1, "binary")):
         (got, got_launches), (other, other_launches) = ranks[0][n_classes], ranks[1][n_classes]
@@ -3619,8 +3784,8 @@ def phase_dp_serve(model):
     torch.cuda.synchronize()
     per_forward = len(MAIN_CONVS)
     tiled_forwards = group_forwards(two, *scan.shape)
-    want = {"dense": fwd_launches(DP_RANKS * per_forward),
-            "tiled": fwd_launches(tiled_forwards * per_forward),
+    want = {"dense": fwd_launches(DP_RANKS * per_forward, DP_RANKS * UNET_PASSES),
+            "tiled": fwd_launches(tiled_forwards * per_forward, tiled_forwards * UNET_PASSES),
             "int8": {"conv3x3_int8": DP_RANKS * len(INT8_CONVS), "conv3x3_nhwc": 0}}
     launches, numbers = {}, {}
     for name, a, b, x in cases:
@@ -3721,7 +3886,8 @@ def s_want(name: str, dtype) -> dict:
     fwd, dx = (n, 0) if name.startswith("served") else (2 * n if name == "remat" else n, n)
     tc = dtype == torch.bfloat16
     return {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd if tc else 0,
-            "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx tensor_core": dx if tc else 0}
+            "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx tensor_core": dx if tc else 0,
+            "bias_relu_nhwc": 0}  # S4 serves the live-BN eval model: nothing folded
 
 
 def s_shapes() -> list:
@@ -4057,6 +4223,25 @@ def phase_launched_shapes() -> tuple:
     return len(LAUNCHED), len(LAUNCHED8), len(rest)
 
 
+def phase_bias_relu_shapes() -> tuple:
+    """Every (B, H, W, C, dtype) at which a counted window launched the
+    one-pass bias + ReLU is held bit for bit against torch.relu(y + b):
+    phase 3 held unet_s's served forward at (BATCH, HW, HW), the rest (the
+    tiled windows, the replicas' and the pipeline's batches, UNet++, the
+    full models, f32) are held here; -> the numbers of such shapes and of
+    those checked here."""
+    rest = sorted(BR_LAUNCHED - BR_CHECKED)
+    for i, (*shape, dtype) in enumerate(rest):
+        bias_relu_check(tuple(shape), getattr(torch, dtype.removeprefix("torch.")), 400 + i)
+    if not BR_LAUNCHED or BR_LAUNCHED - BR_CHECKED:
+        raise RuntimeError(f"bias_relu_nhwc launch shapes left unchecked: "
+                           f"{sorted(BR_LAUNCHED - BR_CHECKED)}")
+    log(f"[shapes] the main paths launched bias_relu_nhwc at {len(BR_LAUNCHED)} (B, H, W, C, "
+        f"dtype) shapes, each bit for bit torch.relu(y + b): {len(BR_LAUNCHED) - len(rest)} in "
+        f"phase 3, {len(rest)} checked here {rest}")
+    return len(BR_LAUNCHED), len(rest)
+
+
 def shape_row(r) -> dict:
     return {k: r[k] for k in ("name", "path", "shape", "ms", "bound_ms", "library_ms",
                               "roofline")}
@@ -4079,6 +4264,7 @@ def main(argv=None) -> int:
     usage, build_dirs = phase_build()
     record_launches()
     rows, max_err = phase_kernels(usage)
+    bias_relu_rows = phase_bias_relu()
     bwd_rows, bwd_err = phase_backward(usage)
     model = build_model(seed=MODEL_SEED)
     phase_small_reference(model)
@@ -4119,6 +4305,7 @@ def main(argv=None) -> int:
     log(f"[A0 time] {spatial['A0']['seconds']:.1f} s")
     sp_launches, spatial["S"] = phase_spatial()
     n_shapes, n_shapes8, n_shapes8_here = phase_launched_shapes()
+    n_br_shapes, n_br_here = phase_bias_relu_shapes()
 
     main_rows = [r for r in rows if r["path"] == "dense"]
     tiled_rows = [r for r in rows if r["path"].startswith("tiled")]
@@ -4139,7 +4326,7 @@ def main(argv=None) -> int:
                    **{f"train_{k}": v for k, v in sp_launches.items() if k[:2] not in ("S4", "S6")}}
     # C1-C5: UNet++ and YOLOv8-seg serving, tiled, train, export and int8
     family_paths = {**pp_launches, **pp_train_launches, **yolo_launches,
-                    **{k: fwd_launches(v["conv3x3_nhwc"]) for k, v in yolo8_launches.items()}}
+                    **{k: fwd_launches(v["conv3x3_nhwc"], 0) for k, v in yolo8_launches.items()}}
     train_paths.update({k: v for k, v in family_paths.items() if "train" in k})
     by_path = {"predict": launches["conv3x3_nhwc"],
                **{k: v["conv3x3_nhwc"] for k, v in train_paths.items()},
@@ -4152,6 +4339,19 @@ def main(argv=None) -> int:
                # S4, S6: each rank of the row-sharded eval forward of one scan
                **{k: v["conv3x3_nhwc"] for k, v in sp_launches.items() if k[:2] in ("S4", "S6")},
                **{k: v["conv3x3_nhwc"] for k, v in family_paths.items() if "train" not in k}}
+    # the one-pass bias + ReLU by path: every served UNet / UNet++ path, and
+    # none in training or YOLO
+    br_by_path = {"predict": launches["bias_relu_nhwc"],
+                  **{k: v["bias_relu_nhwc"] for k, v in train_paths.items()},
+                  "tiled": tiled_launches["bias_relu_nhwc"],
+                  "pipeline": pipeline_launches.get("bias_relu_nhwc", 0),
+                  "export": export_launches["bias_relu_nhwc"],
+                  "dp_predict": dp3_launches["dense"]["bias_relu_nhwc"],
+                  "dp_tiled": dp3_launches["tiled"]["bias_relu_nhwc"],
+                  **{k: v["bias_relu_nhwc"] for k, v in sp_launches.items()
+                     if k[:2] in ("S4", "S6")},
+                  **{k: v["bias_relu_nhwc"] for k, v in family_paths.items()
+                     if "train" not in k}}
     source = "unet_medical_image_contour_segmentation_torch/csrc/conv3x3.cu"
     tpu = "unet_medical_image_contour_segmentation_tpu"
     pallas = f"{tpu}/ops/pallas_conv.py"
@@ -4281,6 +4481,23 @@ def main(argv=None) -> int:
         "spatial_yolo": {k: sum(r[k] for r in spy_bwd_rows) for k in ("ms", "bound_ms",
                                                                         "plain_ms", "library_ms")},
         "spatial_yolo_shapes": shape_rows(spy_bwd_rows),
+    }, {
+        # the bias add and ReLU of the folded 3x3 convs (no TPU kernel: XLA
+        # fuses them into the conv there), per shape
+        "name": "bias_relu_nhwc",
+        "route": "cuda",
+        "source": "unet_medical_image_contour_segmentation_torch/csrc/bias_relu.cu",
+        "replaces": None,
+        # 18 a served UNet forward, 30 a UNet++ one, none in training
+        "launches": sum(br_by_path.values()),
+        "launches_by_path": br_by_path,
+        # the distinct shapes launched inside the counted windows, all held
+        # bit for bit against torch.relu(y + b), those of phase 18 among them
+        "launch_shapes_checked": n_br_shapes,
+        "launch_shapes_checked_late": n_br_here,
+        "shapes": [dict(shape_row(r), **{k: r[k] for k in (
+            "host_us", "library_host_us", "small_host_us", "small_library_host_us")})
+                   for r in bias_relu_rows],
     }]
     fwd, k8 = kernels[0], kernels[1]
     int_mm = "refused" if k8["int_mm_ms"] is None else f"{k8['int_mm_ms']:.4f} ms"

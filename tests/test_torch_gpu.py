@@ -53,9 +53,11 @@ from unet_medical_image_contour_segmentation_torch.engine.checkpoint import (
 from unet_medical_image_contour_segmentation_torch.engine.optim import RMSpropConfig
 from unet_medical_image_contour_segmentation_torch.engine.predict import Predictor
 from unet_medical_image_contour_segmentation_torch.engine.train import make_train_step
+from unet_medical_image_contour_segmentation_torch.kernels import bias_relu as BR
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3 as K
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3_int8 as K8
 from unet_medical_image_contour_segmentation_torch.losses.compound import LossConfig
+from unet_medical_image_contour_segmentation_torch.models.fold_bn import FoldedDoubleConv
 from unet_medical_image_contour_segmentation_torch.models.unet import unet_s
 from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d
 
@@ -529,7 +531,8 @@ def test_custom_op_fake_implementations(cuda):
 
 def test_exported_program_on_card(cuda, seeded_model):
     """unet_s bf16 exported on the card: the program launches the kernel 7
-    times a forward through the custom op, at two sizes from one program,
+    times a forward through the custom op, and the bias + ReLU pass 18
+    times, at two sizes from one program,
     and gives the folded eval forward's logits (bf16 tolerance: the program
     may order the same ops' launches differently)."""
     from unet_medical_image_contour_segmentation_torch.engine.export import (
@@ -546,13 +549,133 @@ def test_exported_program_on_card(cuda, seeded_model):
     live.compute_dtype = torch.bfloat16
     for hw in ((64, 64), (96, 160)):
         x = torch.from_numpy(smooth_images(72, 2, max(hw))[:, :hw[0], :hw[1], None]).to(cuda)
-        before = K.conv3x3_nhwc.launches
+        before = (K.conv3x3_nhwc.launches, BR.bias_relu_nhwc.launches)
         with torch.no_grad():
             got = program(x)
-        assert K.conv3x3_nhwc.launches == before + 7
+        assert (K.conv3x3_nhwc.launches, BR.bias_relu_nhwc.launches) == (before[0] + 7,
+                                                                         before[1] + 18)
         with torch.no_grad():
             want = live(x)
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+# -- the one-pass bias + ReLU of the folded 3x3 convs ------------------------------
+
+# (B, H, W, C) of every folded conv output of unet_s and unet at 8 x 512²
+BIAS_RELU_SHAPES = [(8, 512 >> i, 512 >> i, c) for widths in ((16, 32, 64, 128, 256),
+                                                             (64, 128, 256, 512, 1024))
+                    for i, c in enumerate(widths)]
+BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _bias_relu_operands(shape, dtype, seed=0):
+    """y and a bias on the card, with NaNs in both, -0.0 in both, and a pixel
+    that the bias cancels exactly."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    y = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    b = torch.randn((c,), generator=g, device="cuda").to(dtype)
+    y[0, 0, 0, 0] = float("nan")
+    y[-1, -1, -1, -1] = -0.0
+    y[0, 1, 1] = -b
+    b[0] = y[0, 0, 1, 0] = -0.0  # a sum of -0.0
+    b[c // 2] = float("nan")
+    return y, b
+
+
+def _bias_relu_check(y, b):
+    before = BR.bias_relu_nhwc.launches
+    got = BR.bias_relu_nhwc(y, b)
+    want = torch.relu(y + b)
+    torch.cuda.synchronize()
+    assert BR.bias_relu_nhwc.launches == before + 1
+    assert torch.equal(got.view(BITS[y.dtype]), want.view(BITS[y.dtype]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BIAS_RELU_SHAPES + [(8, 64, 64, 12), (2, 33, 17, 6),
+                                                      (2, 33, 17, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bias_relu_kernel_equals_the_plain_pair(cuda, shape, dtype):
+    """Bit for bit torch.relu(y + b) at every folded conv output of unet_s
+    and unet at 8 x 512² (16-byte loop) and at C = 12, 6, 3 (the scalar
+    loop where C is no multiple of 8 in bf16 or of 4 in f32)."""
+    _bias_relu_check(*_bias_relu_operands(shape, dtype))
+
+
+def test_bias_relu_kernel_at_the_tiled_window(cuda):
+    """(8, 1216, 1216, 64) bf16: the tiled path's window, 1.5 GB, byte
+    offsets past 2**31."""
+    _bias_relu_check(*_bias_relu_operands((8, 1216, 1216, 64), torch.bfloat16))
+
+
+def test_bias_relu_kernel_takes_a_misaligned_input(cuda):
+    """A y that starts 2 bytes past a 16-byte boundary takes the scalar loop."""
+    y, b = _bias_relu_operands((2, 16, 16, 64), torch.bfloat16)
+    flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda)
+    shifted = flat[1:].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16
+    _bias_relu_check(shifted, b)
+
+
+def test_bias_relu_kernel_refuses_too_many_channels(cuda):
+    """Past the 12288 f32 bias values a block stages in shared memory the C
+    side returns cudaErrorInvalidValue, and the launch raises."""
+    before = BR.bias_relu_nhwc.launches
+    y = torch.zeros((1, 1, 2, 12289), device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.bias_relu_nhwc(y, torch.zeros((12289,), device=cuda))
+    assert BR.bias_relu_nhwc.launches == before
+    _bias_relu_check(*_bias_relu_operands((1, 2, 2, 12288), torch.float32))
+
+
+def _parent_forward(self, x, compute_dtype=None, group=None, shard=None):
+    """FoldedDoubleConv's forward before the one-pass epilogue."""
+    kw = dict(padding=1, compute_dtype=compute_dtype, shard=shard)
+    x = torch.relu(conv2d(x, self.w1, self.b1, **kw))
+    return torch.relu(conv2d(x, self.w2, self.b2, **kw))
+
+
+@pytest.mark.parametrize("name", ["unet_s", "unet"])
+def test_served_class_maps_keep_their_bits(cuda, name):
+    """Predictor.predict_array of unet_s and unet in bf16 on the benchmark's
+    synthetic slices: 18 launches of the pass a forward, and class maps
+    equal to those of a Predictor whose folded blocks run the parent's
+    torch.relu(conv2d(...))."""
+    import json
+    import types
+    from pathlib import Path
+
+    from portbench.traffic import synth_slices
+
+    spec = json.loads((Path(__file__).resolve().parent.parent / "portbench" / "traffic"
+                       / "synth_slices.json").read_text())
+    images = synth_slices(spec, 8, 2**31 + 17, cuda)[0].cpu().numpy()
+    model = seeded_family(name, MODEL_SEED)
+    pred = Predictor(model, device=cuda, compute_dtype=torch.bfloat16)
+    ref = Predictor(model, device=cuda, compute_dtype=torch.bfloat16)
+    for m in ref.model.modules():
+        if isinstance(m, FoldedDoubleConv):
+            m.forward = types.MethodType(_parent_forward, m)
+    before = BR.bias_relu_nhwc.launches
+    got = pred.predict_array(images)
+    assert BR.bias_relu_nhwc.launches == before + 18
+    want = ref.predict_array(images)
+    assert BR.bias_relu_nhwc.launches == before + 18
+    assert got.shape == want.shape == (8, 512, 512)
+    assert np.array_equal(got, want)
+    assert len(np.unique(got)) > 1
+
+
+def test_train_step_launches_no_bias_relu(cuda):
+    """Training runs DoubleConv with live BN: the pass is not launched."""
+    model = seeded_unet_s(torch.bfloat16).to(cuda)
+    step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=1e-4))
+    before = BR.bias_relu_nhwc.launches
+    step(_rect_batch(cuda), 1e-4)
+    torch.cuda.synchronize()
+    assert BR.bias_relu_nhwc.launches == before
 
 
 # -- UNet++ and YOLOv8-seg on the card -------------------------------------------

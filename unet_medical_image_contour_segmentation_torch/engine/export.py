@@ -13,7 +13,8 @@ reference exports ONNX opset 11 with dynamic batch, H and W
   (16 for the UNets' four pooling levels, 2^(depth-1) for UNet++, 32 for
   YOLO's stride-32 backbone).  Each routed 3x3 conv is the custom op
   ``umics::conv3x3_nhwc``, so the program launches the hand kernel on the
-  card and runs its plain version on the CPU.
+  card and runs its plain version on the CPU; so is each folded conv's
+  bias and ReLU, ``umics::bias_relu_nhwc``.
 * :func:`export_program_int8`: the int8 forward (``models/quantize.py:
   apply_int8``, the UNet family's, UNet++'s or YOLOv8-seg's) with its
   qparams baked in as buffers, a static H and W (one program per serving
@@ -23,7 +24,7 @@ reference exports ONNX opset 11 with dynamic batch, H and W
   card.
 
 The weights sit on the device the program was exported on, and the program
-runs there.  :func:`load_exported` registers both custom ops before it
+runs there.  :func:`load_exported` registers the port's custom ops before it
 loads a program.
 """
 
@@ -71,7 +72,7 @@ def export_program(model: nn.Module, *, example_hw: Tuple[int, int] = (512, 512)
     ``device`` (default cuda, raising without a card) holds the weights and
     runs the program."""
     from ..device import resolve_device
-    from ..kernels import conv3x3  # noqa: F401  (registers umics::conv3x3_nhwc)
+    from ..kernels import bias_relu, conv3x3  # noqa: F401  (register the ops)
     from ..models.fold_bn import serving_copy
 
     device = resolve_device(device)
@@ -142,7 +143,7 @@ def export_program_int8(model: nn.Module, qparams: dict, *,
 def load_exported(data: Union[bytes, str]):
     """``.pt2`` bytes (or a path to them) -> the ``torch.export``
     ExportedProgram, with the port's custom ops registered first."""
-    from ..kernels import conv3x3, conv3x3_int8  # noqa: F401  (register the ops)
+    from ..kernels import bias_relu, conv3x3, conv3x3_int8  # noqa: F401  (register the ops)
 
     return torch.export.load(io.BytesIO(data) if isinstance(data, (bytes, bytearray)) else data)
 

@@ -31,7 +31,8 @@ __all__ = ["FoldedDoubleConv", "FoldedCBS", "fold_double_conv", "fold_bn", "fold
 
 class FoldedDoubleConv(nn.Module):
     """(conv3x3 + bias -> ReLU) x 2 with BN folded in; same call as DoubleConv
-    (``group`` is unused: a folded block has no batch statistics)."""
+    (``group`` is unused: a folded block has no batch statistics).  Each
+    bias and ReLU is one pass (``kernels/bias_relu.py``)."""
 
     def __init__(self, w1, b1, w2, b2):
         super().__init__()
@@ -40,9 +41,9 @@ class FoldedDoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
                 group=None, shard=None):
-        kw = dict(padding=1, compute_dtype=compute_dtype, shard=shard)
-        x = torch.relu(conv2d(x, self.w1, self.b1, **kw))
-        return torch.relu(conv2d(x, self.w2, self.b2, **kw))
+        kw = dict(padding=1, compute_dtype=compute_dtype, shard=shard, relu=True)
+        x = conv2d(x, self.w1, self.b1, **kw)
+        return conv2d(x, self.w2, self.b2, **kw)
 
 
 class FoldedCBS(nn.Module):

@@ -13,7 +13,9 @@ the whole group's batch (cross-replica BN, ``ops/collectives.py``).
 
 :func:`conv2d` sends every conv that ``kernels.conv3x3.supported`` accepts
 (3x3, stride 1, pad 1, 8 <= Cin <= 32) to :func:`kernels.conv3x3.conv3x3_nhwc`,
-the port of the repo's one TPU kernel; the others go to ``F.conv2d``.
+the port of the repo's one TPU kernel; the others go to ``F.conv2d``.  With
+``relu=True``, the bias add and the ReLU run as one pass,
+:func:`kernels.bias_relu.bias_relu_nhwc`, on the conv's whole output.
 
 Given a ``shard`` (``ops/halo.py``: x is one band of rows of the images), a
 padded conv exchanges a halo of ``padding`` rows.  At stride 1 it runs the
@@ -37,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels import conv3x3
+from ..kernels import bias_relu, conv3x3
 from .collectives import pmean, world_size
 from .halo import Shard, halo_exchange
 
@@ -72,10 +74,12 @@ def conv2d(
     padding: int = 0,
     compute_dtype: Optional[torch.dtype] = None,
     shard: Optional[Shard] = None,
+    relu: bool = False,
 ) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC.  Matches torch.nn.Conv2d; on a
     ``shard``'s band of rows, that conv of the whole images (a kxk conv of
-    padding k // 2, stride 1 or 2)."""
+    padding k // 2, stride 1 or 2).  ``relu``: ``torch.relu`` of the result,
+    the bias add and the ReLU in one pass (``b`` required)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
@@ -90,9 +94,16 @@ def conv2d(
     else:
         pad = (0, padding) if halo and stride == 2 else padding
         y = _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
+    if relu:
+        if b is None:
+            raise ValueError("relu=True runs the bias add and the ReLU as one pass: give b")
+        # on the whole output, a shard's halo rows too: they are exact, and
+        # the pass reads one contiguous tensor; the operands are the op's as
+        # it wants them, so it runs unchecked
+        y = bias_relu.op(y.contiguous(), b.to(y.dtype))
     if halo and stride == 1:
         y = y[:, halo:-halo]
-    if b is not None:
+    if b is not None and not relu:
         y = y + b.to(y.dtype)
     return y
 
