@@ -870,3 +870,84 @@ def test_async_checkpoint_of_a_card_model_is_its_state_at_the_call(cuda, tmp_pat
     step(batch, 1e-4)
     fut.result(timeout=120)
     assert npz_differences(str(tmp_path / "pre.npz"), str(tmp_path / "async.npz")) == []
+
+
+# -- TransUNet on the card --------------------------------------------------------
+
+
+def test_transunet_served_forward(cuda, monkeypatch):
+    """TransUNet R50-ViT-B/16 served at 512² in bf16 on one of the benchmark's
+    synthetic slices: a forward runs 12 attentions on the pinned backend, 52
+    GroupNorms, 9 bias + ReLU passes, no BatchNorm and no weight
+    standardisation, and its classes lie within the benchmark cell's
+    ``mean_logit_gap`` limit of the plain f32 reference's logits."""
+    import json
+    from pathlib import Path
+
+    from portbench.reference import transunet as R
+    from portbench.traffic import synth_slices
+    from unet_medical_image_contour_segmentation_torch.models import blocks
+    from unet_medical_image_contour_segmentation_torch.models.unet import get_model
+    from unet_medical_image_contour_segmentation_torch.ops import vit
+
+    root = Path(__file__).resolve().parent.parent / "portbench"
+    spec = json.loads((root / "traffic" / "synth_slices.json").read_text())
+    cfg = {"model": "transunet_r50_b16", "n_channels": 1, "n_classes": 3}
+    images = synth_slices(spec, 4, 2**31 + 19, cuda)[0]
+    sd = R.make_state_dict(cfg, torch.Generator(cuda).manual_seed(19), cuda)
+    R.calibrate_bn(sd, cfg, R.normalize_uint8(images))
+    model = get_model("transunet_r50_b16", n_channels=1, n_classes=3, bilinear=True,
+                      compute_dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    pred = Predictor(model, device=cuda, batch_size=1)
+    host = images[:1].cpu().numpy()
+    pred.predict_array(host)
+    bns = []
+    bn = blocks.batch_norm
+    monkeypatch.setattr(blocks, "batch_norm", lambda *a, **k: bns.append(1) or bn(*a, **k))
+    attn = dict(vit.attention.calls_by_backend)
+    gn, std, br = vit.group_norm.calls, vit.standardize_weight.calls, BR.bias_relu_nhwc.launches
+    got = pred.predict_array(host)
+    torch.cuda.synchronize()
+    calls = {k: v - attn.get(k, 0) for k, v in vit.attention.calls_by_backend.items()}
+    assert {k: v for k, v in calls.items() if v} == {vit.PINNED: 12}
+    assert vit.group_norm.calls - gn == 52 and BR.bias_relu_nhwc.launches - br == 9
+    assert vit.standardize_weight.calls == std and not bns
+    with torch.no_grad(), R.no_tf32():
+        logits = R.forward(sd, cfg, R.normalize_uint8(images[:1]))[0]
+    c = torch.from_numpy(got[0]).to(cuda).long()
+    gap = logits.max(dim=-1).values - logits.gather(-1, c.unsqueeze(-1)).squeeze(-1)
+    limits = json.loads((root / "workloads" / "transunet_r50_b16.serve_batch.json").read_text())
+    assert float(gap.mean()) <= limits["limits"]["mean_logit_gap"]
+    assert len(np.unique(got)) > 1
+
+
+def test_upsample_matrices_are_copied_to_the_card_once(cuda):
+    """The x2 upsample's interpolation matrices are copied to the card once
+    and reused (a copy from host memory each call waits for the stream):
+    served under inference mode first, they still train, and the cached
+    matrix is the host one."""
+    from unet_medical_image_contour_segmentation_torch.models.unet import get_model
+    from unet_medical_image_contour_segmentation_torch.ops import resize
+
+    torch.manual_seed(5)
+    model = get_model("transunet_tiny", n_channels=1, n_classes=3, bilinear=True,
+                      dropout=0.0).to(cuda)
+    x = torch.rand(2, 64, 64, 1)
+    resize._interp_matrix_on_card.cache_clear()
+    pred = Predictor(model, device=cuda, batch_size=2)
+    first = pred.predict_array((x[..., 0] * 255).to(torch.uint8).numpy())
+    misses = resize._interp_matrix_on_card.cache_info().misses
+    assert misses == 4  # 4 -> 8 -> 16 -> 32 -> 64, one matrix per size and axis
+    assert np.array_equal(pred.predict_array((x[..., 0] * 255).to(torch.uint8).numpy()), first)
+    assert resize._interp_matrix_on_card.cache_info().misses == misses
+    step = make_train_step(model.train(), LossConfig(n_classes=3),
+                           RMSpropConfig(learning_rate=1e-4))
+    metrics = step({"image": x.to(cuda), "mask": torch.randint(0, 3, (2, 64, 64), device=cuda)},
+                   1e-4)
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    got = resize._interp_matrix(8, 16, True, cuda)
+    assert got.device.type == "cuda" and not got.is_inference()
+    assert resize._interp_matrix_on_card.cache_info().misses == misses  # cuda is cuda:0
+    assert torch.equal(got.cpu(), torch.from_numpy(resize._interp_matrix_np(8, 16, True)))

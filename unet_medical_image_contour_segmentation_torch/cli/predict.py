@@ -7,7 +7,12 @@
 The flags of the JAX package's ``cli/predict.py`` that this port supports:
 ``.pth``/``.pt``/``.npz`` weights of unet, unet_t, unet_s or unet_sa, and
 ``.npz`` weights of unet_pp, unet_pp_s or yolov8_seg_s (with
-``--bilinear`` for bilinear ups), a file or a recursively walked directory,
+``--bilinear`` for bilinear ups), ``.pth`` or ``.npz`` weights of
+``transunet_r50_b16`` (the published TransUNet state_dict; it serves
+images dense in float, H and W multiples of 16, its 512² position
+embeddings resampled at other sizes, so ``--int8`` and ``--tile`` are
+refused), a
+file or a recursively walked directory,
 post-processing on by default, masks saved as {0,128,255} PNGs (next to the
 inputs when ``-o`` is omitted), batches grouped by image size, and tiled
 serving of images above ``--tile-threshold`` pixels, and int8 serving
@@ -30,7 +35,8 @@ import logging
 import os
 import sys
 
-ARCHS = ["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s", "yolov8_seg_s"]
+ARCHS = ["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s", "yolov8_seg_s",
+         "transunet_r50_b16"]
 
 
 def get_args(argv=None):
@@ -125,7 +131,8 @@ def main(argv=None) -> int:
         state_dict, _ = load_weights(args.model)
         compute_dtype = torch.bfloat16 if args.device.startswith("cuda") else None
         model = get_model(args.arch, n_channels=1, n_classes=args.classes,
-                          bilinear=args.bilinear, compute_dtype=compute_dtype)
+                          bilinear=args.bilinear or args.arch.startswith("transunet"),
+                          compute_dtype=compute_dtype)
         model.load_state_dict(state_dict)
         predictor = Predictor(model, device=args.device, batch_size=args.batch_size,
                               tile=args.tile, tile_halo=args.tile_halo,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train a UNet, UNet++ or YOLOv8-seg for contour segmentation with the PyTorch port.
+"""Train a UNet, UNet++, YOLOv8-seg or TransUNet for contour segmentation
+with the PyTorch port.
 
     python -m unet_medical_image_contour_segmentation_torch.cli.train \\
         --data-root data/ --epochs 5 --batch-size 8 --model unet_s
@@ -8,8 +9,9 @@ The flags of the JAX package's ``cli/train.py``, with its defaults (epochs 5, ba
 compute, a 2 GB decoded-sample RAM cache): the imgs/{train,val} +
 masks/{train,val} layout under ``--data-root``; ``--model`` over the UNet
 family (``unet``, ``unet_t``, ``unet_s``, ``unet_sa``), UNet++
-(``unet_pp``, ``unet_pp_s``) and YOLOv8-seg (``yolov8_seg_s``), and
-``--bilinear``;
+(``unet_pp``, ``unet_pp_s``), YOLOv8-seg (``yolov8_seg_s``) and TransUNet
+(``transunet_r50_b16``, 512² slices, bilinear ups always; a ``.pth`` of it
+is the published state_dict), and ``--bilinear``;
 ``--classes 1`` for the binary BCE + Dice + boundary criterion and
 ``--cc-loss`` for its connected-component penalty; ``--remat``;
 ``--sample-cache-gb`` and ``--disk-cache-dir``; ``--load`` of a ``.npz``
@@ -72,8 +74,9 @@ def get_args(argv=None):
                         help="Number of classes (1: the binary boundary criterion)")
     parser.add_argument("--model", "-m", default="unet_s",
                         choices=["unet", "unet_t", "unet_s", "unet_sa", "unet_pp", "unet_pp_s",
-                                 "yolov8_seg_s"],
-                        help="Model variant")
+                                 "yolov8_seg_s", "transunet_r50_b16"],
+                        help="Model variant (transunet_r50_b16 trains on 512x512 slices: "
+                             "use --scale so that the images come out at that size)")
     parser.add_argument("--data-root", default="data/data-without-black-shadow")
     parser.add_argument("--remat", action="store_true", default=False,
                         help="Rematerialize blocks (activation checkpointing)")
@@ -158,7 +161,8 @@ def main(argv=None) -> int:
     from ..engine.checkpoint import latest_checkpoint, load_checkpoint, load_weights
     from ..models.torch_compat import params_from_state_dict
 
-    cfg = TrainConfig(model=args.model, classes=args.classes, bilinear=args.bilinear,
+    cfg = TrainConfig(model=args.model, classes=args.classes,
+                      bilinear=args.bilinear or args.model.startswith("transunet"),
                       remat=args.remat, data_root=args.data_root,
                       scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
                       learning_rate=args.lr, amp=args.amp, scheduler_quirk=args.scheduler_quirk,

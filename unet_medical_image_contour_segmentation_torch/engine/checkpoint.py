@@ -4,10 +4,11 @@ The ``.npz`` layout is that of the JAX package's ``engine/checkpoint.py``:
 one array per leaf of the ``params`` / ``bn_state`` / ``opt_state`` pytrees,
 keyed by its path joined with ``//``, and a JSON ``__meta__`` entry (step,
 mask_values, extra).  A checkpoint written by either package loads in the
-other unchanged, for the UNet family, UNet++ and YOLOv8-seg.  ``.pth`` is
-the reference UNet's format only: the reference ships no UNet++ or YOLO
-weights, and the JAX package reads and writes no ``.pth`` of them, so the
-port refuses one too.
+other unchanged, for the UNet family, UNet++ and YOLOv8-seg; TransUNet's
+holds its state_dict flat under its own names (``models/torch_compat.py``).
+``.pth`` is the reference UNet's format, and TransUNet's (the published
+state_dict): the reference ships no UNet++ or YOLO weights, and the JAX
+package reads and writes no ``.pth`` of them, so the port refuses one too.
 
 A save is two parts: a host snapshot (copies of the state_dict and of the
 optimizer state, taken when the call is made) and the write of that
@@ -30,7 +31,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.torch_compat import load_pth, params_from_state_dict, state_dict_from_jax
+from ..models.torch_compat import (
+    is_flat_torch,
+    load_pth,
+    params_from_state_dict,
+    state_dict_from_jax,
+)
 from .optim import opt_state_tensors
 
 __all__ = [
@@ -137,9 +143,10 @@ def save_checkpoint_async(path: str, model: nn.Module, step: int = 0,
 
 
 def _require_reference_unet(sd: dict, path) -> None:
-    if "inc.double_conv.0.weight" not in sd:
-        raise ValueError(f"{path}: .pth holds the reference UNet family's state_dict only; "
-                         "keep UNet++ and YOLOv8-seg weights in .npz, as the JAX package does")
+    if "inc.double_conv.0.weight" not in sd and not is_flat_torch(sd):
+        raise ValueError(f"{path}: .pth holds the reference UNet family's or TransUNet's "
+                         "state_dict only; keep UNet++ and YOLOv8-seg weights in .npz, as the "
+                         "JAX package does")
 
 
 def load_checkpoint(path: str) -> dict:

@@ -1,10 +1,12 @@
 """Inference: preprocess -> forward -> back-resize -> argmax -> post-process.
 
 The dense and tiled paths of the JAX package's ``engine/predict.py:Predictor``,
-for the UNet family, UNet++ and YOLOv8-seg: BN is folded into the convs once
-at construction (which also stores the 3x3 weights packed in the compute
-dtype; a model with no DoubleConv to fold, YOLOv8-seg, serves with live BN
-in eval mode, as JAX's does), images run through the model in
+for the UNet family, UNet++ and YOLOv8-seg (and TransUNet, served dense in
+float from ``models/fold_bn.py:fold_transunet``):
+BN is folded into the convs once at construction (which also stores the 3x3
+weights packed in the compute dtype; a model with no DoubleConv to fold,
+YOLOv8-seg, serves with live BN in eval mode, as JAX's does), images run
+through the model in
 batches under ``torch.inference_mode()``, logits go back to the requested
 size by a bilinear resize with ``align_corners=False``, and the argmax takes
 the first of equal maxima (``torch.argmax``'s documented rule, the rule of
@@ -477,6 +479,13 @@ class Predictor(_Serving):
             self.devices = devices
             # the spatial divisor of the int8 program and of the calibration crop
             self.hw_divisor = model.hw_divisor
+            # a model with position embeddings (TransUNet) serves dense, in float,
+            # at every size
+            if hasattr(model, "img_size"):
+                if quantize or tile is not None or (tile_threshold or 0) > 0:
+                    raise ValueError(f"{model.name} serves dense images in float only: no "
+                                     f"int8 (quantize=True) and no tiling")
+                self.tile_threshold = 0
             cd = model.compute_dtype if compute_dtype is None else compute_dtype
             net = serving_copy(model, cd)
             net.compute_dtype = cd

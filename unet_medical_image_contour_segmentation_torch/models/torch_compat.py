@@ -33,6 +33,11 @@ tree, a ``{w, b}`` node is an OutConv when its kernel is 1x1 and a
 ConvTranspose otherwise; in a state_dict, the bias beside a ``conv`` holder
 marks the OutConv.
 
+TransUNet has no JAX counterpart: its pytrees are flat dicts keyed by its
+state_dict names, in its (OIHW) layout, the BN running statistics and
+``num_batches_tracked`` under ``state`` and every other tensor under
+``params`` (:func:`is_flat_torch`).
+
 Per-parameter tensors that are not weights (gradients, the optimizer's
 ``square_avg`` / ``momentum_buffer``) cross with the same transpositions
 through :func:`params_tree_from_tensors` and :func:`tensors_from_params_tree`;
@@ -138,12 +143,27 @@ def _put_nodes(out: Dict[str, np.ndarray], prefix: str, params, state) -> None:
             _put_nodes(out, f"{key}.", p, s)
 
 
+_FLAT_MARK = "transformer.embeddings.position_embeddings"
+_STATE_LEAVES = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def is_flat_torch(tree: dict) -> bool:
+    """Whether a state_dict or a ``params`` tree is TransUNet's, which crosses
+    flat under its own names (see the module docstring)."""
+    return _FLAT_MARK in tree
+
+
 def params_from_state_dict(sd: Dict[str, Any]) -> Tuple[dict, dict, Optional[list]]:
     """A state_dict (numpy or torch values) -> JAX ``(params, state, mask_values)``;
-    the UNet family's by the reference map, UNet++'s and YOLO's by the walk."""
+    the UNet family's by the reference map, UNet++'s and YOLO's by the walk,
+    TransUNet's flat."""
     sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
           for k, v in sd.items()}
     mask_values = sd.pop("mask_values", None)
+    if is_flat_torch(sd):
+        state = {k: np.asarray(v) for k, v in sd.items() if k.endswith(_STATE_LEAVES)}
+        return ({k: np.asarray(v) for k, v in sd.items() if k not in state}, state,
+                mask_values)
     if "inc.double_conv.0.weight" not in sd:
         params, state = _params_from_nodes(sd)
         return params, state, mask_values
@@ -184,6 +204,8 @@ def state_dict_from_jax(params, bn_state) -> Dict[str, torch.Tensor]:
     state_dict, ready for ``load_state_dict``: the reference model's keys for
     the UNet family, the walk's for UNet++ and YOLO."""
     out: Dict[str, np.ndarray] = {}
+    if is_flat_torch(params):
+        return {k: torch.tensor(np.asarray(v)) for k, v in {**params, **bn_state}.items()}
     if "inc" not in params:
         _put_nodes(out, "", params, bn_state)
         return {k: torch.tensor(v) for k, v in out.items()}

@@ -150,19 +150,21 @@ MODEL_REGISTRY = {"unet": unet, "unet_t": unet_t, "unet_s": unet_s, "unet_sa": u
 
 
 def _extra_registry() -> dict:
+    from .transunet import transunet_r50_b16, transunet_tiny
     from .unet_nested import unet_pp, unet_pp_s
     from .yolov8_seg import yolov8_seg_s
 
-    return {"unet_pp": unet_pp, "unet_pp_s": unet_pp_s, "yolov8_seg_s": yolov8_seg_s}
+    return {"unet_pp": unet_pp, "unet_pp_s": unet_pp_s, "yolov8_seg_s": yolov8_seg_s,
+            "transunet_r50_b16": transunet_r50_b16, "transunet_tiny": transunet_tiny}
 
 
 def get_model(name: str, **kw) -> nn.Module:
     """The model ``name`` of the UNet family, UNet++ (``unet_pp``,
-    ``unet_pp_s``) or YOLOv8-seg (``yolov8_seg_s``), built with ``kw``."""
+    ``unet_pp_s``), YOLOv8-seg (``yolov8_seg_s``) or TransUNet
+    (``transunet_r50_b16``; ``transunet_tiny`` for tests), built with ``kw``."""
     registry = dict(MODEL_REGISTRY)
     if name not in registry:
         registry.update(_extra_registry())
     if name not in registry:
-        raise ValueError(f"unknown model {name!r}; available: "
-                         f"{sorted(MODEL_REGISTRY) + ['unet_pp', 'unet_pp_s', 'yolov8_seg_s']}")
+        raise ValueError(f"unknown model {name!r}; available: {sorted(registry)}")
     return registry[name](**kw)

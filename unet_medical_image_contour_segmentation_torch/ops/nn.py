@@ -13,7 +13,9 @@ the whole group's batch (cross-replica BN, ``ops/collectives.py``).
 
 :func:`conv2d` sends every conv that ``kernels.conv3x3.supported`` accepts
 (3x3, stride 1, pad 1, 8 <= Cin <= 32) to :func:`kernels.conv3x3.conv3x3_nhwc`,
-the port of the repo's one TPU kernel; the others go to ``F.conv2d``.  With
+the port of the repo's one TPU kernel, unless its input takes a gradient
+that the kernel cannot give (Cout outside 8..64); the others go to
+``F.conv2d``.  With
 ``relu=True``, the bias add and the ReLU run as one pass,
 :func:`kernels.bias_relu.bias_relu_nhwc`, on the conv's whole output.
 
@@ -89,7 +91,12 @@ def conv2d(
             raise ValueError(f"a row-sharded conv must be a SAME conv of stride 1 or 2, not a "
                              f"{tuple(w.shape[:2])} kernel at stride {stride}, padding {padding}")
         x = halo_exchange(x, shard, halo)
-    if conv3x3.supported(w.shape, stride, padding):
+    # the kernel's dx is the kernel again with Cin = Cout: a conv whose
+    # input takes a gradient and whose Cout it cannot take (a 3-class head)
+    # goes to cuDNN
+    if conv3x3.supported(w.shape, stride, padding) and (
+            conv3x3.CIN_MIN <= w.shape[3] <= conv3x3.CIN_MAX
+            or not (x.requires_grad and torch.is_grad_enabled())):
         y = conv3x3.conv3x3_nhwc(x.contiguous(), w)
     else:
         pad = (0, padding) if halo and stride == 2 else padding

@@ -62,9 +62,26 @@ def _interp_matrix_symbolic(in_size, out_size, align_corners: bool,
             + (cols == i1[:, None]) * frac[:, None])
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_on_card(in_size: int, out_size: int, align_corners: bool,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`_interp_matrix_np` copied to a CUDA device once.  A copy from
+    host memory waits for the device's stream, so a copy each call would
+    stall the host mid-forward; made outside inference mode, so that a
+    training forward may save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(device)
+
+
 def _interp_matrix(in_size, out_size, align_corners: bool, device) -> torch.Tensor:
     if isinstance(in_size, torch.SymInt) or isinstance(out_size, torch.SymInt):
         return _interp_matrix_symbolic(in_size, out_size, align_corners, device)
+    device = torch.device(device)
+    if (device.type == "cuda" and not torch.compiler.is_compiling()
+            and torch._guards.detect_fake_mode() is None):
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _interp_matrix_on_card(in_size, out_size, align_corners, device)
     return torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(device)
 
 

@@ -25,6 +25,9 @@ The spans, and the calls they belong to:
 * ``train.step``: one ``TrainStep`` call; inside it ``train.forward``,
   ``train.loss``, ``train.backward`` (with ``zero_grad``), ``train.clip``
   and ``train.optimizer`` (setting the lr and the step);
+* ``transunet.resnet``, ``transunet.transformer``, ``transunet.decoder``:
+  the three stages of a TransUNet forward (``models/transunet.py``), inside
+  ``predict.forward`` or ``train.forward``;
 * ``loader.wait``: one ``next()`` of ``prefetch_to_device``;
 * ``setup.kernels`` (``kernel``, ``built``: nvcc ran): a hand kernel's
   library built or loaded; ``setup.predictor``: ``Predictor``'s
