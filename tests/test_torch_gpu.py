@@ -951,3 +951,77 @@ def test_upsample_matrices_are_copied_to_the_card_once(cuda):
     assert got.device.type == "cuda" and not got.is_inference()
     assert resize._interp_matrix_on_card.cache_info().misses == misses  # cuda is cuda:0
     assert torch.equal(got.cpu(), torch.from_numpy(resize._interp_matrix_np(8, 16, True)))
+
+
+# -- the served class maps' copy to the host ------------------------------------
+
+
+def _served_model(name, cuda, images):
+    """unet_s from the MODEL_SEED weights, or TransUNet R50-ViT-B/16 from the
+    benchmark reference's seeded weights with BN set on ``images``."""
+    if name == "unet_s":
+        return seeded_family(name, MODEL_SEED)
+    from portbench.reference import transunet as R
+    from unet_medical_image_contour_segmentation_torch.models.unet import get_model
+
+    cfg = {"model": name, "n_channels": 1, "n_classes": 3}
+    sd = R.make_state_dict(cfg, torch.Generator(cuda).manual_seed(23), cuda)
+    R.calibrate_bn(sd, cfg, R.normalize_uint8(images[:4]))
+    model = get_model(name, n_channels=1, n_classes=3, bilinear=True,
+                      compute_dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+@pytest.mark.parametrize("name", ["unet_s", "transunet_r50_b16"])
+def test_served_maps_come_through_the_pinned_buffer(cuda, name):
+    """predict_array at (8, 512², bf16) on the benchmark's synthetic slices:
+    int32 maps equal to the device map's ``.cpu()``, one pinned fetch a
+    chunk, no output aliasing another the caller keeps, and two threads
+    serving one Predictor at once each getting its own images' maps."""
+    import json
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from portbench.traffic import synth_slices
+    from unet_medical_image_contour_segmentation_torch.engine import predict as P
+
+    spec = json.loads((Path(__file__).resolve().parent.parent / "portbench" / "traffic"
+                       / "synth_slices.json").read_text())
+    dev_images = synth_slices(spec, 16, 2**31 + 23, cuda)[0]
+    pred = Predictor(_served_model(name, cuda, dev_images), device=cuda,
+                     compute_dtype=torch.bfloat16)
+    calls = [dev_images[:8].cpu().numpy(), dev_images[8:].cpu().numpy()]
+    want = [pred._predict_device(x).cpu().numpy() for x in calls]
+    assert want[0].dtype == np.uint8 and len(np.unique(want[0])) > 1
+    routes = dict(P._fetch_classes.calls_by_route)
+    got = [pred.predict_array(x) for x in calls]
+    assert P._fetch_classes.calls_by_route["pinned"] == routes.get("pinned", 0) + 2
+    assert P._fetch_classes.calls_by_route["host"] == routes.get("host", 0)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and g.shape == (8, 512, 512) and np.array_equal(g, w)
+    assert not np.shares_memory(got[0], got[1]) and not np.array_equal(got[0], got[1])
+    assert np.array_equal(got[0], want[0])  # unchanged by the second call
+
+    pred.batch_size = 3                     # chunks of 3, 3 and 2 in one result
+    chunks = np.concatenate([pred._predict_device(calls[1][i:i + 3]).cpu().numpy()
+                             for i in range(0, 8, 3)])
+    before = P._fetch_classes.calls_by_route["pinned"]
+    assert np.array_equal(pred.predict_array(calls[1]), chunks)
+    assert P._fetch_classes.calls_by_route["pinned"] == before + 3
+    pred.batch_size = 8
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futures = [(k % 2, pool.submit(pred.predict_array, calls[k % 2])) for k in range(8)]
+            served = [(k, f.result(timeout=300)) for k, f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    for k, g in served:
+        assert np.array_equal(g, want[k])
+    assert len({id(g) for _, g in served}) == 8
+    assert not any(np.shares_memory(g, h) for (_, g), (_, h)
+                   in zip(served, served[1:]))

@@ -15,6 +15,7 @@ from chip_smoke import random_unet_params
 from unet_medical_image_contour_segmentation_torch import resolve_device
 from unet_medical_image_contour_segmentation_torch.cli import predict as cli
 from unet_medical_image_contour_segmentation_torch.engine.checkpoint import save_checkpoint
+from unet_medical_image_contour_segmentation_torch.engine import predict as P
 from unet_medical_image_contour_segmentation_torch.engine.predict import (
     Predictor,
     collect_image_files,
@@ -93,6 +94,53 @@ def test_batches_larger_than_batch_size(model):
     images = np.random.default_rng(5).random((5, 32, 32), dtype=np.float32)
     small = Predictor(model, device="cpu", batch_size=2).predict_array(images)
     np.testing.assert_array_equal(small, Predictor(model, device="cpu").predict_array(images))
+
+
+def _chunked_maps(pred, images):
+    """predict_array's route before the uint8 maps and the one result
+    array: each chunk's map copied to the host by ``.cpu()``, then
+    concatenated."""
+    n, bs = len(images), pred.batch_size
+    return np.concatenate([pred._predict_device(images[i:i + bs], None, n).cpu().numpy()
+                           for i in range(0, n, bs)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_classes", [3, 1])
+@pytest.mark.parametrize("n,batch_size", [(2, 8), (5, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_predict_array_widens_the_chunked_maps(n_classes, n, batch_size, dtype):
+    torch.manual_seed(n_classes)
+    pred = Predictor(torch_unet_s(n_classes=n_classes), device="cpu", batch_size=batch_size)
+    rng = np.random.default_rng(n)
+    images = (rng.integers(0, 256, (n, 32, 32), dtype=np.uint8) if dtype == np.uint8
+              else rng.random((n, 32, 32), dtype=np.float32))
+    before = P._fetch_classes.calls_by_route["host"]
+    got = pred.predict_array(images)
+    assert P._fetch_classes.calls_by_route["host"] == before + -(-n // batch_size)
+    assert got.dtype == np.int32 and got.shape == (n, 32, 32)
+    assert got.flags.owndata and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, _chunked_maps(pred, images))
+
+
+@pytest.mark.parametrize("n_classes,dtype", [(1, torch.uint8), (3, torch.uint8),
+                                             (256, torch.uint8), (257, torch.int32)])
+def test_class_maps_are_uint8_up_to_256_classes(port, n_classes, dtype):
+    logits = torch.randn((2, 8, 8, n_classes), generator=torch.Generator().manual_seed(9))
+    got = port._classes(logits)
+    assert got.dtype == dtype and got.shape == (2, 8, 8)
+    want = logits[..., 0] > 0 if n_classes == 1 else logits.argmax(-1)
+    assert torch.equal(got.long(), want.long())
+
+
+def test_kept_outputs_are_not_overwritten(port):
+    rng = np.random.default_rng(10)
+    a, b = (rng.integers(0, 256, (3, 32, 32), dtype=np.uint8) for _ in range(2))
+    first = port.predict_array(a)
+    kept = first.copy()
+    second = port.predict_array(b)
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second)
+    assert not np.array_equal(first, second)
 
 
 @pytest.fixture

@@ -184,6 +184,8 @@ def test_predict_array_emits_predict_and_its_three_children(model, traced):
     assert root.name == "predict" and root.attrs == {"slices": 3, "chunks": 2}
     kids = _children(recs, root)
     assert [r.name for r in kids] == ["predict.upload", "predict.forward", "predict.fetch"] * 2
+    assert [r.attrs for r in kids if r.name == "predict.fetch"] == [
+        {"route": "host", "bytes": 2 * 32 * 32}, {"route": "host", "bytes": 32 * 32}]
     assert len(recs) == 7
     assert all(r.call == root.call and _within(r, root) for r in kids)
 

@@ -64,6 +64,8 @@ import copy
 import json
 import logging
 import os
+import threading
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
@@ -151,6 +153,46 @@ def _tree_to(tree, device: torch.device):
     return tree
 
 
+def _fetch_classes(classes: torch.Tensor, out: np.ndarray,
+                   staging: Dict[torch.device, torch.Tensor]) -> None:
+    """Copy a class map into ``out``, an int32 host array of its shape.
+
+    A map on a CUDA device (route ``"pinned"``) is copied into
+    ``staging[device]``, a pinned buffer allocated on first use and again
+    only when a map needs more bytes; the copy is queued on the current
+    stream and only its event is waited for.  (A copy into fresh pageable
+    memory stages through CUDA's own pinned buffer and faults the new pages
+    in, every call.)  A map on the host (route ``"host"``) is read where it
+    lies.  Either way one host pass widens it into ``out``, so nothing the
+    caller keeps aliases the buffer: torch's ``copy_``, which splits the cast
+    over the intra-op threads (numpy's ``copyto`` takes one: 1.46 ms against
+    0.43 for an (8, 512²) map on the H100 machine's host, PERF.md).  The
+    caller holds the lock that guards ``staging``.
+    ``_fetch_classes.calls_by_route`` counts the maps by route."""
+    with span("predict.fetch") as s:
+        nbytes = classes.numel() * classes.element_size()
+        if classes.device.type == "cuda":
+            route = "pinned"
+            buf = staging.get(classes.device)
+            if buf is None or buf.numel() < nbytes:
+                buf = staging[classes.device] = torch.empty(nbytes, dtype=torch.uint8,
+                                                            pin_memory=True)
+            host = buf[:nbytes].view(classes.dtype).view(classes.shape)
+            host.copy_(classes, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(classes.device))
+            done.synchronize()
+        else:
+            route = "host"
+            host = classes
+        torch.from_numpy(out).copy_(host)
+        _fetch_classes.calls_by_route[route] += 1
+        s["route"], s["bytes"] = route, nbytes
+
+
+_fetch_classes.calls_by_route = Counter()
+
+
 class _Serving:
     """The dense and tiled serving paths (see the module docstring) around a
     forward that a subclass gives: :meth:`_logits` maps (N, H, W, C) float
@@ -183,6 +225,10 @@ class _Serving:
         self.tile = tile
         self.tile_halo = tile_halo
         self.tile_threshold = self.TILE_THRESHOLD if tile_threshold is None else tile_threshold
+        # predict_array's pinned staging buffer per device (_fetch_classes),
+        # and the lock that keeps two threads from sharing it at once
+        self._staging: Dict[torch.device, torch.Tensor] = {}
+        self._fetch_lock = threading.Lock()
 
     def _logits(self, x: torch.Tensor, r: int = 0) -> torch.Tensor:
         raise NotImplementedError
@@ -209,12 +255,15 @@ class _Serving:
         return torch.cat([o.to(self.device) for o in outs])[:n]
 
     def _classes(self, logits: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) logits -> (B, H, W) int32 classes: the argmax, or for
-        one output channel (a binary model) sigmoid > 0.5, as the evaluate
-        path does."""
+        """(B, H, W, C) logits -> (B, H, W) classes: the argmax, or for one
+        output channel (a binary model) sigmoid > 0.5, as the evaluate path
+        does.  uint8 for at most 256 classes, else int32: the map crosses
+        to the host in a quarter of the bytes, and :meth:`predict_array`
+        widens it there."""
+        dtype = torch.uint8 if logits.shape[-1] <= 256 else torch.int32
         if logits.shape[-1] == 1:
-            return (torch.sigmoid(logits[..., 0]) > 0.5).int()
-        return logits.argmax(dim=-1).int()
+            return (torch.sigmoid(logits[..., 0]) > 0.5).to(dtype)
+        return logits.argmax(dim=-1).to(dtype)
 
     def _prepare(self, images: np.ndarray) -> None:
         pass
@@ -222,8 +271,8 @@ class _Serving:
     @torch.inference_mode()
     def _forward(self, images: np.ndarray, out_hw: Tuple[int, int],
                  gate_batch: int) -> torch.Tensor:
-        """One batch -> (B, outH, outW) int32 class map, left on the home
-        device, through :meth:`_dense_logits` with ``gate_batch`` on each
+        """One batch -> (B, outH, outW) class map (:meth:`_classes`), left on
+        the home device, through :meth:`_dense_logits` with ``gate_batch`` on each
         replica's rows."""
 
         def serve(r: int, x: torch.Tensor) -> torch.Tensor:
@@ -251,8 +300,8 @@ class _Serving:
 
     def _tile_core(self, windows: torch.Tensor, tile: int, halo: int, r: int = 0
                    ) -> torch.Tensor:
-        """(N, win, win, C) float windows -> (N, tile, tile) int32 classes of
-        their central cores, through :meth:`_logits` at any batch (no int8
+        """(N, win, win, C) float windows -> (N, tile, tile) classes of their
+        central cores (:meth:`_classes`), through :meth:`_logits` at any batch (no int8
         gate) on replica ``r``, returned on the home device."""
         logits = self._logits(windows.to(self.devices[r]), r)
         return self._classes(logits[:, halo:halo + tile, halo:halo + tile]).to(self.device)
@@ -354,12 +403,13 @@ class _Serving:
         starts = range(0, len(images), self.batch_size)
         with span("predict", slices=len(images), chunks=len(starts)):
             self._prepare(images)
-            preds = []
+            out = np.empty((len(images), *(out_hw or images.shape[1:3])), np.int32)
             for i in starts:
-                out = self._predict_device(images[i:i + self.batch_size], out_hw, len(images))
-                with span("predict.fetch"):
-                    preds.append(out.cpu().numpy())
-            return np.concatenate(preds).astype(np.int32, copy=False)
+                classes = self._predict_device(images[i:i + self.batch_size], out_hw,
+                                               len(images))
+                with self._fetch_lock:
+                    _fetch_classes(classes, out[i:i + self.batch_size], self._staging)
+            return out
 
     def predict_image(self, img, postprocess: bool = True) -> np.ndarray:
         """One PIL image -> {0,1,2} mask at its own size."""

@@ -20,8 +20,9 @@ The spans, and the calls they belong to:
 * ``predict`` (``slices``, ``chunks``): one ``predict_array`` call; inside
   it ``predict.upload`` (the host images to the device), ``predict.forward``
   (launching the forward and the class map; the tiled path as a whole) and
-  ``predict.fetch`` (each chunk's class map to the host: the wait on the
-  card and the copy);
+  ``predict.fetch`` (``route``: ``pinned`` or ``host``, ``bytes``: the
+  map's; each chunk's class map to the host: the wait on the card, the copy
+  into the pinned staging buffer and the widening into the int32 result);
 * ``train.step``: one ``TrainStep`` call; inside it ``train.forward``,
   ``train.loss``, ``train.backward`` (with ``zero_grad``), ``train.clip``
   and ``train.optimizer`` (setting the lr and the step);
