@@ -100,7 +100,7 @@ Phases, in order; any failure exits nonzero before the last line:
  15. export: B1 unet_s bf16 as a torch.export program (dynamic batch, H and
      W), saved as .pt2, loaded and served by ExportedPredictor at (8, 512,
      512) and at 1024x768 from one program: 7 launches a forward through
-     the custom op, masks >= 99.9% equal to the live Predictor's, host
+     the operator, masks >= 99.9% equal to the live Predictor's, host
      slices/s beside it; B2 the int8 program at 512² from a calibration
      JSON: 18 int8 and no bf16 launch a forward, masks 100% equal to the
      live int8 Predictor's on the same qparams;
@@ -225,18 +225,13 @@ from unet_medical_image_contour_segmentation_torch.engine.train import (  # noqa
     train_model,
 )
 from unet_medical_image_contour_segmentation_torch.kernels import _build  # noqa: E402
-from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
-    bias_relu as bias_relu_module,
-)
+from unet_medical_image_contour_segmentation_torch.kernels._build import LAUNCHES  # noqa: E402
 from unet_medical_image_contour_segmentation_torch.kernels.bias_relu import (  # noqa: E402
     bias_relu_nhwc,
     bias_relu_nhwc_reference,
 )
 from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
     conv3x3 as conv3x3_module,
-)
-from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: E402
-    conv3x3_int8 as conv3x3_int8_module,
 )
 from unet_medical_image_contour_segmentation_torch.kernels.conv3x3 import (  # noqa: E402
     _patches,
@@ -769,31 +764,25 @@ def int8_key(x, x2, cout, out_dtype, act) -> tuple:
 
 
 def record_launches() -> None:
-    """Wrap the kernel modules' launches so that each launch made while a
-    counted window is open records its shape (the counts stay the
-    wrappers')."""
-    launch, launch8 = conv3x3_module._launch, conv3x3_int8_module._launch
+    """Wrap the kernels' one launch path (``_build.launch``) so that each
+    launch made while a counted window is open records its shape, from the
+    operands as the op received them (the counts stay ``LAUNCHES``)."""
+    launch = _build.launch
+    keys = {
+        "conv3x3_nhwc": (LAUNCHED, lambda x, w: (*x.shape, w.shape[3], str(x.dtype))),
+        "conv3x3_int8": (LAUNCHED8, lambda x, wp, mul, badd, out_dtype, x2=None, act="relu",
+                         inv_s=None: int8_key(x, x2, mul.shape[0], out_dtype, act)),
+        "bias_relu_nhwc": (BR_LAUNCHED, lambda y, b: bias_relu_key(y)),
+    }
+    keys["conv3x3_nhwc_dx"] = keys["conv3x3_nhwc"]
 
-    def recorded(x, w):
+    def recorded(op, *operands):
         if RECORDING[0]:
-            LAUNCHED.add((*x.shape, w.shape[3], str(x.dtype)))
-        return launch(x, w)
+            launched, key = keys[op]
+            launched.add(key(*operands))
+        return launch(op, *operands)
 
-    def recorded8(x, wp, mul, badd, out_dtype, x2, act, inv_s):
-        if RECORDING[0]:
-            LAUNCHED8.add(int8_key(x, x2, mul.shape[0], out_dtype, act))
-        return launch8(x, wp, mul, badd, out_dtype, x2, act, inv_s)
-
-    launch_br = bias_relu_module._launch
-
-    def recorded_br(y, b):
-        if RECORDING[0]:
-            BR_LAUNCHED.add(bias_relu_key(y))
-        return launch_br(y, b)
-
-    conv3x3_module._launch = recorded
-    conv3x3_int8_module._launch = recorded8
-    bias_relu_module._launch = recorded_br
+    _build.launch = recorded
 
 
 def conv_label(path: str) -> str:
@@ -1317,32 +1306,29 @@ def write_raw_scans(directory, seed: int, n: int, width: int, height: int) -> No
         frame.astype("<u2").tofile(os.path.join(directory, f"scan{i:02d}.raw"))
 
 
+# the counts read_launches() returns: the 3x3 kernel's forward and dx
+# launches, those on the tensor cores, and the one-pass bias + ReLU's
+LAUNCH_KEYS = ("conv3x3_nhwc", "conv3x3_nhwc.tensor_core", "conv3x3_nhwc_dx",
+               "conv3x3_nhwc_dx.tensor_core", "bias_relu_nhwc")
+
+
 def reset_launches() -> None:
     """Set every count to 0 and open a counted window (its launches' shapes
     are recorded until the counts are read)."""
-    for fn in (conv3x3_nhwc, conv3x3_nhwc_dx):
-        fn.launches = fn.tensor_core_launches = 0
-    conv3x3_int8.launches = 0
-    bias_relu_nhwc.launches = 0
+    LAUNCHES.clear()
     RECORDING[0] = True
 
 
 def int8_counts() -> dict:
     """The int8 kernel's launches beside the bf16 kernel's, since the last reset."""
     RECORDING[0] = False
-    return {"conv3x3_int8": conv3x3_int8.launches, "conv3x3_nhwc": conv3x3_nhwc.launches}
+    return {key: LAUNCHES[key] for key in ("conv3x3_int8", "conv3x3_nhwc")}
 
 
 def read_launches() -> dict:
-    """The counts since the last reset: the 3x3 kernel's forward and dx
-    launches, those on the tensor cores, and the one-pass bias + ReLU's."""
+    """The counts of LAUNCH_KEYS since the last reset."""
     RECORDING[0] = False
-    counts = {key: getattr(fn, attr)
-              for fn in (conv3x3_nhwc, conv3x3_nhwc_dx)
-              for key, attr in ((fn.__name__, "launches"),
-                                (f"{fn.__name__} tensor_core", "tensor_core_launches"))}
-    counts["bias_relu_nhwc"] = bias_relu_nhwc.launches
-    return counts
+    return {key: LAUNCHES[key] for key in LAUNCH_KEYS}
 
 
 def phase_main_path(model, profile_dir=None):
@@ -1531,8 +1517,8 @@ def train_steps(model, loss_cfg, batch, label: str, per_step: int,
     -> (launches, numbers, the step)."""
     per_step_fwd = per_step if per_step_fwd is None else per_step_fwd
     step = make_train_step(model, loss_cfg, RMSpropConfig(learning_rate=TRAIN_LR))
-    want = {"conv3x3_nhwc": per_step_fwd, "conv3x3_nhwc tensor_core": per_step_fwd,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+    want = {"conv3x3_nhwc": per_step_fwd, "conv3x3_nhwc.tensor_core": per_step_fwd,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx.tensor_core": per_step,
             "bias_relu_nhwc": 0}
 
     reset_launches()
@@ -1672,8 +1658,8 @@ def remat_equals_plain(runs: dict, per_step: int, label: str) -> tuple:
     relative difference, gradient difference of the largest)."""
     (loss, grads, bufs, _, _, _), (r_loss, r_grads, r_bufs, _, r_launch, _) = (
         runs[False], runs[True])
-    want = {"conv3x3_nhwc": 2 * per_step, "conv3x3_nhwc tensor_core": 2 * per_step,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+    want = {"conv3x3_nhwc": 2 * per_step, "conv3x3_nhwc.tensor_core": 2 * per_step,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx.tensor_core": per_step,
             "bias_relu_nhwc": 0}
     g_max = max(g.abs().max().item() for g in grads.values())
     grad_err = max((r_grads[k] - grads[k]).abs().max().item() for k in grads) / g_max
@@ -1864,9 +1850,9 @@ def phase_train_model(n_train: int = 32):
     val = [rec for kind, rec in records if kind == "validation"]
     steps = epochs * (n_train // BATCH)
     fwd = steps * len(MAIN_CONVS) + epochs * (len(val_set) // BATCH) * len(MAIN_CONVS)
-    want = {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd,
+    want = {"conv3x3_nhwc": fwd, "conv3x3_nhwc.tensor_core": fwd,
             "conv3x3_nhwc_dx": steps * len(MAIN_CONVS),
-            "conv3x3_nhwc_dx tensor_core": steps * len(MAIN_CONVS), "bias_relu_nhwc": 0}
+            "conv3x3_nhwc_dx.tensor_core": steps * len(MAIN_CONVS), "bias_relu_nhwc": 0}
     train_losses = [rec["loss"] for kind, rec in records if kind == "train_step"]
     if (result.step != steps or final["step"] != steps or final["opt_state"] is None
             or not all(written) or differing or loaded or len(val) != epochs
@@ -2448,7 +2434,7 @@ def phase_pipeline():
             batches = -(-PIPE_SCANS // injected.batch_size)
             want = batches * len(MAIN_CONVS) if predictor is injected else 0
             passes = batches * UNET_PASSES  # unet_s and the full unet both fold 9 blocks
-            if ((launches["conv3x3_nhwc"], launches["conv3x3_nhwc tensor_core"]) != (want, want)
+            if ((launches["conv3x3_nhwc"], launches["conv3x3_nhwc.tensor_core"]) != (want, want)
                     or launches["bias_relu_nhwc"] != passes):
                 raise RuntimeError(f"pipeline with the {name} predictor launched {launches}, "
                                    f"want {want} forward launches, all on the tensor cores, "
@@ -2787,7 +2773,7 @@ def phase_export(model) -> tuple:
     """B1: unet_s (bf16) as a torch.export program with a dynamic batch and
     H, W (engine/export.py), saved as .pt2 and loaded by ExportedPredictor:
     predict_array on (BATCH, HW, HW) and on one 1024x768 image through the
-    same program.  7 launches per forward through the custom op; masks >=
+    same program.  7 launches per forward through the operator; masks >=
     99.9% equal to the live Predictor's; host slices/s beside the live
     predictor's."""
     from unet_medical_image_contour_segmentation_torch.engine.export import export_program
@@ -2916,8 +2902,8 @@ MIN_YOLO_CARD_VS_CPU = 0.9999
 def fwd_launches(n: int, passes: int) -> dict:
     """The read_launches() of n forward launches on the tensor cores, no dx,
     and ``passes`` launches of the one-pass bias + ReLU."""
-    return {"conv3x3_nhwc": n, "conv3x3_nhwc tensor_core": n, "conv3x3_nhwc_dx": 0,
-            "conv3x3_nhwc_dx tensor_core": 0, "bias_relu_nhwc": passes}
+    return {"conv3x3_nhwc": n, "conv3x3_nhwc.tensor_core": n, "conv3x3_nhwc_dx": 0,
+            "conv3x3_nhwc_dx.tensor_core": 0, "bias_relu_nhwc": passes}
 
 
 def in_dtype(model, dtype):
@@ -3592,8 +3578,8 @@ def phase_dp_world1(profile_dir=None):
     alone: the host then waits in them, see PERF.md.)  -> (launches,
     numbers)."""
     per_step = len(MAIN_CONVS)
-    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": per_step,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": per_step,
+    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc.tensor_core": per_step,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx.tensor_core": per_step,
             "bias_relu_nhwc": 0}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
@@ -3732,8 +3718,8 @@ def phase_dp_two_ranks():
     if any(c != 0 for c in codes) or any(r is None for r in ranks):
         raise RuntimeError(f"[D2] a gloo rank failed: exit codes {codes}")
     per_step = len(MAIN_CONVS)
-    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc tensor_core": 0,
-            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx tensor_core": 0, "bias_relu_nhwc": 0}
+    want = {"conv3x3_nhwc": per_step, "conv3x3_nhwc.tensor_core": 0,
+            "conv3x3_nhwc_dx": per_step, "conv3x3_nhwc_dx.tensor_core": 0, "bias_relu_nhwc": 0}
     numbers, launches = {"nccl_two_ranks_one_device": nccl}, {}
     for n_classes, label in ((3, "multiclass"), (1, "binary")):
         (got, got_launches), (other, other_launches) = ranks[0][n_classes], ranks[1][n_classes]
@@ -3885,8 +3871,8 @@ def s_want(name: str, dtype) -> dict:
     n = len(routed_convs(s_model_cpu(name)))
     fwd, dx = (n, 0) if name.startswith("served") else (2 * n if name == "remat" else n, n)
     tc = dtype == torch.bfloat16
-    return {"conv3x3_nhwc": fwd, "conv3x3_nhwc tensor_core": fwd if tc else 0,
-            "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx tensor_core": dx if tc else 0,
+    return {"conv3x3_nhwc": fwd, "conv3x3_nhwc.tensor_core": fwd if tc else 0,
+            "conv3x3_nhwc_dx": dx, "conv3x3_nhwc_dx.tensor_core": dx if tc else 0,
             "bias_relu_nhwc": 0}  # S4 serves the live-BN eval model: nothing folded
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3 as K
+from unet_medical_image_contour_segmentation_torch.kernels._build import LAUNCHES
 from unet_medical_image_contour_segmentation_torch.ops import s2d as TS
 from unet_medical_image_contour_segmentation_torch.ops.nn import conv2d as torch_conv2d
 from unet_medical_image_contour_segmentation_tpu.ops import s2d as JS
@@ -114,10 +115,10 @@ def test_only_requested_grads_are_computed():
 
 
 def test_cpu_backward_leaves_launch_counters_at_zero():
-    K.conv3x3_nhwc.launches = K.conv3x3_nhwc_dx.launches = 0
+    LAUNCHES.clear()
     x, w = _xw(56, (1, 8, 8), 16, 32)
     _torch_grads(K.conv3x3_nhwc, x, w)
-    assert (K.conv3x3_nhwc.launches, K.conv3x3_nhwc_dx.launches) == (0, 0)
+    assert (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_nhwc_dx"]) == (0, 0)
 
 
 def test_bf16_grads_stay_bf16():

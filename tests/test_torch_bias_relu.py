@@ -1,5 +1,5 @@
 """The one-pass bias add and ReLU (``kernels/bias_relu.py``) on the CPU: the
-custom op's CPU path and fake implementation, ``conv2d(..., relu=True)``,
+operator's CPU path and fake implementation, ``conv2d(..., relu=True)``,
 and the folded UNet and UNet++ forwards, which must give the same bits as
 the ``torch.relu(conv2d(x, w, b))`` expression they ran before the pass.
 The kernel itself runs on the card (``tests/test_torch_gpu.py``)."""
@@ -16,6 +16,7 @@ from unet_medical_image_contour_segmentation_torch.engine.export import (
     load_exported,
 )
 from unet_medical_image_contour_segmentation_torch.kernels import bias_relu as BR
+from unet_medical_image_contour_segmentation_torch.kernels._build import LAUNCHES
 from unet_medical_image_contour_segmentation_torch.models.fold_bn import (
     FoldedDoubleConv,
     serving_copy,
@@ -58,13 +59,13 @@ def test_cpu_path_is_the_plain_pair(dtype, c):
 def test_fake_implementation_gives_shape_and_dtype():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     with FakeTensorMode():
         for dtype in DTYPES:
             y = torch.empty((3, 40, 24, 16), dtype=dtype)
             out = torch.ops.umics.bias_relu_nhwc(y, torch.empty((16,), dtype=dtype))
             assert (tuple(out.shape), out.dtype) == ((3, 40, 24, 16), dtype)
-    assert BR.bias_relu_nhwc.launches == before
+    assert LAUNCHES["bias_relu_nhwc"] == before
 
 
 @pytest.mark.parametrize("y,b,error", [
@@ -87,9 +88,9 @@ def test_unchecked_op_is_the_checked_entry(dtype):
     """``op``, which conv2d calls, gives the checked entry's bits and leaves
     the launch counter alone on the CPU."""
     y, b = _operands(16, dtype, seed=3)
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     assert _bits_equal(BR.op(y, b), BR.bias_relu_nhwc(y, b))
-    assert BR.bias_relu_nhwc.launches == before
+    assert LAUNCHES["bias_relu_nhwc"] == before
 
 
 @pytest.mark.parametrize("cin", [1, 16])  # the inc conv on F.conv2d; a routed conv

@@ -56,6 +56,7 @@ from unet_medical_image_contour_segmentation_torch.engine.train import make_trai
 from unet_medical_image_contour_segmentation_torch.kernels import bias_relu as BR
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3 as K
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3_int8 as K8
+from unet_medical_image_contour_segmentation_torch.kernels._build import LAUNCHES
 from unet_medical_image_contour_segmentation_torch.losses.compound import LossConfig
 from unet_medical_image_contour_segmentation_torch.models.fold_bn import FoldedDoubleConv
 from unet_medical_image_contour_segmentation_torch.models.unet import unet_s
@@ -85,12 +86,12 @@ def _xw(seed, shape, cin, cout, device, dtype):
 ])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, tol, shape, cin, cout):
     x, w = _xw(40, shape, cin, cout, cuda, dtype)
-    before = K.conv3x3_nhwc.launches
+    before = LAUNCHES["conv3x3_nhwc"]
     with exact_f32():
         got = K.conv3x3_nhwc(x, w)
         want = K.conv3x3_nhwc_reference(x, w)
         torch.cuda.synchronize()
-    assert K.conv3x3_nhwc.launches == before + 1
+    assert LAUNCHES["conv3x3_nhwc"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -103,11 +104,11 @@ def test_tensor_core_kernel_edge_shapes(cuda, cin, cout, w):
     and Cout not a multiple of 8 (the 2-byte store path) or above 64 (two
     chunks), against the plain version at the bf16 tolerance."""
     x, wt = _xw(46, (2, 1, w), cin, cout, cuda, torch.bfloat16)
-    before = (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches)
+    before = (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_nhwc.tensor_core"])
     got = K.conv3x3_nhwc(x, wt)
     want = K.conv3x3_nhwc_reference(x, wt)
     torch.cuda.synchronize()
-    assert (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches) == (
+    assert (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_nhwc.tensor_core"]) == (
         before[0] + 1, before[1] + 1)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
@@ -117,11 +118,11 @@ def test_tensor_core_kernel_edge_shapes(cuda, cin, cout, w):
 def test_routes_by_dtype(cuda, dtype):
     """bf16 launches the tensor-core kernel, f32 the CUDA-core kernel."""
     x, w = _xw(47, (1, 16, 16), 16, 16, cuda, dtype)
-    before = (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches)
+    before = (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_nhwc.tensor_core"])
     with exact_f32():
         K.conv3x3_nhwc(x, w)
     on_tc = int(dtype == torch.bfloat16)
-    assert (K.conv3x3_nhwc.launches, K.conv3x3_nhwc.tensor_core_launches) == (
+    assert (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_nhwc.tensor_core"]) == (
         before[0] + 1, before[1] + on_tc)
 
 
@@ -143,13 +144,13 @@ def test_conv3x3_dx_at_cin_64(cuda, dtype, tol, cin):
     x, w = _xw(48, (2, 19, 45), cin, 64, cuda, dtype)
     g = torch.from_numpy(np.random.default_rng(49).standard_normal((2, 19, 45, 64))
                          .astype(np.float32)).to(cuda, dtype)
-    before = (K.conv3x3_nhwc_dx.launches, K.conv3x3_nhwc_dx.tensor_core_launches)
+    before = (LAUNCHES["conv3x3_nhwc_dx"], LAUNCHES["conv3x3_nhwc_dx.tensor_core"])
     with exact_f32():
         got = K.conv3x3_nhwc_dx(g, w)
         want = K.conv3x3_nhwc_reference(g, K.rotate_weight(w))
         torch.cuda.synchronize()
     on_tc = int(dtype == torch.bfloat16)
-    assert (K.conv3x3_nhwc_dx.launches, K.conv3x3_nhwc_dx.tensor_core_launches) == (
+    assert (LAUNCHES["conv3x3_nhwc_dx"], LAUNCHES["conv3x3_nhwc_dx.tensor_core"]) == (
         before[0] + 1, before[1] + on_tc)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -167,7 +168,7 @@ def test_conv3x3_grad_matches_plain(cuda, dtype, tol, shape, cin, cout):
     x, w = _xw(41, shape, cin, cout, cuda, dtype)
     g = torch.from_numpy(np.random.default_rng(44).standard_normal((*shape, cout))
                          .astype(np.float32)).to(cuda, dtype)
-    before = K.conv3x3_nhwc_dx.launches
+    before = LAUNCHES["conv3x3_nhwc_dx"]
     with exact_f32():
         xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
         K.conv3x3_nhwc(xg, wg).backward(g)
@@ -175,7 +176,7 @@ def test_conv3x3_grad_matches_plain(cuda, dtype, tol, shape, cin, cout):
         wr = w.detach().float().requires_grad_()
         K.conv3x3_nhwc_reference(xr, wr).backward(g.float())
         torch.cuda.synchronize()
-    assert K.conv3x3_nhwc_dx.launches == before + 1
+    assert LAUNCHES["conv3x3_nhwc_dx"] == before + 1
     assert xg.grad.dtype == wg.grad.dtype == dtype
     torch.testing.assert_close(xg.grad.float(), xr.grad.to(dtype).float(), rtol=tol, atol=tol)
     dw_want = wr.grad.to(dtype).float()
@@ -220,34 +221,32 @@ def test_train_step_launches_14_kernels(cuda):
     model = seeded_unet_s(torch.bfloat16).to(cuda)
     step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=1e-4))
     batch = _rect_batch(cuda)
-    counters = [(f, a) for f in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)
-                for a in ("launches", "tensor_core_launches")]
-    before = [getattr(f, a) for f, a in counters]
+    before = _counts()
     for _ in range(2):
         metrics = step(batch, 1e-4)
     torch.cuda.synchronize()
-    assert [getattr(f, a) - n for (f, a), n in zip(counters, before)] == [14, 14, 14, 14]
+    assert [a - b for a, b in zip(_counts(), before)] == [14, 14, 14, 14]
     assert np.isfinite(metrics["loss"].item())
 
 
 def test_conv2d_dispatches_by_rule(cuda):
     x, w = _xw(42, (1, 16, 16), 16, 8, cuda, torch.float32)
-    before = K.conv3x3_nhwc.launches
+    before = LAUNCHES["conv3x3_nhwc"]
     with torch.no_grad():
         conv2d(x, w, padding=1)                 # the rule: kernel
         conv2d(x, w, padding=0)                 # no padding: cuDNN
         conv2d(x[..., :4], w[:, :, :4], padding=1)  # Cin 4: cuDNN
-    assert K.conv3x3_nhwc.launches == before + 1
+    assert LAUNCHES["conv3x3_nhwc"] == before + 1
 
 
 def test_predictor_on_card_matches_cpu(cuda):
     torch.manual_seed(0)
     model = unet_s()
     images = np.random.default_rng(43).random((2, 64, 96), dtype=np.float32)
-    before = K.conv3x3_nhwc.launches
+    before = LAUNCHES["conv3x3_nhwc"]
     with exact_f32():
         got = Predictor(model, device=cuda).predict_array(images)
-    assert K.conv3x3_nhwc.launches == before + 7  # one forward of unet_s
+    assert LAUNCHES["conv3x3_nhwc"] == before + 7  # one forward of unet_s
     want = Predictor(model, device="cpu").predict_array(images)
     assert got.shape == want.shape == (2, 64, 96)
     assert (got == want).mean() > 0.999
@@ -264,8 +263,9 @@ def _tiled(model, device, dtype=None, **kw):
 
 
 def _counts():
-    return [getattr(f, a) for f in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)
-            for a in ("launches", "tensor_core_launches")]
+    """The 3x3 kernel's forward launches, those on the tensor cores, and the same of dx."""
+    return [LAUNCHES[key] for key in ("conv3x3_nhwc", "conv3x3_nhwc.tensor_core",
+                                      "conv3x3_nhwc_dx", "conv3x3_nhwc_dx.tensor_core")]
 
 
 def test_tiled_on_card_matches_cpu(cuda, seeded_model):
@@ -342,11 +342,11 @@ def _int8_check(cuda, seed, b, h, w, cin, cout, out_dtype, cin2=0):
     cin2, x's last cin2 channels go in as the split input's second part."""
     x, *ops = int8_operands(seed, b, h, w, cin + cin2, cout, cuda)
     x, x2 = (x[..., :cin].contiguous(), x[..., cin:].contiguous()) if cin2 else (x, None)
-    before = K8.conv3x3_int8.launches
+    before = LAUNCHES["conv3x3_int8"]
     got = K8.conv3x3_int8(x, *ops, out_dtype, x2)
     want = K8.conv3x3_int8_reference(x, *ops, out_dtype, x2)
     torch.cuda.synchronize()
-    assert K8.conv3x3_int8.launches == before + 1
+    assert LAUNCHES["conv3x3_int8"] == before + 1
     assert got.dtype == want.dtype == out_dtype and got.shape == (b, h, w, cout)
     assert torch.equal(got, want)
     if out_dtype == torch.int8 and got.numel() > 4096:  # the requant clips at both ends
@@ -373,11 +373,11 @@ def test_int8_kernel_silu_epilogues_match_plain(cuda, shape, cin, cout, out_dtyp
     the card, exactly: the kernel computes torch's CUDA sigmoid."""
     x, wp, mul, badd = silu_operands(67, *shape, cin, cout, cuda)
     inv_s = torch.tensor(SILU_INV_S, device=cuda) if out_dtype == torch.int8 else None
-    before = K8.conv3x3_int8.launches
+    before = LAUNCHES["conv3x3_int8"]
     got = K8.conv3x3_int8(x, wp, mul, badd, out_dtype, act="silu", inv_s=inv_s)
     want = K8.conv3x3_int8_reference(x, wp, mul, badd, out_dtype, act="silu", inv_s=inv_s)
     torch.cuda.synchronize()
-    assert K8.conv3x3_int8.launches == before + 1 and got.dtype == out_dtype
+    assert LAUNCHES["conv3x3_int8"] == before + 1 and got.dtype == out_dtype
     assert torch.equal(got, want)
     if out_dtype == torch.int8:  # the signed grid: both ends of SiLU's range
         assert (want < 0).any() and (want == 127).any()
@@ -467,9 +467,9 @@ def test_int8_predictor_on_card_matches_cpu(cuda, seeded_model, tmp_path):
         card = Predictor(seeded_model, device=cuda, quantize=True)
         card.calibrate(images)
         card.save_calibration(str(tmp_path / "s.json"))
-        before = (K8.conv3x3_int8.launches, K.conv3x3_nhwc.launches)
+        before = (LAUNCHES["conv3x3_int8"], LAUNCHES["conv3x3_nhwc"])
         got = card.predict_array(images)
-        assert (K8.conv3x3_int8.launches - before[0], K.conv3x3_nhwc.launches - before[1]) == (
+        assert (LAUNCHES["conv3x3_int8"] - before[0], LAUNCHES["conv3x3_nhwc"] - before[1]) == (
             18, 0)
     cpu = Predictor(seeded_model, device="cpu", quantize=True)
     cpu.load_calibration(str(tmp_path / "s.json"))
@@ -478,44 +478,44 @@ def test_int8_predictor_on_card_matches_cpu(cuda, seeded_model, tmp_path):
     assert (got == want).mean() >= 0.999
 
 
-# -- the custom ops (torch.library) and the exported programs on the card -----
+# -- the umics:: operators (torch.library) and the exported programs on the card --
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-def test_conv3x3_custom_op_matches_plain(cuda, dtype, tol):
+def test_conv3x3_op_matches_plain(cuda, dtype, tol):
     """``umics::conv3x3_nhwc`` called as an op: one launch, the plain
     version's values."""
     x, w = _xw(70, (2, 48, 80), 16, 32, cuda, dtype)
-    before = K.conv3x3_nhwc.launches
+    before = LAUNCHES["conv3x3_nhwc"]
     got = torch.ops.umics.conv3x3_nhwc(x, w)
     torch.cuda.synchronize()
-    assert K.conv3x3_nhwc.launches == before + 1
+    assert LAUNCHES["conv3x3_nhwc"] == before + 1
     want = K.conv3x3_nhwc_reference(x.cpu(), w.cpu())
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("cin2", [0, 16])
-def test_conv3x3_int8_custom_op_matches_plain(cuda, out_dtype, cin2):
+def test_conv3x3_int8_op_matches_plain(cuda, out_dtype, cin2):
     """``umics::conv3x3_int8`` with ``out_dtype`` and the optional split
     input in its schema: one launch, exactly the plain version."""
     x, wp, mul, badd = int8_operands(71, 2, 32, 48, 16 + cin2, 32, cuda)
     x1, x2 = (x, None) if not cin2 else (x[..., :16].contiguous(), x[..., 16:].contiguous())
-    before = K8.conv3x3_int8.launches
+    before = LAUNCHES["conv3x3_int8"]
     got = torch.ops.umics.conv3x3_int8(x1, wp, mul, badd, out_dtype, x2)
     torch.cuda.synchronize()
-    assert K8.conv3x3_int8.launches == before + 1 and got.dtype == out_dtype
+    assert LAUNCHES["conv3x3_int8"] == before + 1 and got.dtype == out_dtype
     want = K8.conv3x3_int8_reference(x1.cpu(), wp.cpu(), mul.cpu(), badd.cpu(), out_dtype,
                                      None if x2 is None else x2.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-def test_custom_op_fake_implementations(cuda):
+def test_op_fake_implementations(cuda):
     """Under fake tensors both ops give the output's shape and dtype, and
     launch nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    before = (K.conv3x3_nhwc.launches, K8.conv3x3_int8.launches)
+    before = (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_int8"])
     with FakeTensorMode():
         x = torch.empty((3, 40, 24, 16), device=cuda, dtype=torch.bfloat16)
         w = torch.empty((3, 3, 16, 8), device=cuda, dtype=torch.bfloat16)
@@ -526,12 +526,12 @@ def test_custom_op_fake_implementations(cuda):
         z = torch.ops.umics.conv3x3_int8(q, wp, mul, mul, torch.float32, None)
         assert (tuple(y.shape), y.dtype) == ((3, 40, 24, 8), torch.bfloat16)
         assert (tuple(z.shape), z.dtype) == ((3, 40, 24, 8), torch.float32)
-    assert (K.conv3x3_nhwc.launches, K8.conv3x3_int8.launches) == before
+    assert (LAUNCHES["conv3x3_nhwc"], LAUNCHES["conv3x3_int8"]) == before
 
 
 def test_exported_program_on_card(cuda, seeded_model):
     """unet_s bf16 exported on the card: the program launches the kernel 7
-    times a forward through the custom op, and the bias + ReLU pass 18
+    times a forward through the operator, and the bias + ReLU pass 18
     times, at two sizes from one program,
     and gives the folded eval forward's logits (bf16 tolerance: the program
     may order the same ops' launches differently)."""
@@ -549,10 +549,10 @@ def test_exported_program_on_card(cuda, seeded_model):
     live.compute_dtype = torch.bfloat16
     for hw in ((64, 64), (96, 160)):
         x = torch.from_numpy(smooth_images(72, 2, max(hw))[:, :hw[0], :hw[1], None]).to(cuda)
-        before = (K.conv3x3_nhwc.launches, BR.bias_relu_nhwc.launches)
+        before = (LAUNCHES["conv3x3_nhwc"], LAUNCHES["bias_relu_nhwc"])
         with torch.no_grad():
             got = program(x)
-        assert (K.conv3x3_nhwc.launches, BR.bias_relu_nhwc.launches) == (before[0] + 7,
+        assert (LAUNCHES["conv3x3_nhwc"], LAUNCHES["bias_relu_nhwc"]) == (before[0] + 7,
                                                                          before[1] + 18)
         with torch.no_grad():
             want = live(x)
@@ -584,11 +584,11 @@ def _bias_relu_operands(shape, dtype, seed=0):
 
 
 def _bias_relu_check(y, b):
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     got = BR.bias_relu_nhwc(y, b)
     want = torch.relu(y + b)
     torch.cuda.synchronize()
-    assert BR.bias_relu_nhwc.launches == before + 1
+    assert LAUNCHES["bias_relu_nhwc"] == before + 1
     assert torch.equal(got.view(BITS[y.dtype]), want.view(BITS[y.dtype]))
 
 
@@ -622,11 +622,11 @@ def test_bias_relu_kernel_takes_a_misaligned_input(cuda):
 def test_bias_relu_kernel_refuses_too_many_channels(cuda):
     """Past the 12288 f32 bias values a block stages in shared memory the C
     side returns cudaErrorInvalidValue, and the launch raises."""
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     y = torch.zeros((1, 1, 2, 12289), device=cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.bias_relu_nhwc(y, torch.zeros((12289,), device=cuda))
-    assert BR.bias_relu_nhwc.launches == before
+    assert LAUNCHES["bias_relu_nhwc"] == before
     _bias_relu_check(*_bias_relu_operands((1, 2, 2, 12288), torch.float32))
 
 
@@ -658,11 +658,11 @@ def test_served_class_maps_keep_their_bits(cuda, name):
     for m in ref.model.modules():
         if isinstance(m, FoldedDoubleConv):
             m.forward = types.MethodType(_parent_forward, m)
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     got = pred.predict_array(images)
-    assert BR.bias_relu_nhwc.launches == before + 18
+    assert LAUNCHES["bias_relu_nhwc"] == before + 18
     want = ref.predict_array(images)
-    assert BR.bias_relu_nhwc.launches == before + 18
+    assert LAUNCHES["bias_relu_nhwc"] == before + 18
     assert got.shape == want.shape == (8, 512, 512)
     assert np.array_equal(got, want)
     assert len(np.unique(got)) > 1
@@ -672,10 +672,10 @@ def test_train_step_launches_no_bias_relu(cuda):
     """Training runs DoubleConv with live BN: the pass is not launched."""
     model = seeded_unet_s(torch.bfloat16).to(cuda)
     step = make_train_step(model, LossConfig(), RMSpropConfig(learning_rate=1e-4))
-    before = BR.bias_relu_nhwc.launches
+    before = LAUNCHES["bias_relu_nhwc"]
     step(_rect_batch(cuda), 1e-4)
     torch.cuda.synchronize()
-    assert BR.bias_relu_nhwc.launches == before
+    assert LAUNCHES["bias_relu_nhwc"] == before
 
 
 # -- UNet++ and YOLOv8-seg on the card -------------------------------------------
@@ -690,10 +690,10 @@ def test_family_predictor_on_card_matches_cpu(cuda, name, kw, per_forward):
     pixels, through per_forward kernel launches (YOLO serves live BN)."""
     model = seeded_family(name, MODEL_SEED, **kw)
     images = smooth_images(64, 2, 128)[:, :, :96]
-    before = K.conv3x3_nhwc.launches
+    before = LAUNCHES["conv3x3_nhwc"]
     with exact_f32():
         got = Predictor(model, device=cuda).predict_array(images)
-    assert K.conv3x3_nhwc.launches == before + per_forward
+    assert LAUNCHES["conv3x3_nhwc"] == before + per_forward
     want = Predictor(model, device="cpu").predict_array(images)
     assert got.shape == want.shape == (2, 128, 96)
     assert (got == want).mean() >= 0.999
@@ -741,9 +741,9 @@ def test_unet_pp_int8_predictor_on_card_matches_cpu(cuda, tmp_path):
         card = Predictor(model, device=cuda, quantize=True)
         card.calibrate(images)
         card.save_calibration(str(tmp_path / "s.json"))
-        before = (K8.conv3x3_int8.launches, K.conv3x3_nhwc.launches)
+        before = (LAUNCHES["conv3x3_int8"], LAUNCHES["conv3x3_nhwc"])
         got = card.predict_array(images)
-        assert (K8.conv3x3_int8.launches - before[0], K.conv3x3_nhwc.launches - before[1]) == (
+        assert (LAUNCHES["conv3x3_int8"] - before[0], LAUNCHES["conv3x3_nhwc"] - before[1]) == (
             30, 0)
     cpu = Predictor(model, device="cpu", quantize=True)
     cpu.load_calibration(str(tmp_path / "s.json"))
@@ -775,9 +775,9 @@ def test_yolo_exported_program_on_card(cuda):
     live = Predictor(model, device=cuda, compute_dtype=torch.bfloat16)
     for hw in ((128, 128), (96, 160)):
         images = smooth_images(67, 2, 160)[:, :hw[0], :hw[1]]
-        before = K.conv3x3_nhwc.launches
+        before = LAUNCHES["conv3x3_nhwc"]
         got = program.predict_array(images)
-        assert K.conv3x3_nhwc.launches == before + 4
+        assert LAUNCHES["conv3x3_nhwc"] == before + 4
         assert (got == live.predict_array(images)).mean() >= 0.999
 
 
@@ -906,12 +906,12 @@ def test_transunet_served_forward(cuda, monkeypatch):
     bn = blocks.batch_norm
     monkeypatch.setattr(blocks, "batch_norm", lambda *a, **k: bns.append(1) or bn(*a, **k))
     attn = dict(vit.attention.calls_by_backend)
-    gn, std, br = vit.group_norm.calls, vit.standardize_weight.calls, BR.bias_relu_nhwc.launches
+    gn, std, br = vit.group_norm.calls, vit.standardize_weight.calls, LAUNCHES["bias_relu_nhwc"]
     got = pred.predict_array(host)
     torch.cuda.synchronize()
     calls = {k: v - attn.get(k, 0) for k, v in vit.attention.calls_by_backend.items()}
     assert {k: v for k, v in calls.items() if v} == {vit.PINNED: 12}
-    assert vit.group_norm.calls - gn == 52 and BR.bias_relu_nhwc.launches - br == 9
+    assert vit.group_norm.calls - gn == 52 and LAUNCHES["bias_relu_nhwc"] - br == 9
     assert vit.standardize_weight.calls == std and not bns
     with torch.no_grad(), R.no_tf32():
         logits = R.forward(sd, cfg, R.normalize_uint8(images[:1]))[0]

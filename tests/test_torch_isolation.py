@@ -1,5 +1,4 @@
-"""The port imports neither JAX nor the JAX package, and chip_smoke.py and
-int8_kernel_ab.py neither."""
+"""The port imports neither JAX nor the JAX package, and chip_smoke.py neither."""
 
 import ast
 import subprocess
@@ -14,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "unet_medical_image_contour_segmentation_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "int8_kernel_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

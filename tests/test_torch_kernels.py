@@ -6,18 +6,27 @@ f32.  The CUDA kernel itself is checked on the card by
 ``tests/test_torch_gpu.py``.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from unet_medical_image_contour_segmentation_torch.kernels import _build
 from unet_medical_image_contour_segmentation_torch.kernels import conv3x3 as K
+from unet_medical_image_contour_segmentation_torch.kernels._build import LAUNCHES
 from unet_medical_image_contour_segmentation_torch.ops import s2d as TS
 from unet_medical_image_contour_segmentation_tpu.ops import s2d as JS
 from unet_medical_image_contour_segmentation_tpu.ops.nn import conv2d as jax_conv2d
 from unet_medical_image_contour_segmentation_tpu.ops.pallas_conv import (
     conv_s2d_b4_im2col as jax_conv_s2d_b4_im2col,
 )
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = "unet_medical_image_contour_segmentation_torch"
 
 
 def _xw(seed, shape, cin, cout):
@@ -58,11 +67,11 @@ def test_conv3x3_nhwc_matches_jax_conv(shape, cin, cout):
 
 
 def test_cpu_calls_leave_launch_counter_at_zero():
-    K.conv3x3_nhwc.launches = 0
+    LAUNCHES.clear()
     x, w = _xw(32, (1, 8, 8), 16, 16)
     K.conv3x3_nhwc(torch.from_numpy(x), torch.from_numpy(w))
     K.conv_s2d_b4_im2col(TS.s2d(torch.from_numpy(x), 4), torch.from_numpy(w))
-    assert K.conv3x3_nhwc.launches == 0
+    assert LAUNCHES["conv3x3_nhwc"] == 0
 
 
 def test_bf16_rounds_the_f32_sum():
@@ -194,7 +203,7 @@ def test_launch_geometry_shared_memory_by_hand(cin, cout, dtype, smem):
 def test_route_is_decided_by_dtype_without_a_launch(monkeypatch):
     """bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel, and
     neither the route nor the geometry needs the built library."""
-    monkeypatch.setattr(K, "_library", lambda: pytest.fail("the library was loaded"))
+    monkeypatch.setattr(_build, "load_library", lambda name: pytest.fail("the library was loaded"))
     assert K.route(torch.bfloat16) == "tensor_core"
     assert K.route(torch.float32) == "cuda_core"
     for dtype in (torch.bfloat16, torch.float32):
@@ -206,9 +215,57 @@ def test_route_is_decided_by_dtype_without_a_launch(monkeypatch):
 def test_cpu_bf16_calls_count_no_launch():
     x, w = _xw(52, (1, 8, 8), 16, 16)
     xb, wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
-    for fn in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx):
-        fn.launches = fn.tensor_core_launches = 0
+    LAUNCHES.clear()
     K.conv3x3_nhwc(xb, wb)
     K.conv3x3_nhwc_dx(xb, wb)
-    assert [(fn.launches, fn.tensor_core_launches)
-            for fn in (K.conv3x3_nhwc, K.conv3x3_nhwc_dx)] == [(0, 0), (0, 0)]
+    assert sum(LAUNCHES.values()) == 0
+
+
+def test_kernel_ops_leave_dynamo_unimported():
+    """The three hand-kernel ops, called on CPU tensors, and one served unet_s
+    forward import no ``torch._dynamo`` (whose import is seconds of set-up
+    and whose wrapper is dispatch cost a call): a fresh process, no JAX."""
+    code = f"""
+import sys
+import numpy as np
+import torch
+from {PORT}.engine.predict import Predictor
+from {PORT}.kernels import bias_relu, conv3x3, conv3x3_int8
+from {PORT}.models.unet import unet_s
+g = torch.Generator().manual_seed(0)
+x, w = torch.randn(1, 8, 8, 16, generator=g), torch.randn(3, 3, 16, 16, generator=g)
+conv3x3.conv3x3_nhwc(x, w)
+bias_relu.bias_relu_nhwc(x, torch.randn(16, generator=g))
+wp = conv3x3_int8.pack_weight(torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8))
+conv3x3_int8.conv3x3_int8(torch.randint(0, 128, (1, 8, 8, 16), dtype=torch.int8), wp,
+                          torch.rand(16, generator=g), torch.rand(16, generator=g))
+Predictor(unet_s(), device="cpu").predict_array(np.random.default_rng(0).random(
+    (1, 64, 64), dtype=np.float32))
+assert "torch._dynamo" not in sys.modules, "torch._dynamo was imported"
+print("NO_DYNAMO")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "NO_DYNAMO" in r.stdout
+
+
+SCHEMAS = {
+    "conv3x3_nhwc": "umics::conv3x3_nhwc(Tensor x, Tensor w) -> Tensor",
+    "conv3x3_int8": 'umics::conv3x3_int8(Tensor x, Tensor wp, Tensor mul, Tensor badd, '
+                    'ScalarType out_dtype, Tensor? x2, str act="relu", Tensor? inv_s=None) '
+                    '-> Tensor',
+    "bias_relu_nhwc": "umics::bias_relu_nhwc(Tensor y, Tensor b) -> Tensor",
+}
+
+
+@pytest.mark.parametrize("op", SCHEMAS)
+def test_op_schema_is_unchanged(op):
+    """The operators' schemas, which exported ``.pt2`` programs name: a program
+    exported by an earlier version loads only while these stay as they are."""
+    from unet_medical_image_contour_segmentation_torch.kernels import (  # noqa: F401
+        bias_relu,
+        conv3x3_int8,
+    )
+
+    assert str(getattr(torch.ops.umics, op).default._schema) == SCHEMAS[op]

@@ -487,20 +487,37 @@ int launch_f32(const void* x, const void* w, void* y, int B, int H, int W, int c
   return (int)cudaGetLastError();
 }
 
+// The launch on `device`, the caller's current device restored after it.
+template <typename Run>
+int on_device(int device, Run run) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int status = run();
+  if (prev != device) err = cudaSetDevice(prev);
+  return status ? status : (int)err;
+}
+
 }  // namespace
 
-// Plain C interface for ctypes.  A launch returns its cudaError_t (0 = success).
+// Plain C interface for ctypes.  x, w, y and `stream` lie on `device`.  A
+// launch returns its cudaError_t (0 = success).
 extern "C" int conv3x3_nhwc_bf16(const void* x, const void* w, void* y, int B, int H, int W,
-                                 int cin, int cout, void* stream) {
-  return with_n_tiles(cout, [&](auto nt) {
-    return launch_mma<decltype(nt)::value>(x, w, y, B, H, W, cin, cout,
-                                           static_cast<cudaStream_t>(stream));
+                                 int cin, int cout, int device, void* stream) {
+  return on_device(device, [&] {
+    return with_n_tiles(cout, [&](auto nt) {
+      return launch_mma<decltype(nt)::value>(x, w, y, B, H, W, cin, cout,
+                                             static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
 extern "C" int conv3x3_nhwc_f32(const void* x, const void* w, void* y, int B, int H, int W,
-                                int cin, int cout, void* stream) {
-  return launch_f32(x, w, y, B, H, W, cin, cout, static_cast<cudaStream_t>(stream));
+                                int cin, int cout, int device, void* stream) {
+  return on_device(device, [&] {
+    return launch_f32(x, w, y, B, H, W, cin, cout, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Dynamic shared memory of one block, bytes (what kernels/conv3x3.py mirrors).

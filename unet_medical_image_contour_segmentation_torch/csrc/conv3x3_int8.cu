@@ -1032,21 +1032,10 @@ int launch(const void* x, const void* x2, const void* w, const void* mul, const 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C interface for ctypes.  out_kind: 0 = int8 (requant), 1 = f32,
-// 2 = bf16 (dequant); act: 0 = ReLU, 1 = SiLU, whose int8 requant reads
-// inv_s (one f32 on the device; null otherwise).  x2 (cin2 channels, or
-// null and 0) is the second part of a split input.  Cin < 16 without x2
-// reads x as it is (ReLU only); otherwise x and x2 must have 16-multiples
-// of channels and 16-byte aligned bases, as must the weight.  A launch
-// returns its cudaError_t (0 = success), or ERR_ENCODE + the CUresult of a
-// tensor map that would not encode.
-extern "C" int conv3x3_int8_nhwc(const void* x, const void* x2, const void* w, const void* mul,
-                                 const void* badd, const void* inv_s, void* y, int B, int H,
-                                 int W, int cin, int cin2, int cout, int out_kind, int act,
-                                 void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The launch after its arguments' checks (conv3x3_int8_nhwc's contract, below).
+int launch_checked(const void* x, const void* x2, const void* w, const void* mul,
+                   const void* badd, const void* inv_s, void* y, int B, int H, int W, int cin,
+                   int cin2, int cout, int out_kind, int act, cudaStream_t s) {
   if (cin < 1 || cin2 < 0 || cout < 1 || (cin2 > 0) != (x2 != nullptr))
     return (int)cudaErrorInvalidValue;
   if (act != ACT_RELU && act != ACT_SILU) return (int)cudaErrorInvalidValue;
@@ -1077,6 +1066,38 @@ extern "C" int conv3x3_int8_nhwc(const void* x, const void* x2, const void* w, c
       case OUT_BF16: return with_act(std::integral_constant<int, OUT_BF16>{});
       default: return (int)cudaErrorInvalidValue;
     }
+  });
+}
+
+// The launch on `device`, the caller's current device restored after it.
+template <typename Run>
+int on_device(int device, Run run) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int status = run();
+  if (prev != device) err = cudaSetDevice(prev);
+  return status ? status : (int)err;
+}
+
+}  // namespace
+
+// Plain C interface for ctypes.  out_kind: 0 = int8 (requant), 1 = f32,
+// 2 = bf16 (dequant); act: 0 = ReLU, 1 = SiLU, whose int8 requant reads
+// inv_s (one f32 on the device; null otherwise).  x2 (cin2 channels, or
+// null and 0) is the second part of a split input.  Cin < 16 without x2
+// reads x as it is (ReLU only); otherwise x and x2 must have 16-multiples
+// of channels and 16-byte aligned bases, as must the weight.  A launch
+// returns its cudaError_t (0 = success), or ERR_ENCODE + the CUresult of a
+// tensor map that would not encode.  All pointers and `stream` lie on `device`.
+extern "C" int conv3x3_int8_nhwc(const void* x, const void* x2, const void* w, const void* mul,
+                                 const void* badd, const void* inv_s, void* y, int B, int H,
+                                 int W, int cin, int cin2, int cout, int out_kind, int act,
+                                 int device, void* stream) {
+  return on_device(device, [&] {
+    return launch_checked(x, x2, w, mul, badd, inv_s, y, B, H, W, cin, cin2, cout, out_kind,
+                          act, static_cast<cudaStream_t>(stream));
   });
 }
 

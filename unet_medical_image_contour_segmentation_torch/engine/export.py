@@ -11,7 +11,7 @@ reference exports ONNX opset 11 with dynamic batch, H and W
   live, as it serves; the program the ``Predictor`` serves), traced with a
   symbolic batch and H, W symbolic multiples of the model's ``hw_divisor``
   (16 for the UNets' four pooling levels, 2^(depth-1) for UNet++, 32 for
-  YOLO's stride-32 backbone).  Each routed 3x3 conv is the custom op
+  YOLO's stride-32 backbone).  Each routed 3x3 conv is the operator
   ``umics::conv3x3_nhwc``, so the program launches the hand kernel on the
   card and runs its plain version on the CPU; so is each folded conv's
   bias and ReLU, ``umics::bias_relu_nhwc``.
@@ -19,12 +19,12 @@ reference exports ONNX opset 11 with dynamic batch, H and W
   apply_int8``, the UNet family's, UNet++'s or YOLOv8-seg's) with its
   qparams baked in as buffers, a static H and W (one program per serving
   size, as JAX's) and a symbolic batch; every int8 3x3 stride-1 conv is the
-  custom op ``umics::conv3x3_int8`` (YOLO's SiLU epilogue included), and
+  operator ``umics::conv3x3_int8`` (YOLO's SiLU epilogue included), and
   YOLO's int8 1x1 and stride-2 convs trace as ``torch._int_mm`` on the
   card.
 
 The weights sit on the device the program was exported on, and the program
-runs there.  :func:`load_exported` registers the port's custom ops before it
+runs there.  :func:`load_exported` registers the port's operators before it
 loads a program.
 """
 
@@ -142,7 +142,7 @@ def export_program_int8(model: nn.Module, qparams: dict, *,
 
 def load_exported(data: Union[bytes, str]):
     """``.pt2`` bytes (or a path to them) -> the ``torch.export``
-    ExportedProgram, with the port's custom ops registered first."""
+    ExportedProgram, with the port's operators registered first."""
     from ..kernels import bias_relu, conv3x3, conv3x3_int8  # noqa: F401  (register the ops)
 
     return torch.export.load(io.BytesIO(data) if isinstance(data, (bytes, bytearray)) else data)

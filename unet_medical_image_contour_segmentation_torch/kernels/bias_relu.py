@@ -13,22 +13,16 @@ It replaces no TPU kernel: XLA fuses the bias and the ReLU into the conv
 there.  The pass is bound by bytes; its design is in the source's header.
 
 The pass is the operator ``umics::bias_relu_nhwc(Tensor y, Tensor b) ->
-Tensor`` (functional: it mutates nothing): its CUDA implementation is the
-ctypes launch and the launch counter ``bias_relu_nhwc.launches``, its CPU
-implementation the plain version, and its fake implementation the output's
-shape and dtype, so ``torch.export`` traces through it and an exported
-program launches the same pass.  :func:`bias_relu_nhwc` checks its operands
-first; :data:`op` is the operator unchecked, for a caller that guarantees
-them, as ``ops/nn.py:conv2d`` does on the served forward's hot path (18
-calls a forward).  The channel count's range is the C side's to check: it
-returns ``cudaErrorInvalidValue`` past the bias it can stage.
-
-The operator is registered with ``torch.library``'s ``define`` / ``impl``
-rather than ``custom_op`` as ``umics::conv3x3_nhwc`` is: ``custom_op``
-wraps each implementation in ``torch._disable_dynamo``, whose first call
-imports ``torch._dynamo`` (on the H100's host about 3.5 s more set-up for
-the served full UNet, which runs no other custom op), and its dispatch
-costs about 12 µs more a call on a CPU host, 18 calls a forward.
+Tensor`` (functional: it mutates nothing), declared through the kernels'
+one seam (``_build.py``): on CUDA tensors one launch, counted as
+``LAUNCHES["bias_relu_nhwc"]``, on CPU tensors the plain version, under
+fake tensors the output's shape and dtype, so ``torch.export`` traces
+through it and an exported program launches the same pass.
+:func:`bias_relu_nhwc` checks its operands first; :data:`op` is the
+operator unchecked, for a caller that guarantees them, as
+``ops/nn.py:conv2d`` does on the served forward's hot path (18 calls a
+forward).  The channel count's range is the C side's to check: it returns
+``cudaErrorInvalidValue`` past the bias it can stage.
 """
 
 from __future__ import annotations
@@ -36,6 +30,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ._build import KernelLibrary, register_op
 
 __all__ = ["bias_relu_nhwc", "bias_relu_nhwc_reference", "op"]
 
@@ -59,25 +55,17 @@ def _check(y: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("y must be contiguous NHWC and b contiguous")
 
 
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = ([_P, _P, _P, ctypes.c_longlong, _I32, _I32, _P], _I32)
+_CSRC = KernelLibrary("bias_relu", bias_relu_nhwc_bf16=_SIGNATURE, bias_relu_nhwc_f32=_SIGNATURE)
+_ENTRY = {torch.bfloat16: "bias_relu_nhwc_bf16", torch.float32: "bias_relu_nhwc_f32"}
+
+
 def _launch(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One launch of csrc/bias_relu.cu on the caller's stream -> the output."""
+    """One launch of csrc/bias_relu.cu -> the output."""
     out = torch.empty_like(y)
-    fn = _LAUNCH.get(y.dtype) or _library()[y.dtype]
-    # the device guard is the C side's; the raw stream skips building a
-    # torch.cuda.Stream a call (the launch's host cost is this function's)
-    dev = y.get_device()
-    err = fn(y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), y.shape[3], dev,
-             torch._C._cuda_getCurrentRawStream(dev))
-    if err:
-        raise RuntimeError(f"bias_relu_nhwc launch of {tuple(y.shape)} failed: "
-                           f"{_error_string(err)} ({err})")
-    return out
-
-
-def _forward(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The operator's CUDA implementation: one launch, counted."""
-    out = _launch(y, b)
-    bias_relu_nhwc.launches += 1
+    _CSRC.launch(_ENTRY[y.dtype], y, y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(),
+                 y.shape[3])
     return out
 
 
@@ -85,47 +73,14 @@ def _fake(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(y)
 
 
-_LIB = torch.library.Library("umics", "FRAGMENT")  # held: the registrations live with it
-_LIB.define("bias_relu_nhwc(Tensor y, Tensor b) -> Tensor")
-_LIB.impl("bias_relu_nhwc", _forward, "CUDA")
-_LIB.impl("bias_relu_nhwc", bias_relu_nhwc_reference, "CPU")
-torch.library.register_fake("umics::bias_relu_nhwc", _fake, lib=_LIB)
-op = torch.ops.umics.bias_relu_nhwc.default
+op = register_op("bias_relu_nhwc(Tensor y, Tensor b) -> Tensor", _launch,
+                 cpu=bias_relu_nhwc_reference, fake=_fake)
 
 
 def bias_relu_nhwc(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.relu(y + b)`` for contiguous (B, H, W, C) ``y`` and a bias of C,
     both bf16 or both f32 -> (B, H, W, C) in y's dtype.  A CUDA tensor takes
-    one launch of the pass (and adds one to ``bias_relu_nhwc.launches``), a
-    CPU tensor the plain version (both through ``umics::bias_relu_nhwc``,
-    :data:`op`, after checking the operands)."""
+    one launch of the pass, a CPU tensor the plain version (both through
+    ``umics::bias_relu_nhwc``, :data:`op`, after checking the operands)."""
     _check(y, b)
     return op(y, b)
-
-
-bias_relu_nhwc.launches = 0
-
-
-_LAUNCH: dict = {}  # dtype -> the library's launch function, filled by the first launch
-
-
-def _library() -> dict:
-    """Build (a checkout's first call) and load csrc/bias_relu.cu -> _LAUNCH."""
-    from ._build import load_library
-
-    lib = load_library("bias_relu")
-    ptr = ctypes.c_void_p
-    for fn in (lib.bias_relu_nhwc_bf16, lib.bias_relu_nhwc_f32):
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
-    lib.bias_relu_error_string.argtypes = [ctypes.c_int]
-    lib.bias_relu_error_string.restype = ctypes.c_char_p
-    _LAUNCH.update({torch.bfloat16: lib.bias_relu_nhwc_bf16,
-                    torch.float32: lib.bias_relu_nhwc_f32})
-    return _LAUNCH
-
-
-def _error_string(err: int) -> str:
-    from ._build import load_library
-
-    return load_library("bias_relu").bias_relu_error_string(err).decode()

@@ -34,14 +34,17 @@ kernels in ``csrc/conv3x3.cu`` (:func:`route`), in plain sight:
 Each wrapper runs a kernel for a CUDA tensor and its plain version for a CPU
 tensor; nothing else picks between them, and nothing falls back.
 
-The forward is the custom op ``umics::conv3x3_nhwc`` (``torch.library``):
-its CUDA implementation is the ctypes launch (and the launch counter), its
-CPU implementation the plain version, and its fake implementation gives
-the output's shape and dtype from the inputs', with H and W left symbolic.
-``torch.export`` traces through the op without touching a pointer, and an
-exported program (``engine/export.py``) calls the same launch when it runs;
-a program loads only once this module has registered the op.  Training
-takes the op inside the autograd Function below.
+The forward is the operator ``umics::conv3x3_nhwc``, declared through the
+kernels' one seam (``_build.py``): its CUDA implementation is the launch,
+counted as ``LAUNCHES["conv3x3_nhwc"]`` and under its route
+(``"conv3x3_nhwc.tensor_core"``), its CPU implementation the plain
+version, and its fake implementation gives the output's shape and dtype
+from the inputs', with H and W left symbolic.  ``torch.export`` traces
+through the op without touching a pointer, and an exported program
+(``engine/export.py``) calls the same launch when it runs; a program loads
+only once this module has registered the op.  dx takes the same launch
+path, counted as ``"conv3x3_nhwc_dx"``.  Training takes the op inside the
+autograd Function below.
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.s2d import d2s, s2d
+from . import _build
+from ._build import KernelLibrary, register_launch, register_op
 
 __all__ = [
     "Geometry",
@@ -218,6 +223,14 @@ def conv3x3_nhwc_tiled_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return y[..., :cout].to(x.dtype)
 
 
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+_LAUNCH = ([_P, _P, _P] + [_I32] * 6 + [_P], _I32)
+_CSRC = KernelLibrary("conv3x3", conv3x3_nhwc_bf16=_LAUNCH, conv3x3_nhwc_f32=_LAUNCH,
+                      conv3x3_smem_bytes=([_I32] * 3, ctypes.c_longlong),
+                      conv3x3_blocks_per_sm=([_I32] * 3, _I32))
+_ENTRY = {"tensor_core": "conv3x3_nhwc_bf16", "cuda_core": "conv3x3_nhwc_f32"}
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One launch of csrc/conv3x3.cu on CUDA tensors (checked by the caller)."""
     b, h, wd, cin = x.shape
@@ -227,15 +240,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shape {tuple(x.shape)} -> {cout} exceeds the launch grid {geo.grid}")
     wp = pack_weight(w)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _library()
-    fn = lib.conv3x3_nhwc_bf16 if geo.route == "tensor_core" else lib.conv3x3_nhwc_f32
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, wd, cin, cout, stream)
-    if err:
-        raise RuntimeError(f"conv3x3_nhwc launch failed: "
-                           f"{lib.conv3x3_error_string(err).decode()} ({err})")
+    _CSRC.launch(_ENTRY[geo.route], x, x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, wd, cin,
+                 cout)
     return y
+
+
+def _route(x: torch.Tensor, w: torch.Tensor) -> str:
+    return route(x.dtype)
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -244,50 +255,28 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _count(wrapper, dtype: torch.dtype) -> None:
-    wrapper.launches += 1
-    if route(dtype) == "tensor_core":
-        wrapper.tensor_core_launches += 1
-
-
-@torch.library.custom_op("umics::conv3x3_nhwc", mutates_args=(), device_types="cuda")
-def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward on the card: one launch of csrc/conv3x3.cu, counted."""
-    y = _launch(x, w)
-    _count(conv3x3_nhwc, x.dtype)
-    return y
-
-
-@_forward.register_kernel("cpu")
-def _forward_cpu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return conv3x3_nhwc_reference(x, w)
-
-
-@_forward.register_fake
-def _forward_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.new_empty((x.shape[0], x.shape[1], x.shape[2], w.shape[3]))
+
+
+_forward = register_op("conv3x3_nhwc(Tensor x, Tensor w) -> Tensor", _launch,
+                       cpu=conv3x3_nhwc_reference, fake=_fake, route=_route)
+register_launch("conv3x3_nhwc_dx", _launch, route=_route)
 
 
 def conv3x3_nhwc_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of ``y = conv3x3_nhwc(x, w)`` for the output gradient ``g``: the same
     conv of ``g`` with :func:`rotate_weight` of ``w``, in ``w``'s dtype.
 
-    A CUDA tensor goes to the kernel of its :func:`route` (and adds one to
-    ``conv3x3_nhwc_dx.launches``, and to ``.tensor_core_launches`` in bf16),
-    a CPU tensor to the plain version.
+    A CUDA tensor goes to the kernel of its :func:`route` (counted as
+    ``LAUNCHES["conv3x3_nhwc_dx"]``), a CPU tensor to the plain version.
     """
     g = g.to(w.dtype).contiguous()
     w_rot = rotate_weight(w)
     _check(g, w_rot)
     if _device_of(g) == "cpu":
         return conv3x3_nhwc_reference(g, w_rot)
-    dx = _launch(g, w_rot)
-    _count(conv3x3_nhwc_dx, g.dtype)
-    return dx
-
-
-conv3x3_nhwc_dx.launches = 0
-conv3x3_nhwc_dx.tensor_core_launches = 0
+    return _build.launch("conv3x3_nhwc_dx", g, w_rot)
 
 
 def conv3x3_nhwc_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -338,10 +327,9 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     x: contiguous (B, H, W, Cin), bf16 or f32; w: HWIO (3, 3, Cin, Cout) in
     x's dtype -> (B, H, W, Cout) in x's dtype, summed in f32.  A CUDA tensor
-    goes to the kernel of its :func:`route` (and adds one to
-    ``conv3x3_nhwc.launches``, and to ``.tensor_core_launches`` in bf16), a
-    CPU tensor to the plain version (both through the custom op
-    ``umics::conv3x3_nhwc``).  When x or w requires grad the call is
+    goes to the kernel of its :func:`route` (counted as
+    ``LAUNCHES["conv3x3_nhwc"]``), a CPU tensor to the plain version (both
+    through the operator ``umics::conv3x3_nhwc``).  When x or w requires grad the call is
     differentiable: dx through :func:`conv3x3_nhwc_dx` (the kernel again,
     so Cout must lie in 8..64) and dw through :func:`conv3x3_nhwc_dw`.
     """
@@ -354,41 +342,18 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _forward(x, w)
 
 
-conv3x3_nhwc.launches = 0
-conv3x3_nhwc.tensor_core_launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load_library
-
-    lib = load_library("conv3x3")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.conv3x3_nhwc_bf16, lib.conv3x3_nhwc_f32):
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
-    lib.conv3x3_smem_bytes.argtypes = [i32, i32, i32]
-    lib.conv3x3_smem_bytes.restype = ctypes.c_longlong
-    lib.conv3x3_blocks_per_sm.argtypes = [i32, i32, i32]
-    lib.conv3x3_blocks_per_sm.restype = i32
-    lib.conv3x3_error_string.argtypes = [i32]
-    lib.conv3x3_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def kernel_smem_bytes(cin: int, cout: int, dtype: torch.dtype) -> int:
     """The built kernel's own count of a block's dynamic shared memory (needs
     nvcc and the library; :func:`launch_geometry` is its pure-Python mirror)."""
-    return _library().conv3x3_smem_bytes(cin, cout, int(route(dtype) == "tensor_core"))
+    return _CSRC.entry("conv3x3_smem_bytes")(cin, cout, int(route(dtype) == "tensor_core"))
 
 
 def kernel_blocks_per_sm(cin: int, cout: int, dtype: torch.dtype) -> int:
     """Blocks of the kernel resident on one SM at that shape (the CUDA
     occupancy calculator; needs the card)."""
-    n = _library().conv3x3_blocks_per_sm(cin, cout, int(route(dtype) == "tensor_core"))
+    n = _CSRC.entry("conv3x3_blocks_per_sm")(cin, cout, int(route(dtype) == "tensor_core"))
     if n < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
-                           f"{_library().conv3x3_error_string(-n).decode()}")
+        _CSRC.check(-n, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
     return n
 
 

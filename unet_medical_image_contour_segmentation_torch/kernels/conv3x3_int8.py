@@ -43,10 +43,11 @@ convolution on CUDA, so the plain version (:func:`conv3x3_int8_reference`)
 sums the im2col patch times the packed weight in float64 (exact: |acc| <= 9
 * 1024 * 127^2 < 2^53) and casts to int32.  The wrapper runs it for a CPU
 tensor; a CUDA tensor launches the kernel or raises.  Both go through the
-custom op ``umics::conv3x3_int8`` (``torch.library``; ``out_dtype`` and the
-optional ``x2`` are in its schema, and its fake implementation gives the
-output's shape and dtype), which ``torch.export`` traces through for the
-exported int8 program (``engine/export.py``).
+operator ``umics::conv3x3_int8``, declared through the kernels' one seam
+(``_build.py``; ``out_dtype`` and the optional ``x2`` are in its schema,
+its fake implementation gives the output's shape and dtype, and a launch
+is counted as ``LAUNCHES["conv3x3_int8"]``), which ``torch.export`` traces
+through for the exported int8 program (``engine/export.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ._build import KernelLibrary, register_op
 from .conv3x3 import _patches
 
 __all__ = [
@@ -293,7 +295,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _launch(x, wp, mul, badd, out_dtype, x2, act, inv_s) -> torch.Tensor:
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+_CSRC = KernelLibrary("conv3x3_int8", conv3x3_int8_nhwc=([_P] * 7 + [_I32] * 9 + [_P], _I32),
+                      conv3x3_int8_geometry=([_I32] * 6 + [ctypes.POINTER(_I32)], _I32))
+
+
+def _launch(x, wp, mul, badd, out_dtype, x2=None, act="relu", inv_s=None) -> torch.Tensor:
+    """One launch of csrc/conv3x3_int8.cu on CUDA tensors (checked by the caller)."""
     b, h, w, cin = x.shape
     cin2 = 0 if x2 is None else x2.shape[3]
     cout = mul.shape[0]
@@ -310,18 +318,21 @@ def _launch(x, wp, mul, badd, out_dtype, x2, act, inv_s) -> torch.Tensor:
     if x2 is not None:
         x, x2 = _aligned(x), _aligned(x2)
     y = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_int8_nhwc(x.data_ptr(), None if x2 is None else x2.data_ptr(),
-                                    wp.data_ptr(), mul.data_ptr(), badd.data_ptr(),
-                                    None if inv_s is None else inv_s.data_ptr(),
-                                    y.data_ptr(), b, h, w, cin, cin2, cout,
-                                    _OUT_KIND[out_dtype], _ACT[act], stream)
-    if err:
-        raise RuntimeError(f"conv3x3_int8 launch failed: "
-                           f"{lib.conv3x3_int8_error_string(err).decode()} ({err})")
+    _CSRC.launch("conv3x3_int8_nhwc", x, x.data_ptr(), None if x2 is None else x2.data_ptr(),
+                 wp.data_ptr(), mul.data_ptr(), badd.data_ptr(),
+                 None if inv_s is None else inv_s.data_ptr(), y.data_ptr(), b, h, w, cin, cin2,
+                 cout, _OUT_KIND[out_dtype], _ACT[act])
     return y
+
+
+def _fake(x, wp, mul, badd, out_dtype, x2=None, act="relu", inv_s=None):
+    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], mul.shape[0]), dtype=out_dtype)
+
+
+_conv3x3_int8_op = register_op(
+    'conv3x3_int8(Tensor x, Tensor wp, Tensor mul, Tensor badd, ScalarType out_dtype, '
+    'Tensor? x2, str act="relu", Tensor? inv_s=None) -> Tensor',
+    _launch, cpu=conv3x3_int8_reference, fake=_fake)
 
 
 def conv3x3_int8(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: torch.Tensor,
@@ -336,61 +347,19 @@ def conv3x3_int8(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor, badd: tor
     tensor, the output's 1 / scale) for a SiLU requant only (see the module
     docstring).
 
-    A CUDA tensor launches ``csrc/conv3x3_int8.cu`` (and adds one to
-    ``conv3x3_int8.launches``); a CPU tensor runs the plain version."""
+    A CUDA tensor launches ``csrc/conv3x3_int8.cu`` (counted as
+    ``LAUNCHES["conv3x3_int8"]``); a CPU tensor runs the plain version."""
     _check(x, wp, mul, badd, out_dtype, x2, act, inv_s)
     return _conv3x3_int8_op(x, wp, mul, badd, out_dtype, x2, act, inv_s)
-
-
-conv3x3_int8.launches = 0
-
-
-@torch.library.custom_op("umics::conv3x3_int8", mutates_args=(), device_types="cuda")
-def _conv3x3_int8_op(x: torch.Tensor, wp: torch.Tensor, mul: torch.Tensor,
-                     badd: torch.Tensor, out_dtype: torch.dtype,
-                     x2: Optional[torch.Tensor], act: str = "relu",
-                     inv_s: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The int8 conv on the card: one launch of csrc/conv3x3_int8.cu, counted."""
-    y = _launch(x, wp, mul, badd, out_dtype, x2, act, inv_s)
-    conv3x3_int8.launches += 1
-    return y
-
-
-@_conv3x3_int8_op.register_kernel("cpu")
-def _conv3x3_int8_cpu(x, wp, mul, badd, out_dtype, x2, act="relu", inv_s=None):
-    return conv3x3_int8_reference(x, wp, mul, badd, out_dtype, x2, act, inv_s)
-
-
-@_conv3x3_int8_op.register_fake
-def _conv3x3_int8_fake(x, wp, mul, badd, out_dtype, x2, act="relu", inv_s=None):
-    return x.new_empty((x.shape[0], x.shape[1], x.shape[2], mul.shape[0]), dtype=out_dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load_library
-
-    lib = load_library("conv3x3_int8")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_int8_nhwc.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-    lib.conv3x3_int8_nhwc.restype = i32
-    lib.conv3x3_int8_geometry.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
-    lib.conv3x3_int8_geometry.restype = i32
-    lib.conv3x3_int8_error_string.argtypes = [i32]
-    lib.conv3x3_int8_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def kernel_geometry(b: int, h: int, w: int, cin: int, cout: int, cin2: int = 0) -> Geometry:
     """The geometry the built kernel takes on the current CUDA device (its
     own ``conv3x3_int8_geometry``), for holding :func:`launch_geometry`
     against it."""
-    lib = _library()
     out = (ctypes.c_int * 9)()
-    err = lib.conv3x3_int8_geometry(b, h, w, cin, cin2, cout, out)
-    if err:
-        raise RuntimeError(f"conv3x3_int8_geometry failed: "
-                           f"{lib.conv3x3_int8_error_string(err).decode()} ({err})")
+    _CSRC.check(_CSRC.entry("conv3x3_int8_geometry")(b, h, w, cin, cin2, cout, out),
+                "conv3x3_int8_geometry")
     route, n, rows, n_pieces, stages, smem, n_tiles, grid, per_sm = out
     return Geometry(("tma", "im2col")[route], n, (rows, _TW), n_pieces, stages, smem, n_tiles,
                     grid, per_sm)

@@ -60,7 +60,7 @@ def _conv3x3_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
 def forward_flops(model: torch.nn.Module, h: int, w: int) -> int:
     """Forward operations of one (h, w) slice through ``model``, counted by
     ``FlopCounterMode`` over an f32 eval forward of a CPU copy at batch 1:
-    its convolutions (the hand 3x3 kernel's custom op included), transpose
+    its convolutions (the hand 3x3 kernel's operator included), transpose
     convolutions and matrix products, each product with a zero-padding tap
     left out, as XLA's cost analysis counts them (the JAX package's
     ``hlo_forward_flops``); elementwise work is not counted."""
